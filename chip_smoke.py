@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's β-extrapolation main path once on an NVIDIA GPU.
+"""Drive the torch port's main path and its ensembles once on an NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -20,7 +20,22 @@ on any failure, without printing a result.  Phases, one line each:
 6. the kernel launch counts of phase 5;
 7. CUDA-event times of each kernel and its plain version at the main path's
    shapes (plus K1 on bfloat16 streams and K2 at R = 1e7), and of the
-   pipeline call.
+   pipeline call;
+8. K4 against its plain version (float64 on the card) on the lnΠ grid shape
+   (64 macrostates x 1e6 samples, order 6, float32 and bfloat16), on the
+   flat R = 1e8 stream at order 7 (the x_is_u route) and weighted;
+9. K5: its draws against its consume of the ``_poisson_counts`` table, that
+   consume against the plain table version, identical batch rows, the grid
+   shape and the ⟨u⟩ path's shape (one row of R = 1e8, order 7) against its
+   plain version, and its weight sums against K3's;
+10. the ensembles, each path with its own fresh launch counts: ⟨u⟩(β) from
+    the R = 1e8 main samples (float32 and bfloat16 streams), the
+    64-macrostate lnΠ grid and the volume pipeline, each against its
+    analytic ideal-gas answer and the first two against the float64 plain
+    path;
+11. the exact kernel launch counts of each path of phase 10;
+12. CUDA-event times of K4, K5 and their plain versions and of the three
+    ensemble pipeline calls.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON object.
@@ -42,6 +57,10 @@ R_MAIN = 100_000_000
 NPART = 8
 NREP_MAIN = 256
 SEED = 20240607
+GRID_B = 64  # lnΠ macrostates N = 1..64 (benches/bench_pipeline.py:99-121)
+GRID_R = 1_000_000
+MU = 0.3
+VOLUMES = (0.9, 0.95, 1.0, 1.05, 1.1)
 
 
 def _card_line() -> str:
@@ -64,7 +83,7 @@ def main() -> int:
     from thermoextrap_tpu_torch import DataCentralMomentsVals, beta, factory_data_values, idealgas
     from thermoextrap_tpu_torch.ops import _build, dispatch, resample
     from thermoextrap_tpu_torch.ops import moments_cuda as mc
-    from thermoextrap_tpu_torch.pipeline import make_extrap_pipeline
+    from thermoextrap_tpu_torch.pipeline import make_extrap_pipeline, make_lnpi_pipeline, make_volume_pipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -277,11 +296,203 @@ def main() -> int:
         say(7, card=card, kernel=name, shape=shape, ms=k_ms, plain_ms=p_ms)
     say(7, card=card, pipeline_ms=t_pipe, R=R_MAIN, nrep=NREP_MAIN, order=ORDER, betas=len(BETAS))
 
+    # -- phase 8: K4 ---------------------------------------------------------------------
+    # the lnΠ grid: macrostate N holds U = the sum of N positions at beta0
+    grid = torch.stack(
+        [idealgas.u_sample((GRID_R, n), BETA0, rng=gen, dtype=torch.float32) for n in range(1, GRID_B + 1)]
+    )
+    k4_bar = {"uave_rtol": 1e-6, "du_rtol": 5e-3, "du_atol": 1e-4}
+
+    def check_k4(name, u2, order, w2=None):
+        """K4 on (nbatch, R) rows against its plain version in float64."""
+        ref = mc.reduce_umoments_plain(u2.double(), None if w2 is None else w2.double(), order)
+        got = mc.reduce_central_umoments_batched(u2, order, w2)
+        return max(
+            compare(name + " uave", got[:1], ref[:1], k4_bar["uave_rtol"], 0.0),
+            compare(name + " du", got[1:2], ref[1:2], k4_bar["du_rtol"], k4_bar["du_atol"]),
+        )
+
+    gridb = grid.to(torch.bfloat16)
+    wgrid = torch.rand(grid.shape, generator=gen, device=dev) + 0.5
+    k4_errs = {
+        "grid_f32": check_k4("K4 grid f32", grid, ORDER),
+        "grid_bf16": check_k4("K4 grid bf16", gridb, ORDER),
+        "flat_1e8_order7": check_k4("K4 flat", u[None], ORDER + 1),
+        "grid_weighted": check_k4("K4 grid weighted", grid, ORDER, wgrid),
+    }
+    errs["K4"] = max(k4_errs.values())
+    del gridb, wgrid
+    say(8, card=card, K4_max_abs_err=k4_errs, **k4_bar)
+
+    # -- phase 9: K5 ---------------------------------------------------------------------
+    r5 = 1 << 20
+    u5 = u[: 4 * r5].reshape(4, r5)
+    table5 = mc._poisson_counts(SEED, NREP_MAIN, r5, dev)
+    k5_draw = mc.resample_central_umoments_batched_poisson(u5, NREP_MAIN, ORDER, seed=SEED, return_wsum=True)
+    k5_table = mc.resample_umoments_table_cuda(u5, table5, ORDER, return_wsum=True)
+    err_draw_table = compare("K5 draws vs its table consume", k5_draw, k5_table, 1e-6, 1e-9)
+    err_table_plain = compare(
+        "K5 table consume vs plain", k5_table, mc.resample_umoments_plain(u5.double(), None, table5, ORDER), 1e-5, 1e-6
+    )
+    del table5, k5_draw, k5_table
+    same = grid[:1].expand(3, -1).contiguous()
+    rows = mc.resample_central_umoments_batched_poisson(same, NREP_MAIN, ORDER, seed=SEED)
+    if not all(torch.equal(t[..., 1:], t[..., :1].expand_as(t[..., 1:])) for t in rows):
+        raise AssertionError("K5 gave different replicates to identical batch rows")
+    k5_grid = mc.resample_central_umoments_batched_poisson(grid, NREP_MAIN, ORDER, seed=SEED)
+    ref5 = mc.resample_umoments_poisson_plain(grid.double(), None, NREP_MAIN, ORDER, seed=SEED)[:2]
+    err_grid = compare("K5 grid", k5_grid, ref5, 2e-3, 1e-5)
+    del ref5, k5_grid
+    # the ⟨u⟩ path's shape: one row of R = 1e8 at order 7 (its own layout);
+    # its weight sums (~1e8, beyond float32's exact integers) are held
+    # against K3's below
+    k5_flat = mc.resample_central_umoments_batched_poisson(u[None], NREP_MAIN, ORDER + 1, seed=SEED, return_wsum=True)
+    ref5f = mc.resample_umoments_poisson_plain(u[None].double(), None, NREP_MAIN, ORDER + 1, seed=SEED)
+    err_flat = compare("K5 flat", k5_flat[:2], ref5f[:2], 2e-3, 1e-5)
+    errs["K5"] = max(err_grid, err_flat)
+    wsum5 = k5_flat[2]
+    del ref5f
+    wsum3 = mc.resample_central_comoments_poisson(u, x1, NREP_MAIN, ORDER, seed=SEED, return_wsum=True)[4]
+    if not torch.equal(wsum5[:, 0], wsum3):
+        raise AssertionError(f"K5 weight sums differ from K3's: max diff {float((wsum5[:, 0] - wsum3).abs().max())}")
+    draws = {}
+    for shape_name, m in (("grid (64, 1e6) order 6", GRID_B * (ORDER + 1)), ("flat 1e8 order 7", ORDER + 2)):
+        nr, npt = mc._u_thread_split(m, NREP_MAIN)
+        draws[shape_name] = {"row_threads": nr, "rep_threads": npt, "draws_per_count": math.ceil(m / (nr * mc._URS_CB))}
+    say(
+        9,
+        card=card,
+        K5_draws_vs_table_max_abs_err=err_draw_table,
+        K5_table_vs_plain_max_abs_err=err_table_plain,
+        identical_rows_equal=True,
+        K5_grid_max_abs_err=err_grid,
+        K5_flat_order7_max_abs_err=err_flat,
+        wsum_equal_to_K3=True,
+        layout=draws,
+        rtol_table=1e-5,
+        atol_table=1e-6,
+        rtol_grid=2e-3,
+        atol_grid=1e-5,
+    )
+
+    # -- phase 10: the ensembles, with fresh launch counts --------------------------------
+    run_u = make_extrap_pipeline(order=ORDER, beta0=BETA0, x_is_u=True, nrep=NREP_MAIN)
+    run_u16 = make_extrap_pipeline(order=ORDER, beta0=BETA0, x_is_u=True, nrep=NREP_MAIN, bf16=True)
+    run_lnpi = make_lnpi_pipeline(ORDER, BETA0, nrep=NREP_MAIN)
+    run_vol = make_volume_pipeline(1.0, ndim=1, nrep=NREP_MAIN)
+    ncoord = torch.arange(1, GRID_B + 1, dtype=torch.float64, device=dev)
+    mudotn = MU * ncoord
+    lnpi0 = -0.01 * ncoord**2
+    wv = -BETA0 * u
+    volumes = torch.tensor(VOLUMES, dtype=torch.float64)
+    path_launches = {}
+
+    def counted(path, fn):
+        """Run one path with the counts set to 0 just before it."""
+        mc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        path_launches[path] = dict(mc.LAUNCHES)
+        return out
+
+    upred, ustd = counted("u_f32", lambda: run_u(u, betas, seed=SEED))
+    upred16, ustd16 = counted("u_bf16", lambda: run_u16(u, betas, seed=SEED))
+    lpred, lstd = counted("lnpi", lambda: run_lnpi(grid, lnpi0, mudotn, betas, seed=SEED))
+    vpred, vstd = counted("volume", lambda: run_vol(wv, x, x, volumes, seed=SEED))
+
+    def within(name, pred, std, truth, k):
+        diff = (pred - truth).abs()
+        if not bool(torch.isfinite(pred).all()) or not bool((diff <= k * std + 1e-6).all()):
+            raise AssertionError(f"{name}: |pred - ref| {diff.tolist()} beyond {k} sigma {std.tolist()}")
+        return float(diff.max())
+
+    dalpha = betas.to(dev) - BETA0
+    utruth = NPART * truth
+    c = idealgas._xave_series(BETA0, 1.0, ORDER - 1).to(dev)
+    integral = sum(c[n] * dalpha ** (n + 1) / (n + 1) for n in range(ORDER))
+    ltruth = lnpi0[None] + mudotn[None] * dalpha[:, None] - ncoord[None] * integral[:, None]
+    vtruth = torch.stack([idealgas.x_vol_extrap(1, 1.0, v, beta=BETA0)[0] for v in VOLUMES]).to(dev)
+    ens = {
+        "u_vs_analytic": within("<u> pipeline", upred, ustd, utruth, 5),
+        "u_bf16_vs_analytic": within("<u> pipeline bf16", upred16, ustd16, utruth, 5),
+        "lnpi_vs_analytic": within("lnPi pipeline", lpred, lstd, ltruth, 5),
+        "volume_vs_analytic": within("volume pipeline", vpred, vstd, vtruth, 5),
+        "u_bf16_vs_f32": float((upred16 - upred).abs().max()),
+    }
+    with dispatch.use_impl("torch"):
+        upred64 = make_extrap_pipeline(order=ORDER, beta0=BETA0, x_is_u=True)(u.double(), betas)
+        lpred64 = make_lnpi_pipeline(ORDER, BETA0)(grid.double(), lnpi0, mudotn, betas)
+    ens["u_vs_f64_plain"] = within("<u> pipeline vs float64 plain", upred, ustd, upred64, 0.1)
+    ens["lnpi_vs_f64_plain"] = within("lnPi pipeline vs float64 plain", lpred, lstd, lpred64, 0.1)
+    say(
+        10,
+        card=card,
+        betas=list(BETAS),
+        u_pred=upred.tolist(),
+        u_std=ustd.tolist(),
+        u_analytic=utruth.tolist(),
+        lnpi_max_std=float(lstd.max()),
+        volumes=list(VOLUMES),
+        volume_pred=vpred.tolist(),
+        volume_std=vstd.tolist(),
+        volume_analytic=vtruth.tolist(),
+        max_abs_diff=ens,
+    )
+
+    # -- phase 11: launch counts of each ensemble path ---------------------------------------
+    expected = {
+        "u_f32": {"K4": 1, "K5": 1},
+        "u_bf16": {"K4": 1, "K5": 1},
+        "lnpi": {"K4": 1, "K5": 1},
+        "volume": {"K1": 1, "K3": 1},
+    }
+    say(11, launches=path_launches)
+    for path, counts in path_launches.items():
+        want = {k: expected[path].get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"{path} path launched {counts}, expected {want}")
+    path_launches["main"] = launches
+
+    # -- phase 12: times of K4, K5 and the ensembles -----------------------------------------
+    times["K4"] = (
+        time_ms(lambda: mc.reduce_central_umoments_batched(grid, ORDER), 10),
+        time_ms(lambda: mc.reduce_umoments_plain(grid, None, ORDER), 5),
+    )
+    times["K5"] = (
+        time_ms(lambda: mc.resample_central_umoments_batched_poisson(grid, NREP_MAIN, ORDER, seed=SEED), 5),
+        time_ms(lambda: mc.resample_umoments_poisson_plain(grid, None, NREP_MAIN, ORDER, seed=SEED), 2),
+    )
+    u1 = u[None]
+    k4_flat = (
+        time_ms(lambda: mc.reduce_central_umoments_batched(u, ORDER + 1), 10),
+        time_ms(lambda: mc.reduce_umoments_plain(u1, None, ORDER + 1), 5),
+    )
+    k5_flat = (
+        time_ms(lambda: mc.resample_central_umoments_batched_poisson(u1, NREP_MAIN, ORDER + 1, seed=SEED), 5),
+        time_ms(lambda: mc.resample_umoments_poisson_plain(u1, None, NREP_MAIN, ORDER + 1, seed=SEED), 2),
+    )
+    say(12, card=card, kernel="K4", shape="(64, 1e6) order 6 f32", ms=times["K4"][0], plain_ms=times["K4"][1])
+    say(12, card=card, kernel="K4", shape="R=1e8 order 7 f32", ms=k4_flat[0], plain_ms=k4_flat[1])
+    say(12, card=card, kernel="K5", shape="(64, 1e6) order 6 nrep=256", ms=times["K5"][0], plain_ms=times["K5"][1])
+    say(12, card=card, kernel="K5", shape="R=1e8 order 7 nrep=256", ms=k5_flat[0], plain_ms=k5_flat[1])
+    say(
+        12,
+        card=card,
+        u_pipeline_ms=time_ms(lambda: run_u(u, betas, seed=SEED), 5),
+        u_bf16_pipeline_ms=time_ms(lambda: run_u16(u, betas, seed=SEED), 5),
+        lnpi_pipeline_ms=time_ms(lambda: run_lnpi(grid, lnpi0, mudotn, betas, seed=SEED), 5),
+        volume_pipeline_ms=time_ms(lambda: run_vol(wv, x, x, volumes, seed=SEED), 5),
+        nrep=NREP_MAIN,
+    )
+
+    # kernel: (source, TPU kernel it replaces, the path whose count is its `launches`)
     meta = {
-        "K1": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:192"),
-        "K2": ("comoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:548"),
-        "K3": ("comoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:914"),
-        "K6": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1875"),
+        "K1": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:192", "main"),
+        "K2": ("comoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:548", "main"),
+        "K3": ("comoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:914", "main"),
+        "K4": ("umoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1656", "u_f32"),
+        "K5": ("umoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1092", "u_f32"),
+        "K6": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1875", "main"),
     }
     kernels = [
         {
@@ -289,12 +500,13 @@ def main() -> int:
             "route": "cuda",
             "source": f"thermoextrap_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": path_launches[path][name],
+            "launches_by_path": {p: c[name] for p, c in path_launches.items() if c[name]},
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
         }
-        for name, (src, replaces) in meta.items()
+        for name, (src, replaces, path) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

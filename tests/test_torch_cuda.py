@@ -8,8 +8,10 @@ machine without them (``tests/conftest.py`` does import jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the float32 kernels against the float64 plain versions at the
-bar of tests/test_parallel.py:87 (rtol 2e-3, atol 1e-5); K3 against K2 on
-the same count table, which share one kernel body, at float32 roundoff.
+bar of tests/test_parallel.py:87 (rtol 2e-3, atol 1e-5), K4 at the bar of
+tests/test_parallel.py:158-161 (uave rtol 1e-6; du rtol 5e-3, atol 1e-4);
+K3 against K2, and K5 against its own consume of the same count table,
+which share one kernel body, at float32 roundoff.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 from _torch_parity import assert_close, cuda_device, npy, tt  # noqa: F401
 
 from thermoextrap_tpu_torch import pipeline as tpipe
+from thermoextrap_tpu_torch.ops import _build
 from thermoextrap_tpu_torch.ops import moments_cuda as mc
 
 pytestmark = pytest.mark.cuda
@@ -137,7 +140,7 @@ def test_kernel_rejects_grad(rng, cuda_device):
 def test_pipeline_on_gpu_matches_cpu(rng, cuda_device):
     """The pipeline runs K1 then K3 on CUDA input and agrees with the
     float64 CPU path to a tenth of its bootstrap error; a numpy weight works;
-    x_is_u on the GPU raises, naming the kernels it needs."""
+    x_is_u on the GPU runs K4 then K5 and agrees the same way."""
     nconfig = 200_000
     pos = -np.log(1.0 - rng.uniform(size=(nconfig, 20)) * (1.0 - np.exp(-1.0)))
     x, u = pos.mean(-1), pos.sum(-1)
@@ -154,5 +157,133 @@ def test_pipeline_on_gpu_matches_cpu(rng, cuda_device):
     assert np.all(np.abs(npy(wpred) - npy(wcpu)) <= 0.1 * npy(wstd) + 1e-6)
     bpred = tpipe.make_extrap_pipeline(6, 1.0, bf16=True)(tt(u).to(cuda_device), tt(x).to(cuda_device), tt(BETAS))
     assert np.all(np.abs(npy(bpred) - npy(cpu)) <= 2 * npy(std))
-    with pytest.raises(NotImplementedError, match="K4"):
-        tpipe.make_extrap_pipeline(6, 1.0, x_is_u=True)(tt(u).to(cuda_device), tt(BETAS))
+    ucpu = tpipe.make_extrap_pipeline(6, 1.0, x_is_u=True)(tt(u), tt(BETAS))
+    mc.reset_launches()
+    upred, ustd = tpipe.make_extrap_pipeline(6, 1.0, x_is_u=True, nrep=64)(tt(u).to(cuda_device), tt(BETAS))
+    assert mc.LAUNCHES["K4"] == 1 and mc.LAUNCHES["K5"] == 1 and mc.LAUNCHES["K1"] == 0
+    assert np.all(np.abs(npy(upred) - npy(ucpu)) <= 0.1 * npy(ustd) + 1e-6)
+
+
+def _grid_samples(rng, nbatch, r):
+    return np.linspace(-1.0, 1.0, nbatch)[:, None] + rng.normal(5.0, 1.0, (nbatch, r))
+
+
+@pytest.mark.parametrize(
+    ("shape", "order", "dtype", "weighted"),
+    [
+        ((64, 20_000), 6, torch.float32, False),
+        ((64, 20_000), 6, torch.bfloat16, False),
+        ((1_000_037,), 7, torch.float32, False),
+        ((5, 3001), 6, torch.float32, True),
+    ],
+)
+def test_k4_kernel_matches_plain(rng, cuda_device, shape, order, dtype, weighted):
+    """K4 against its plain version in float64 on the same (quantized) data."""
+    u = rng.normal(5.0, 1.0, shape)
+    w = rng.uniform(0.5, 1.5, shape) if weighted else None
+    ud = tt(u).to(dtype).to(cuda_device)
+    wd = None if w is None else tt(w).to(cuda_device)
+    ref = mc.reduce_central_umoments_batched(ud.double().cpu(), order, None if w is None else tt(w))
+    mc.reset_launches()
+    got = mc.reduce_central_umoments_batched(ud, order, wd)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["K4"] == 1
+    assert all(g.dtype == torch.float32 and g.is_cuda for g in got)
+    assert_close(got[0], ref[0], 1e-6)
+    assert_close(got[1], ref[1], 5e-3, 1e-4)
+
+
+def test_k5_kernel_counts_table_and_rows(rng, cuda_device):
+    """K5's draws equal its consume of the _poisson_counts table exactly; that
+    consume matches the plain table version to float32 roundoff; identical
+    rows give identical replicates; on one row K5's weight sums equal K3's."""
+    r, nrep, order = (1 << 16) + 3, 40, 6
+    u = _grid_samples(rng, 6, r)
+    uc = _f32(u, cuda_device)
+    table = mc._poisson_counts(9, nrep, r)
+    mc.reset_launches()
+    k5 = mc.resample_central_umoments_batched_poisson(uc, nrep, order, seed=9, return_wsum=True)
+    assert mc.LAUNCHES["K5"] == 1
+    consume = mc.resample_umoments_table_cuda(uc, table.to(cuda_device), order, return_wsum=True)
+    assert_close(k5, consume, 1e-6, 1e-9)
+    assert_close(consume, mc.resample_umoments_plain(tt(u), None, table, order), 1e-5, 1e-6)
+    same = _f32(np.broadcast_to(u[0], (3, r)), cuda_device)
+    rows = mc.resample_central_umoments_batched_poisson(same, nrep, order, seed=9)
+    assert all(torch.equal(t[..., 1:], t[..., :1].expand_as(t[..., 1:])) for t in rows)
+    k3 = mc.resample_central_comoments_poisson(uc[0], uc[0][:, None], nrep, order, seed=9, return_wsum=True)
+    _, _, wsum1 = mc.resample_central_umoments_batched_poisson(uc[:1], nrep, order, seed=9, return_wsum=True)
+    assert torch.equal(wsum1[:, 0], k3[4])
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_k5_kernel_matches_plain(rng, cuda_device, weighted):
+    nbatch, r, nrep, order = 64, 20_000, 64, 6
+    u = _grid_samples(rng, nbatch, r)
+    w = rng.uniform(0.5, 1.5, (nbatch, r)) if weighted else None
+    ref = mc.resample_central_umoments_batched_poisson(tt(u), nrep, order, None if w is None else tt(w), seed=4)
+    got = mc.resample_central_umoments_batched_poisson(
+        _f32(u, cuda_device), nrep, order, None if w is None else tt(w).to(cuda_device), seed=4
+    )
+    assert_close(got, ref, RTOL32, ATOL32)
+
+
+def test_k5_kernel_matches_plain_one_row(rng, cuda_device):
+    """The x_is_u route's shape: one row at order 7 with 256 replicates, the
+    layout with one row-thread and sample lanes summed in the block."""
+    r, nrep, order = 200_003, 256, 7
+    nr, _ = mc._u_thread_split(order + 1, nrep)
+    assert nr == 1
+    u = rng.normal(5.0, 1.0, (1, r))
+    ref = mc.resample_central_umoments_batched_poisson(tt(u), nrep, order, seed=11, return_wsum=True)
+    got = mc.resample_central_umoments_batched_poisson(_f32(u, cuda_device), nrep, order, seed=11, return_wsum=True)
+    assert_close(got, ref, RTOL32, ATOL32)
+
+
+def test_u_pipeline_bf16_streams(rng, cuda_device, monkeypatch):
+    """bf16=True on the x_is_u path hands K4 and K5 a bfloat16 stream."""
+    u = rng.normal(3.0, 0.5, 100_000)
+    lib = _build.library()
+    flags = {}
+
+    def spy(name, pos):
+        fn = getattr(lib, name)
+
+        def call(*args):
+            flags.setdefault(name, []).append(args[pos])
+            return fn(*args)
+
+        monkeypatch.setattr(lib, name, call)
+
+    spy("tx_reduce_umoments", 8)
+    spy("tx_resample_umoments", 13)
+    run = tpipe.make_extrap_pipeline(4, 1.0, x_is_u=True, nrep=32, bf16=True)
+    pred, std = run(tt(u).to(cuda_device), tt(BETAS))
+    torch.cuda.synchronize()
+    assert flags == {"tx_reduce_umoments": [1], "tx_resample_umoments": [1]}
+    ref = tpipe.make_extrap_pipeline(4, 1.0, x_is_u=True)(tt(u).to(torch.bfloat16).double(), tt(BETAS))
+    assert np.all(np.abs(npy(pred) - npy(ref)) <= 0.1 * npy(std) + 1e-6)
+
+
+def test_lnpi_and_volume_pipelines_on_gpu(rng, cuda_device):
+    """lnΠ runs K4 then K5, volume K1 then K3; both agree with the float64
+    CPU path to a tenth of their bootstrap error."""
+    n_grid, r = 16, 50_000
+    uv = _grid_samples(rng, n_grid, r)
+    lnpi0 = rng.normal(0.0, 1.0, n_grid)
+    mudotn = 0.7 * np.arange(n_grid, dtype=float)
+    cpu = tpipe.make_lnpi_pipeline(4, 1.0)(tt(uv), tt(lnpi0), tt(mudotn), tt(BETAS))
+    mc.reset_launches()
+    pred, std = tpipe.make_lnpi_pipeline(4, 1.0, nrep=64)(_f32(uv, cuda_device), lnpi0, mudotn, tt(BETAS))
+    assert mc.LAUNCHES["K4"] == 1 and mc.LAUNCHES["K5"] == 1
+    assert pred.shape == (3, n_grid)
+    assert np.all(np.abs(npy(pred) - npy(cpu)) <= 0.1 * npy(std) + 1e-6)
+    pos = -np.log(1.0 - rng.uniform(size=(r, 10)) * (1.0 - np.exp(-1.0)))
+    x, wv = pos.mean(-1), -pos.sum(-1)
+    vols = tt([0.9, 1.0, 1.1])
+    vcpu = tpipe.make_volume_pipeline(1.0, ndim=1)(tt(wv), tt(x), tt(x), vols)
+    mc.reset_launches()
+    vpred, vstd = tpipe.make_volume_pipeline(1.0, ndim=1, nrep=64)(
+        _f32(wv, cuda_device), _f32(x, cuda_device), _f32(x, cuda_device), vols
+    )
+    assert mc.LAUNCHES["K1"] == 1 and mc.LAUNCHES["K3"] == 1
+    assert np.all(np.abs(npy(vpred) - npy(vcpu)) <= 0.1 * npy(vstd) + 1e-6)

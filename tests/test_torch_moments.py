@@ -163,7 +163,9 @@ def test_cpu_path_launches_no_kernel(rng):
     mc.reduce_central_comoments_fused(tt(u), tt(x), 3)
     mc.reduce_central_comoments_batched(tt(u)[None], tt(x)[None], 3)
     dispatch.reduce_central(tt(u), tt(x), 3)
-    assert mc.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K6": 0}
+    mc.reduce_central_umoments_batched(tt(u), 3)
+    mc.resample_central_umoments_batched_poisson(tt(u)[None], 4, 3)
+    assert mc.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 
 
 def test_dispatch_impl_control(rng):
@@ -204,6 +206,11 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 
 def test_build_digest_tracks_sources():
     cu, cuh = _build._sources()
-    assert {p.name for p in cu} == {"comoments_reduce.cu", "comoments_resample.cu"}
-    assert {p.name for p in cuh} == {"common.cuh"}
+    assert {p.name for p in cu} == {
+        "comoments_reduce.cu",
+        "comoments_resample.cu",
+        "umoments_reduce.cu",
+        "umoments_resample.cu",
+    }
+    assert {p.name for p in cuh} == {"common.cuh", "philox.cuh"}
     assert len(_build._digest()) == 16

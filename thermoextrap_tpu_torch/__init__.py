@@ -2,8 +2,8 @@
 
 The port of the JAX package ``thermoextrap_tpu`` to PyTorch, with the TPU's
 Pallas kernels rewritten by hand in CUDA C++ for Hopper (``csrc/``, built on
-first use).  Module names mirror the JAX package.  This first slice carries
-the β-extrapolation main path:
+first use).  Module names mirror the JAX package.  It carries the
+β-extrapolation main path and the ensembles:
 
 - (co)moment reduction and bootstrap (:mod:`.ops.moments`,
   :mod:`.ops.resample`, kernels in :mod:`.ops.moments_cuda`, routed by
@@ -12,13 +12,16 @@ the β-extrapolation main path:
   :mod:`.models.derivatives`);
 - data containers (:mod:`.data`), the Taylor model (:mod:`.models.extrap`),
   the β factories (:mod:`.beta`), the ideal-gas oracle (:mod:`.idealgas`),
-  the serving pipeline (:mod:`.pipeline`) and the moment state shared with
-  the JAX package (:mod:`.interop`).
+  the serving pipelines (:mod:`.pipeline`) and the moment state shared with
+  the JAX package (:mod:`.interop`);
+- the lnΠ macrostate-grid expansion (:mod:`.lnpi`) and the volume expansion
+  (:mod:`.volume`, :mod:`.volume_idealgas`), with the batched u-moment
+  kernels K4 / K5 behind the lnΠ and ⟨u⟩ paths.
 
 Importing the package needs neither CUDA nor a compiler.
 """
 
-from . import beta, data, idealgas, interop, pipeline
+from . import beta, data, idealgas, interop, lnpi, pipeline, volume, volume_idealgas
 from .data import (
     DataCallback,
     DataCallbackABC,
@@ -47,5 +50,8 @@ __all__ = [
     "factory_data_values",
     "idealgas",
     "interop",
+    "lnpi",
     "pipeline",
+    "volume",
+    "volume_idealgas",
 ]

@@ -26,16 +26,10 @@
 // 16-byte shared loads.  No TF32 and no tensor cores: the sums must hold f32
 // accuracy (a looser TPU precision measured 2e-3 wrong).
 //
-// K3 counter layout (K8 must reuse it): the count of replicate r at global
-// sample index j is word (j & 3) of
-//   Philox4x32-10(counter = {(j >> 2) mod 2^32, r, (j >> 34) mod 2^32, 0},
-//                 key     = {seed mod 2^32, (seed >> 32) mod 2^32})
-// mapped to #{q : word > thresholds[q]} over the 9 truncated Poisson(1) CDF
-// cutoffs.  The counts are a pure function of (seed, r, j): they do not
-// depend on the launch shape, and adjacent seeds are different keys, so
-// their streams do not alias.
+// K3 draws its counts by the Philox schedule of philox.cuh (K5 and K8 share
+// it).
 
-#include "common.cuh"
+#include "philox.cuh"
 
 #define TX_RS_THREADS 256
 #define TX_RS_WARPS (TX_RS_THREADS / 32)
@@ -45,59 +39,6 @@
 #define TX_RS_TILE 512
 
 namespace {
-
-struct PoissonThresholds {
-  uint32_t t[9];
-};
-
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t lo0 = 0xD2511F53u * c[0];
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
-    const uint32_t lo1 = 0xCD9E8D57u * c[2];
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
-    const uint32_t n0 = hi1 ^ c[1] ^ k0;
-    const uint32_t n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-  }
-}
-
-// counts of one replicate for the 4 samples j .. j+3 (j a multiple of 4)
-struct PoissonCounts {
-  uint32_t k0, k1;
-  PoissonThresholds th;
-  long long R;
-  __device__ __forceinline__ void load4(int r, long long j, float f[4]) const {
-    uint32_t c[4] = {(uint32_t)(j >> 2), (uint32_t)r, (uint32_t)(j >> 34), 0u};
-    philox4x32_10(c, k0, k1);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int n = 0;
-#pragma unroll
-      for (int t = 0; t < 9; ++t) n += (c[q] > th.t[t]) ? 1 : 0;
-      f[q] = (j + q < R) ? (float)n : 0.f;
-    }
-  }
-};
-
-template <typename F>
-struct TableCounts {
-  const F* freq;
-  long long R;
-  __device__ __forceinline__ void load4(int r, long long j, float f[4]) const {
-    const F* row = freq + (long long)r * R;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) f[q] = (j + q < R) ? tx_to_float(row[j + q]) : 0.f;
-  }
-};
 
 template <typename T, typename Counts>
 __global__ void __launch_bounds__(TX_RS_THREADS)
@@ -210,15 +151,6 @@ __global__ void poisson_counts_kernel(PoissonCounts counts, int32_t* __restrict_
   for (int q = 0; q < 4; ++q) {
     if (j + q < R) out[(long long)r * R + j + q] = (int32_t)f[q];
   }
-}
-
-PoissonCounts make_poisson(long long seed, const unsigned int* thresholds, long long R) {
-  PoissonCounts pc;
-  pc.k0 = (uint32_t)((unsigned long long)seed & 0xffffffffull);
-  pc.k1 = (uint32_t)(((unsigned long long)seed >> 32) & 0xffffffffull);
-  for (int t = 0; t < 9; ++t) pc.th.t[t] = thresholds[t];
-  pc.R = R;
-  return pc;
 }
 
 template <typename T, typename Counts>

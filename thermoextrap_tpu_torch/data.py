@@ -1,7 +1,8 @@
 r"""Data layer: sample values and (co)moment containers on torch tensors.
 
 Counterpart of ``thermoextrap_tpu/data.py`` (its streaming methods ``zeros``
-/ ``merge`` / ``push_vals`` are not ported yet).  Layout conventions:
+/ ``merge`` / ``push_vals`` and ``from_data`` / ``cmom`` / ``rmom`` are not
+ported yet).  Layout conventions:
 
 - ``uv``: ``(*batch, rec)`` energy-like samples; ``batch`` is empty or
   ``(rep,)`` after a bootstrap.
@@ -26,7 +27,13 @@ import numpy as np
 import torch
 
 from .ops import dispatch
-from .ops.convert import merge_central_comoments, raw_from_central, u_from_xu_when_x_is_u
+from .ops.convert import (
+    central_comoments_from_raw,
+    central_from_raw,
+    merge_central_comoments,
+    raw_from_central,
+    u_from_xu_when_x_is_u,
+)
 from .ops.resample import freq_from_indices, random_indices, resample_values
 from .utils.random import validate_rng
 
@@ -72,6 +79,13 @@ def _as_tensor(a, device=None):
     if isinstance(a, torch.Tensor):
         return a if device is None else a.to(device)
     return torch.as_tensor(np.asarray(a), device=device)
+
+
+def _host_f64(a):
+    """An array or tensor as a float64 CPU tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device="cpu", dtype=torch.float64)
+    return torch.as_tensor(np.asarray(a, dtype=np.float64))
 
 
 def _pad_val(a, val_ndim: int):
@@ -372,6 +386,75 @@ class DataCentralMoments:
             xalpha=bool(xalpha),
             val_ndim=int(val_ndim),
         )
+
+    @classmethod
+    def from_raw(
+        cls,
+        u,
+        xu=None,
+        *,
+        wsum=None,
+        central: bool = False,
+        xalpha: bool = False,
+        x_is_u: bool = False,
+        val_ndim: int | None = None,
+        meta: DataCallbackABC | None = None,
+    ):
+        """From raw moments ``u[n] = <u^n>`` (``n = 0..K``, moment axis
+        leading, ``u[0] = 1``) and ``xu[n] = <x u^n>``.
+
+        With ``x_is_u=True`` (or ``xu=None``), ``xu[n] = u[n+1]`` by the shift
+        trick and ``order = K - 1``.  The raw → central conversion runs in
+        float64 on the host whatever the inputs' type (large raw energy
+        moments cancel catastrophically in float32); the fields land on the
+        device of ``u`` when it is a tensor, else on the CPU.
+        """
+        device = u.device if isinstance(u, torch.Tensor) else None
+        u = _host_f64(u)
+
+        def dev(a):
+            return a if device is None else a.to(device)
+
+        wsum_t = None if wsum is None else _as_tensor(wsum, device)
+        if x_is_u or xu is None:
+            du_full = dev(central_from_raw(u))  # K+1 entries
+            uave = dev(u[1])
+            order = int(u.shape[0] - 2)
+            return cls(
+                xave=uave,
+                uave=uave,
+                du=du_full[: order + 1],
+                dxdu=du_full[1:],  # <du du^n> = du[n+1], n = 0..order
+                wsum=torch.ones_like(uave) if wsum_t is None else wsum_t,
+                meta=meta if meta is not None else DataCallback(),
+                order=order,
+                central=bool(central),
+                x_is_u=True,
+                xalpha=False,
+                val_ndim=0 if val_ndim is None else int(val_ndim),
+            )
+        xu = _host_f64(xu)
+        if val_ndim is None:
+            val_ndim = xu.ndim - u.ndim - (1 if xalpha else 0)
+        u_b = _pad_val(u, xu.ndim - u.ndim)
+        xave, du, dxdu = (dev(a) for a in central_comoments_from_raw(u_b, xu))
+        uave = dev(u[1])
+        return cls(
+            xave=xave,
+            uave=uave,
+            du=du,
+            dxdu=dxdu,
+            wsum=torch.ones_like(uave) if wsum_t is None else wsum_t,
+            meta=meta if meta is not None else DataCallback(),
+            order=int(u.shape[0] - 1),
+            central=bool(central),
+            x_is_u=bool(x_is_u),
+            xalpha=bool(xalpha),
+            val_ndim=int(val_ndim),
+        )
+
+    # the reference's alias: the same contract, moment axis leading
+    from_ave_raw = from_raw
 
     @classmethod
     def from_resample_vals(

@@ -1,0 +1,113 @@
+"""Device time and idle share of the port's serving calls on one GPU.
+
+Run from the repository root on a CUDA machine::
+
+    python -m thermoextrap_tpu_torch.devtime
+
+It builds ``chip_smoke.py``'s inputs (R = 1e8 ideal-gas configurations of 8
+particles, the 64 x 1e6 lnΠ grid; same seed) and prints one JSON line per
+call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, and K4 and
+K5 alone.  Each line holds
+
+- ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
+- ``device_ms``: device time per call from ``torch.profiler`` over 5 more
+  calls, summing device-side activities only (kernels, copies, fills), so
+  that an operator and the kernel it launched are not counted twice;
+- ``idle``: ``1 - device_ms / wall_ms``;
+- ``top``: the kernels with the most device time per call, in ms.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+
+__all__ = ["device_time", "main"]
+
+ORDER = 6
+BETA0 = 5.6
+BETAS = (5.2, 5.4, 5.6, 5.8, 6.0)
+NREP = 256
+SEED = 20240607
+CALLS = 5
+# the profiler's own buffer allocation, reported as a device activity
+_OVERHEAD = ("Activity Buffer Request",)
+
+
+def device_time(fn, calls: int = CALLS):
+    """``(wall_ms, device_ms, top)`` per call of ``fn`` (see the module
+    docstring)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        walls.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and evt.name not in _OVERHEAD:
+            name = evt.name[:60]
+            per_kernel[name] = per_kernel.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / calls
+    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4])
+    return sum(walls) / calls, sum(per_kernel.values()), top
+
+
+def main() -> int:
+    import torch
+
+    from . import idealgas
+    from .ops import moments_cuda as mc
+    from .pipeline import make_extrap_pipeline, make_lnpi_pipeline, make_volume_pipeline
+
+    if not torch.cuda.is_available():
+        print("devtime: no CUDA device")
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        check=True,
+    ).stdout.strip()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x, u = idealgas.generate_data((100_000_000, 8), BETA0, rng=gen, dtype=torch.float32)
+    grid = torch.stack([idealgas.u_sample((1_000_000, n), BETA0, rng=gen, dtype=torch.float32) for n in range(1, 65)])
+    ncoord = torch.arange(1, 65, dtype=torch.float64, device=dev)
+    betas = torch.tensor(BETAS, dtype=torch.float64)
+    volumes = torch.tensor((0.9, 0.95, 1.0, 1.05, 1.1), dtype=torch.float64)
+    run = make_extrap_pipeline(order=ORDER, beta0=BETA0, nrep=NREP)
+    run_u = make_extrap_pipeline(order=ORDER, beta0=BETA0, x_is_u=True, nrep=NREP)
+    run_lnpi = make_lnpi_pipeline(ORDER, BETA0, nrep=NREP)
+    run_vol = make_volume_pipeline(1.0, ndim=1, nrep=NREP)
+    wv = -BETA0 * u
+    calls = {
+        "main_pipeline": lambda: run(u, x, betas, seed=SEED),
+        "u_pipeline": lambda: run_u(u, betas, seed=SEED),
+        "lnpi_pipeline": lambda: run_lnpi(grid, -0.01 * ncoord**2, 0.3 * ncoord, betas, seed=SEED),
+        "volume_pipeline": lambda: run_vol(wv, x, x, volumes, seed=SEED),
+        "K4_grid_order6": lambda: mc.reduce_central_umoments_batched(grid, ORDER),
+        "K4_flat_order7": lambda: mc.reduce_central_umoments_batched(u, ORDER + 1),
+        "K5_grid_order6": lambda: mc.resample_central_umoments_batched_poisson(grid, NREP, ORDER, seed=SEED),
+    }
+    for name, fn in calls.items():
+        wall, device, top = device_time(fn)
+        line = {"call": name, "card": card, "wall_ms": wall, "device_ms": device, "idle": 1.0 - device / wall}
+        print(json.dumps({**line, "top": top}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

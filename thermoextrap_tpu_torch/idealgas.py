@@ -5,7 +5,8 @@ external field (:math:`U = \sum_i x_i`, positions in :math:`[0, L]`), with
 
 .. math:: \langle x\rangle = 1/\beta - L/(e^{\beta L} - 1)
 
-and its β-derivatives from exact series division.  Samples are drawn with a
+and its β-derivatives from exact series division (its volume derivatives by
+nested autograd).  Samples are drawn with a
 ``torch.Generator`` on the requested device, so the ``(R, N)`` position
 block of a large run is made on the card.
 """
@@ -16,17 +17,28 @@ import math
 
 import torch
 
-from .ops.series import series_div
+from .ops.series import series_div, series_mul, series_neg_log
 from .utils.random import validate_rng
 
 __all__ = [
     "dbeta_xave",
+    "dbeta_xave_depend",
+    "dbeta_xave_depend_minuslog",
+    "dbeta_xave_minuslog",
+    "dvol_xave",
     "generate_data",
+    "u_prob",
     "u_sample",
     "x_ave",
     "x_beta_extrap",
+    "x_beta_extrap_depend",
+    "x_beta_extrap_depend_minuslog",
+    "x_beta_extrap_minuslog",
+    "x_cdf",
+    "x_prob",
     "x_sample",
     "x_var",
+    "x_vol_extrap",
 ]
 
 
@@ -45,6 +57,25 @@ def x_var(beta, vol=1.0):
     beta = _f64(beta)
     e = torch.exp(beta * vol)
     return 1.0 / beta**2 - vol**2 * e / (e - 1.0) ** 2
+
+
+def x_prob(x, beta, vol=1.0):
+    """Probability density of one position."""
+    beta = _f64(beta)
+    return beta * torch.exp(-beta * _f64(x)) / (1.0 - torch.exp(-beta * vol))
+
+
+def u_prob(u, npart, beta, vol=1.0):
+    """Gaussian approximation of the density of ``U`` for ``npart`` particles."""
+    u_ave = npart * x_ave(beta, vol)
+    u_std = torch.sqrt(npart * x_var(beta, vol))
+    z = (_f64(u) - u_ave) / u_std
+    return torch.exp(-0.5 * z**2) / (u_std * math.sqrt(2.0 * math.pi))
+
+
+def x_cdf(x, beta, vol=1.0):
+    beta = _f64(beta)
+    return (1.0 - torch.exp(-beta * _f64(x))) / (1.0 - torch.exp(-beta * vol))
 
 
 def x_sample(shape, beta, vol=1.0, rng=None, *, device=None, dtype=torch.float64):
@@ -91,10 +122,76 @@ def dbeta_xave(k: int):
     return f
 
 
+def _beta_series(beta0, order: int):
+    """Series of the function beta itself: ``[beta0, 1, 0, ...]``."""
+    c = torch.zeros(order + 1, dtype=torch.float64)
+    c[0] = float(beta0)
+    if order >= 1:
+        c[1] = 1.0
+    return c
+
+
+def _dbeta(series_fn):
+    """k-th beta derivative of the function whose Taylor series at beta0 is
+    ``series_fn(beta0, vol, k)``, as a callable of ``(beta0, vol)``."""
+
+    def deriv(k: int):
+        def f(beta0, vol=1.0):
+            return series_fn(beta0, vol, k)[k] * math.factorial(k)
+
+        return f
+
+    return deriv
+
+
+dbeta_xave_minuslog = _dbeta(lambda b, v, k: series_neg_log(_xave_series(b, v, k)))
+dbeta_xave_depend = _dbeta(lambda b, v, k: series_mul(_beta_series(b, k), _xave_series(b, v, k), order=k))
+dbeta_xave_depend_minuslog = _dbeta(
+    lambda b, v, k: series_neg_log(series_mul(_beta_series(b, k), _xave_series(b, v, k), order=k))
+)
+
+
+def dvol_xave(k: int):
+    """k-th volume derivative of <x> as a callable, by nested autograd."""
+
+    def f(beta0, vol=1.0):
+        v = torch.tensor(float(vol), dtype=torch.float64, requires_grad=k > 0)
+        y = x_ave(beta0, v)
+        for _ in range(k):
+            (y,) = torch.autograd.grad(y, v, create_graph=True)
+        return y.detach()
+
+    return f
+
+
+def _taylor(derivs, da):
+    """``(sum_k derivs[k] da^k / k!, derivs)``."""
+    derivs = torch.stack([_f64(v) for v in derivs])
+    return sum(v * da**k / math.factorial(k) for k, v in enumerate(derivs)), derivs
+
+
+def _extrap(coef_fn, order, beta0, beta, vol):
+    return _taylor([coef_fn(k)(beta0, vol) for k in range(order + 1)], _f64(beta) - beta0)
+
+
 def x_beta_extrap(order, beta0, beta, vol=1.0):
     """Analytic Taylor extrapolation to ``order`` and its unnormalized
     coefficients: ``(prediction, derivs (order+1,))``."""
-    dbeta = _f64(beta) - beta0
-    derivs = torch.stack([dbeta_xave(k)(beta0, vol) for k in range(order + 1)])
-    tot = sum(v * dbeta**k / math.factorial(k) for k, v in enumerate(derivs))
-    return tot, derivs
+    return _extrap(dbeta_xave, order, beta0, beta, vol)
+
+
+def x_beta_extrap_minuslog(order, beta0, beta, vol=1.0):
+    return _extrap(dbeta_xave_minuslog, order, beta0, beta, vol)
+
+
+def x_beta_extrap_depend(order, beta0, beta, vol=1.0):
+    return _extrap(dbeta_xave_depend, order, beta0, beta, vol)
+
+
+def x_beta_extrap_depend_minuslog(order, beta0, beta, vol=1.0):
+    return _extrap(dbeta_xave_depend_minuslog, order, beta0, beta, vol)
+
+
+def x_vol_extrap(order, vol0, vol, beta=1.0):
+    """Analytic volume extrapolation: ``(prediction, derivs (order+1,))``."""
+    return _taylor([dvol_xave(k)(beta, vol0) for k in range(order + 1)], _f64(vol) - vol0)

@@ -2,9 +2,11 @@
 
 The state of a β-extrapolation is its moment set, the fields of
 ``DataCentralMoments``: ``xave``, ``uave``, ``du``, ``dxdu``, ``wsum`` and
-the flags ``order``, ``central``, ``x_is_u``, ``xalpha``, ``val_ndim``.
-Both packages read and write it as numpy arrays, so a state reduced by one
-predicts in the other.
+the flags ``order``, ``central``, ``x_is_u``, ``xalpha``, ``val_ndim``.  An
+lnΠ state (``x_is_u``, macrostate grid in the batch axes) also carries the
+fields of its ``lnPiDataCallback``: ``lnPi0``, ``mudotN`` and
+``allow_resample``.  Both packages read and write it as numpy arrays, so a
+state reduced by one predicts in the other.
 """
 
 from __future__ import annotations
@@ -13,11 +15,13 @@ import numpy as np
 import torch
 
 from .data import DataCallback, DataCentralMoments
+from .lnpi import lnPiDataCallback
 
-__all__ = ["FIELDS", "FLAGS", "data_from_numpy", "data_to_numpy"]
+__all__ = ["FIELDS", "FLAGS", "LNPI_FIELDS", "data_from_numpy", "data_to_numpy"]
 
 FIELDS = ("xave", "uave", "du", "dxdu", "wsum")
 FLAGS = ("order", "central", "x_is_u", "xalpha", "val_ndim")
+LNPI_FIELDS = ("lnPi0", "mudotN")
 
 
 def data_from_numpy(
@@ -32,7 +36,9 @@ def data_from_numpy(
     dtype=None,
 ) -> DataCentralMoments:
     """Build the port's :class:`DataCentralMoments` from numpy arrays of its
-    fields, on ``device`` (CPU by default), cast to ``dtype`` when given."""
+    fields, on ``device`` (CPU by default), cast to ``dtype`` when given.
+    ``lnPi0`` and ``mudotN`` among the fields (and ``allow_resample``) give
+    it an :class:`.lnpi.lnPiDataCallback`."""
     missing = [name for name in FIELDS if name not in fields]
     if missing:
         msg = f"missing moment fields {missing}"
@@ -41,9 +47,13 @@ def data_from_numpy(
         name: torch.as_tensor(np.array(fields[name]), device=device, dtype=dtype)
         for name in FIELDS
     }
+    meta = DataCallback()
+    if "lnPi0" in fields:
+        lnpi = {name: torch.as_tensor(np.array(fields[name]), device=device) for name in LNPI_FIELDS}
+        meta = lnPiDataCallback(**lnpi, allow_resample=bool(fields.get("allow_resample", False)))
     return DataCentralMoments(
         **tensors,
-        meta=DataCallback(),
+        meta=meta,
         order=int(order),
         central=bool(central),
         x_is_u=bool(x_is_u),
@@ -57,6 +67,9 @@ def data_to_numpy(data) -> dict:
     :func:`data_from_numpy`; works on either package's state."""
     out = {name: np.asarray(_host(getattr(data, name))) for name in FIELDS}
     out.update({name: getattr(data, name) for name in FLAGS})
+    if all(hasattr(data.meta, name) for name in LNPI_FIELDS):
+        out.update({name: np.asarray(_host(getattr(data.meta, name))) for name in LNPI_FIELDS})
+        out["allow_resample"] = bool(data.meta.allow_resample)
     return out
 
 

@@ -1,7 +1,8 @@
 """Lazy build of the CUDA kernels in ``csrc/``.
 
-On first use the sources are compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
+On first use every source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.
 The library lives in ``thermoextrap_tpu_torch/_build/`` and its name carries
 a hash of the sources and flags, so an edited source builds anew.  Importing
 this module needs neither CUDA nor ``nvcc``; a failed build raises with
@@ -29,7 +30,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -55,6 +55,11 @@ _SIGNATURES = {
         _I,
     ),
     "tx_poisson_counts": ([_P, _LL, _I, _LL, _P, _I, _P], _I),
+    "tx_reduce_umoments": ([_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P], _I),
+    "tx_resample_umoments": (
+        [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I, _I, _I, _LL, _P, _I, _P],
+        _I,
+    ),
 }
 
 
@@ -89,19 +94,38 @@ def _nvcc() -> str:
     raise RuntimeError(msg)
 
 
+def _run(cmds):
+    """Run the commands at once; raise with nvcc's output if any fails.
+    Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            msg = f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{out}"
+            raise RuntimeError(msg)
+    return "".join(outs)
+
+
 def _compile(target: Path) -> None:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *map(str, cu)]
+    tag = f"{target.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{path.stem}.o" for path in cu]
+    tmp = target.with_name(f"{tag}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        log = _run(
+            [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(src)] for o, src in zip(objs, cu)]
+        )
+        log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        msg = f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        raise RuntimeError(msg)
-    log = proc.stdout + proc.stderr
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     target.with_suffix(".log").write_text(log)
     os.replace(tmp, target)
     BUILD_INFO.update(compiled=True, seconds=seconds, log=log)

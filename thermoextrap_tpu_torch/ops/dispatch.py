@@ -15,7 +15,7 @@ import torch
 
 from . import moments, moments_cuda, resample
 
-__all__ = ["reduce_central", "reduce_raw", "resample_central", "set_impl", "use_impl"]
+__all__ = ["reduce_central", "reduce_central_u", "reduce_raw", "resample_central", "set_impl", "use_impl"]
 
 _FORCE: str | None = None  # None = by device; "torch" | "cuda"
 
@@ -46,29 +46,28 @@ def _use_kernels(uv) -> bool:
     return uv.device.type == "cuda"
 
 
-def _unported_u_kernel():
-    msg = (
-        "x_is_u reductions on the GPU need the batched u-moment kernels K4 "
-        "(reduce_central_umoments_batched) and K5 "
-        "(resample_central_umoments_batched_poisson), which are not ported "
-        "yet; run the x_is_u path on CPU tensors"
-    )
-    return NotImplementedError(msg)
-
-
 def reduce_central(uv, xv, order, weight=None, val_ndim=1, x_is_u=False):
     """Central comoments ``(xave, uave, du, dxdu)`` of ``uv (*batch, R)``,
     ``xv (*batch, R, *val)``; the contract of
-    :func:`.moments.reduce_central_comoments`."""
+    :func:`.moments.reduce_central_comoments`.  With ``x_is_u`` (or ``xv is
+    uv``) the kernel route reads u once: K4 at ``order + 1`` gives the
+    comoments by the shift view ``dxdu[n] = du[n+1]``."""
     if _use_kernels(uv):
         if x_is_u or xv is uv:
-            if uv.device.type == "cuda":
-                raise _unported_u_kernel()
-        elif uv.ndim == 1:
+            uave, du_full = moments_cuda.reduce_central_umoments_batched(uv, order + 1, weight)
+            return uave, uave, du_full[: order + 1], du_full[1 : order + 2]
+        if uv.ndim == 1:
             return moments_cuda.reduce_central_comoments_fused(uv, xv, order, weight)
-        else:
-            return moments_cuda.reduce_central_comoments_batched(uv, xv, order, weight)
+        return moments_cuda.reduce_central_comoments_batched(uv, xv, order, weight)
     return moments.reduce_central_comoments(uv, xv, order, weight=weight, val_ndim=val_ndim)
+
+
+def reduce_central_u(uv, order, weight=None):
+    """Central u-moments ``(uave (*batch,), du (order+1, *batch))`` of every
+    row of ``uv (*batch, R)``: K4, or the float64 two-pass."""
+    if _use_kernels(uv):
+        return moments_cuda.reduce_central_umoments_batched(uv, order, weight)
+    return moments.reduce_central_umoments(uv, order, weight=weight)
 
 
 def reduce_raw(uv, xv, order, weight=None, val_ndim=1):

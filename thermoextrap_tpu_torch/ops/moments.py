@@ -18,6 +18,7 @@ from .convert import fix_central_du, fix_central_dxdu
 
 __all__ = [
     "reduce_central_comoments",
+    "reduce_central_umoments",
     "reduce_raw_comoments",
     "u_power_stack",
 ]
@@ -95,3 +96,20 @@ def reduce_central_comoments(uv, xv, order: int, weight=None, val_ndim: int = 1)
         du,
         dxdu.reshape((order + 1,) + batch + val_shape),
     )
+
+
+def reduce_central_umoments(uv, order: int, weight=None):
+    r"""Two-pass central u-moments of every row of ``uv (*batch, R)``:
+    ``uave (*batch,)`` and ``du (order+1, *batch)`` with ``du[0]=1`` and
+    ``du[1]=0`` exactly (the u-only half of
+    :func:`reduce_central_comoments`)."""
+    w = _normalize_weight(uv, weight)
+    wsum = w.sum(dim=-1)
+    uave = (w * uv).sum(dim=-1) / wsum
+    d = uv - uave[..., None]
+    rows = [torch.ones_like(uave), torch.zeros_like(uave)]
+    p = d * d
+    for _ in range(2, order + 1):
+        rows.append((w * p).sum(dim=-1) / wsum)
+        p = p * d
+    return uave, torch.stack(rows[: order + 1])

@@ -2,16 +2,18 @@ r"""Hand-written CUDA kernels for the (co)moment reduction and bootstrap,
 with the plain torch version of each beside it.
 
 Counterpart of ``thermoextrap_tpu/ops/moments_pallas.py`` for the kernels of
-the β-extrapolation main path:
+the β-extrapolation main path and of the lnΠ / ⟨u⟩ ensembles:
 
-======  ======================================  ===============================
-kernel  wrapper here                            CUDA source
-======  ======================================  ===============================
-K1      :func:`reduce_central_comoments_fused`   ``csrc/comoments_reduce.cu``
-K6      :func:`reduce_central_comoments_batched` ``csrc/comoments_reduce.cu``
-K2      :func:`resample_central_comoments_fused` ``csrc/comoments_resample.cu``
-K3      :func:`resample_central_comoments_poisson` ``csrc/comoments_resample.cu``
-======  ======================================  ===============================
+======  =================================================  ===============================
+kernel  wrapper here                                       CUDA source
+======  =================================================  ===============================
+K1      :func:`reduce_central_comoments_fused`              ``csrc/comoments_reduce.cu``
+K6      :func:`reduce_central_comoments_batched`            ``csrc/comoments_reduce.cu``
+K2      :func:`resample_central_comoments_fused`            ``csrc/comoments_resample.cu``
+K3      :func:`resample_central_comoments_poisson`          ``csrc/comoments_resample.cu``
+K4      :func:`reduce_central_umoments_batched`             ``csrc/umoments_reduce.cu``
+K5      :func:`resample_central_umoments_batched_poisson`   ``csrc/umoments_resample.cu``
+======  =================================================  ===============================
 
 Every wrapper runs its kernel on a CUDA tensor and its plain torch version on
 a CPU tensor; any other device raises.  On the card the sample streams are
@@ -19,10 +21,11 @@ float32 or bfloat16 (float64 is cast to float32 first), weights are float32,
 accumulation is float32 and the results are float32.  The plain versions keep
 float64.  Both share one algorithm: the shift is the weighted mean of the
 first :data:`HEAD_N` samples (:func:`_head_shift`), the kernel sums shifted
-powers, and one epilogue (:func:`_shifted_epilogue`) recentres the sums
-exactly.  Each wrapper adds one to ``LAUNCHES[name]`` when it launches its
-kernel.  The kernels are forward only: a CUDA input that requires grad
-raises, and the CPU path differentiates by autograd.
+powers, and one epilogue (:func:`_shifted_epilogue`, or :func:`_u_epilogue`
+for the u-moment kernels K4 and K5) recentres the sums exactly.  Each
+wrapper adds one to ``LAUNCHES[name]`` when it launches its kernel.  The
+kernels are forward only: a CUDA input that requires grad raises, and the
+CPU path differentiates by autograd.
 """
 
 from __future__ import annotations
@@ -42,22 +45,32 @@ __all__ = [
     "poisson_counts_cuda",
     "reduce_central_comoments_batched",
     "reduce_central_comoments_fused",
+    "reduce_central_umoments_batched",
     "reduce_comoments_plain",
+    "reduce_umoments_plain",
     "resample_central_comoments_fused",
     "resample_central_comoments_poisson",
+    "resample_central_umoments_batched_poisson",
     "resample_comoments_plain",
     "resample_poisson_plain",
+    "resample_umoments_plain",
+    "resample_umoments_poisson_plain",
+    "resample_umoments_table_cuda",
     "reset_launches",
 ]
 
 HEAD_N = 8192  # samples behind the shift estimate
 MAX_ORDER = 15  # TX_MAX_ORDER of csrc/common.cuh
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K6": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu
 _RS_REPS = 32  # TX_RS_REPS of comoments_resample.cu
 _RS_CB = 16  # TX_RS_CB
 _RS_TILE = 512  # TX_RS_TILE
+_URS_THREADS = 256  # TX_URS_THREADS of umoments_resample.cu
+_URS_RB = 4  # TX_URS_RB
+_URS_CB = 16  # TX_URS_CB
+_URS_TILE = 32  # TX_URS_TILE
 _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
 
 # count-table codes of tx_resample_comoments
@@ -101,23 +114,46 @@ def _plain_dtype(uv, xv):
     return torch.float64 if torch.float64 in (uv.dtype, xv.dtype) else torch.float32
 
 
-def _head_shift(u2, w2, x3, head_n: int = HEAD_N):
-    """Per-row shift ``(s_u (nbatch,), s_x (nbatch, V))``: the weighted mean
-    of the first ``head_n`` samples of ``u2 (nbatch, R)``, ``x3 (nbatch, R,
-    V)``, computed in ``u2``'s type.  A head of zero weight gives shift 0 (the
-    recentring is exact for any finite shift; 0/0 would poison every
-    output)."""
+def _head_shift(u2, w2, x3=None, head_n: int = HEAD_N):
+    """Per-row shift ``s_u (nbatch,)``, or ``(s_u, s_x (nbatch, V))`` when
+    ``x3`` is given: the weighted mean of the first ``head_n`` samples of
+    ``u2 (nbatch, R)``, ``x3 (nbatch, R, V)``, computed in ``u2``'s type.  A
+    head of zero weight gives shift 0 (the recentring is exact for any finite
+    shift; 0/0 would poison every output)."""
     head = min(head_n, u2.shape[1])
     uh = u2[:, :head]
-    xh = x3[:, :head].to(uh.dtype)
     wh = torch.ones_like(uh) if w2 is None else w2[:, :head].to(uh.dtype)
     hsum = wh.sum(-1)
     ok = hsum > 0
     safe = torch.where(ok, hsum, torch.ones_like(hsum))
     zero = torch.zeros((), dtype=uh.dtype, device=uh.device)
     s_u = torch.where(ok, (wh * uh).sum(-1) / safe, zero)
+    if x3 is None:
+        return s_u
+    xh = x3[:, :head].to(uh.dtype)
     s_x = torch.where(ok[:, None], (wh[:, :, None] * xh).sum(1) / safe[:, None], zero)
     return s_u, s_x
+
+
+def _normalized_u(sum_u):
+    """Raw u-moments ``sum_u / sum_u[0]`` with the finite convention of a row
+    of zero total weight (an all-zero bootstrap replicate): ``[1, 0, ...]``.
+    Returns ``(m, safe)``, ``safe`` the divisor used."""
+    wsum = sum_u[0]
+    ok = wsum > 0
+    safe = torch.where(ok, wsum, torch.ones_like(wsum))
+    m = sum_u / safe
+    m = torch.cat([torch.where(ok, m[0], torch.ones_like(m[0]))[None], m[1:]], dim=0)
+    return m, safe
+
+
+def _u_epilogue(sum_u, s_u):
+    """Shifted raw u power sums ``sum_u (order+1, *b)`` about ``s_u (*b)`` →
+    exact central u-moments ``(uave (*b), du (order+1, *b), wsum (*b))``
+    with ``du[0] = 1``, ``du[1] = 0``; a zero-weight row takes the finite
+    convention of :func:`_normalized_u`."""
+    m, _ = _normalized_u(sum_u)
+    return m[1] + s_u, fix_central_du(shift_raw_moments(m, m[1])), sum_u[0]
 
 
 def _shifted_epilogue(sum_u, sum_x, s_u, s_x):
@@ -131,18 +167,14 @@ def _shifted_epilogue(sum_u, sum_x, s_u, s_x):
     bootstrap: raw moments ``[1, 0, ...]``, so its means are the shift and
     its central moments vanish.
     """
-    wsum = sum_u[0]
-    ok = wsum > 0
-    safe = torch.where(ok, wsum, torch.ones_like(wsum))
-    m = sum_u / safe
-    m = torch.cat([torch.where(ok, m[0], torch.ones_like(m[0]))[None], m[1:]], dim=0)
+    m, safe = _normalized_u(sum_u)
     c = sum_x / safe[..., None]
     uave = m[1] + s_u
     xave = c[0] + s_x
     du = shift_raw_moments(m, m[1])
     x_du = shift_raw_comoments(c, m[1][..., None])
     dxdu = x_du - c[0][None] * du[..., None]
-    return xave, uave, fix_central_du(du), fix_central_dxdu(dxdu), wsum
+    return xave, uave, fix_central_du(du), fix_central_dxdu(dxdu), sum_u[0]
 
 
 def _check_cuda_inputs(*tensors):
@@ -155,13 +187,16 @@ def _check_cuda_inputs(*tensors):
             raise NotImplementedError(msg)
 
 
-def _device_kind(uv, xv, nlead: int) -> str:
-    """``"cpu"`` or ``"cuda"``; raises unless ``xv`` lies on ``uv``'s device
-    and its leading ``nlead`` axes are ``uv``'s (batch and sample) axes."""
+def _device_kind(uv, xv=None, nlead: int = 0) -> str:
+    """``"cpu"`` or ``"cuda"``; raises unless ``xv`` (when given) lies on
+    ``uv``'s device and its leading ``nlead`` axes are ``uv``'s (batch and
+    sample) axes."""
     kind = uv.device.type
     if kind not in ("cpu", "cuda"):
         msg = f"the moment kernels run on cuda or cpu tensors, not {uv.device}"
         raise ValueError(msg)
+    if xv is None:
+        return kind
     if xv.device != uv.device:
         msg = f"uv is on {uv.device} but xv on {xv.device}"
         raise ValueError(msg)
@@ -553,3 +588,258 @@ def poisson_counts_cuda(seed: int, nrep: int, nrec: int, device):
     )
     _build.check(status, "tx_poisson_counts")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4: batched u-moment reduction
+# ---------------------------------------------------------------------------
+
+
+def _u_rows(uv, weight):
+    """``uv (*batch, R)`` and its weight as ``(nbatch, R)`` rows (weight
+    broadcast to ``uv``'s shape, or None)."""
+    r = uv.shape[-1]
+    w = _weight_rows(weight, tuple(uv.shape), uv.device)
+    return uv.reshape(-1, r), None if w is None else w.reshape(-1, r)
+
+
+def _u_stream(u2, w2):
+    """Kernel operands: the stream in its type (bfloat16 stays, the rest is
+    float32), float32 weights, and the float32 head shift per row."""
+    sdt = torch.bfloat16 if u2.dtype == torch.bfloat16 else torch.float32
+    u = u2.to(sdt).contiguous()
+    w = None if w2 is None else w2.to(torch.float32).contiguous()
+    # the shift reads only the head: convert that, not the whole stream
+    head = slice(0, HEAD_N)
+    s_u = _head_shift(u[:, head].to(torch.float32), None if w is None else w[:, head]).contiguous()
+    return u, w, s_u, int(sdt == torch.bfloat16)
+
+
+def _plain_u_rows(u2, w2):
+    """Compute-type rows (float64 stays, the rest is float32) and their head
+    shift for the plain versions of K4 and K5."""
+    dtype = torch.float64 if u2.dtype == torch.float64 else torch.float32
+    u = u2.to(dtype)
+    w = None if w2 is None else w2.to(dtype)
+    return u, w, _head_shift(u, w)
+
+
+def reduce_umoments_plain(u2, w2, order: int):
+    """Plain torch version of K4 on ``u2 (nbatch, R)``, ``w2 (nbatch, R)``
+    or None: head shift, shifted power sums, shared epilogue.  Returns
+    ``(uave (nbatch,), du (order+1, nbatch), wsum (nbatch,))``."""
+    u, w, s_u = _plain_u_rows(u2, w2)
+    du = u - s_u[:, None]
+    p = torch.ones_like(u) if w is None else w
+    rows = []
+    for _ in range(order + 1):
+        rows.append(p.sum(-1))
+        p = p * du
+    return _u_epilogue(torch.stack(rows), s_u)
+
+
+def _reduce_u_cuda(u2, w2, order: int):
+    """Launch K4; returns ``(uave, du, wsum)`` (float32)."""
+    _check_cuda_inputs(u2, w2)
+    if order > MAX_ORDER:
+        msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
+        raise ValueError(msg)
+    u, w, s_u, bf16 = _u_stream(u2, w2)
+    nbatch, r = u.shape
+    nblk = max(1, min(1024, math.ceil(r / (_REDUCE_THREADS * 16))))
+    part = torch.empty((nbatch, nblk, order + 1), dtype=torch.float32, device=u.device)
+    lib = _build.library()
+    status = lib.tx_reduce_umoments(
+        u.data_ptr(),
+        None if w is None else w.data_ptr(),
+        s_u.data_ptr(),
+        part.data_ptr(),
+        nbatch,
+        r,
+        order,
+        nblk,
+        bf16,
+        u.device.index,
+        _stream_ptr(u.device),
+    )
+    _build.check(status, "tx_reduce_umoments")
+    # deterministic second pass over the block partials, in float64
+    out = _u_epilogue(part.double().sum(1).T, s_u.double())
+    return tuple(t.to(torch.float32) for t in out)
+
+
+def reduce_central_umoments_batched(uv, order: int, weight=None):
+    r"""K4: central u-moments of every row of ``uv (*batch, R)`` (flat
+    ``(R,)`` too), each row shifted by its own head mean.  Returns ``(uave
+    (*batch,), du (order+1, *batch))`` with ``du[0] = 1``, ``du[1] = 0``.
+    The kernel reads the u stream only (bfloat16 streams as it is)."""
+    batch = tuple(uv.shape[:-1])
+    u2, w2 = _u_rows(uv, weight)
+    if _device_kind(uv) == "cpu":
+        uave, du, _ = reduce_umoments_plain(u2, w2, order)
+    else:
+        uave, du, _ = _reduce_u_cuda(u2, w2, order)
+        LAUNCHES["K4"] += 1
+    return uave.reshape(batch), du.reshape((order + 1, *batch))
+
+
+# ---------------------------------------------------------------------------
+# K5: batched u-moment bootstrap, counts shared by every batch row
+# ---------------------------------------------------------------------------
+
+
+def _resample_u_sums_plain(u, w, counts, s_u, order: int):
+    """``counts (nrep, n) @`` the shifted u rows of ``u (nbatch, n)``:
+    ``sums (order+1, nrep, nbatch)``."""
+    du = u - s_u[:, None]
+    f = counts.to(device=u.device, dtype=u.dtype)
+    p = torch.ones_like(u) if w is None else w
+    rows = []
+    for _ in range(order + 1):
+        rows.append(f @ p.T)
+        p = p * du
+    return torch.stack(rows)
+
+
+def resample_umoments_plain(u2, w2, counts, order: int):
+    """Plain torch version of K5's consume: head shift per row, ``counts
+    (nrep, R) @`` the shifted rows of ``u2 (nbatch, R)``, shared epilogue.
+    Returns ``(uave (nrep, nbatch), du (order+1, nrep, nbatch), wsum (nrep,
+    nbatch))``."""
+    u, w, s_u = _plain_u_rows(u2, w2)
+    return _u_epilogue(_resample_u_sums_plain(u, w, counts, s_u, order), s_u)
+
+
+def resample_umoments_poisson_plain(u2, w2, nrep: int, order: int, *, seed: int = 0, chunk: int = 1 << 20):
+    """Plain torch version of K5: :func:`resample_umoments_plain` on the
+    counts of :func:`_poisson_counts` (the same for every batch row), drawn
+    and consumed ``chunk`` samples at a time so that the ``(nrep, R)`` table
+    never exists whole."""
+    u, w, s_u = _plain_u_rows(u2, w2)
+    r = u.shape[1]
+    chunk = max(4, chunk // 4 * 4)
+    sums = 0
+    for j0 in range(0, r, chunk):
+        j1 = min(r, j0 + chunk)
+        counts = _poisson_counts(seed, nrep, j1 - j0, u.device, start=j0)
+        sums = sums + _resample_u_sums_plain(
+            u[:, j0:j1], None if w is None else w[:, j0:j1], counts, s_u, order
+        )
+    return _u_epilogue(sums, s_u)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, math.ceil(math.log2(max(1, n))))
+
+
+def _u_thread_split(m: int, nrep: int):
+    """K5's block layout: ``(nr, np)`` row- and replicate-threads, the rest
+    of the 256 threads being sample lanes (at most 32).  A block holds up to
+    512 contribution rows, so a 64-macrostate grid at order 6 (448 rows)
+    draws each count once per replicate block."""
+    nr = min(32, _next_pow2(math.ceil(m / _URS_CB)))
+    npt = min(_URS_THREADS // nr, 32, _next_pow2(math.ceil(nrep / _URS_RB)))
+    npt = max(npt, _URS_THREADS // (nr * 32))
+    return nr, npt
+
+
+def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0):
+    """Launch K5 (Poisson counts drawn in the kernel, or the rows of the
+    int32 table ``freq (nrep, R)``); returns ``(uave, du, wsum)`` with batch
+    axes ``(nrep, nbatch)``, float32."""
+    _check_cuda_inputs(u2, w2)
+    if order > MAX_ORDER:
+        msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
+        raise ValueError(msg)
+    u, w, s_u, bf16 = _u_stream(u2, w2)
+    nbatch, r = u.shape
+    fptr = None
+    if freq is not None:
+        freq = torch.as_tensor(freq, device=u.device)
+        if freq.shape != (nrep, r):
+            msg = f"freq must have shape {(nrep, r)}, got {tuple(freq.shape)}"
+            raise ValueError(msg)
+        freq = freq.to(torch.int32).contiguous()
+        fptr = freq.data_ptr()
+    m = nbatch * (order + 1)
+    nr, npt = _u_thread_split(m, nrep)
+    ycount = math.ceil(nrep / (npt * _URS_RB))
+    zcount = math.ceil(m / (nr * _URS_CB))
+    ntile = math.ceil(r / _URS_TILE)
+    nchunk = max(1, min(ntile, math.ceil(_TARGET_BLOCKS / (ycount * zcount))))
+    chunk = math.ceil(ntile / nchunk) * _URS_TILE
+    nchunk = math.ceil(r / chunk)
+    part = torch.empty((nchunk, nrep, m), dtype=torch.float32, device=u.device)
+    thresholds = _thresholds()  # kept alive across the call
+    lib = _build.library()
+    status = lib.tx_resample_umoments(
+        u.data_ptr(),
+        None if w is None else w.data_ptr(),
+        fptr,
+        s_u.data_ptr(),
+        part.data_ptr(),
+        nbatch,
+        r,
+        order,
+        nrep,
+        nchunk,
+        chunk,
+        nr,
+        npt,
+        bf16,
+        int(seed),
+        thresholds,
+        u.device.index,
+        _stream_ptr(u.device),
+    )
+    _build.check(status, "tx_resample_umoments")
+    # deterministic second pass: (nrep, nbatch (order+1)) -> (order+1, nrep, nbatch)
+    sums = part.double().sum(0).reshape(nrep, nbatch, order + 1).permute(2, 0, 1)
+    out = _u_epilogue(sums, s_u.double())
+    return tuple(t.to(torch.float32) for t in out)
+
+
+def _resample_u_outputs(out, batch, return_wsum):
+    uave, du, wsum = out
+    nrep = uave.shape[0]
+    res = (uave.reshape((nrep, *batch)), du.reshape((du.shape[0], nrep, *batch)))
+    return res + (wsum.reshape((nrep, *batch)),) if return_wsum else res
+
+
+def resample_central_umoments_batched_poisson(
+    uv, nrep: int, order: int, weight=None, *, seed: int = 0, return_wsum: bool = False
+):
+    r"""K5: Poisson(1) bootstrap of the central u-moments of every row of
+    ``uv (*batch, R)``.  Replicate ``r`` gives sample ``j`` the same count in
+    every batch row (a replicate resamples whole configurations across a
+    macrostate grid), drawn in the kernel from ``seed`` by K3's schedule
+    (:func:`_poisson_counts`), so the ``(nrep, R)`` table never exists.
+    Returns ``(uave (nrep, *batch), du (order+1, nrep, *batch))``;
+    ``return_wsum=True`` appends the per-replicate weight sum ``(nrep,
+    *batch)``.  :func:`resample_umoments_poisson_plain` is the plain
+    version."""
+    batch = tuple(uv.shape[:-1])
+    u2, w2 = _u_rows(uv, weight)
+    if _device_kind(uv) == "cpu":
+        out = resample_umoments_poisson_plain(u2, w2, nrep, order, seed=seed)
+    else:
+        out = _resample_u_cuda(u2, w2, nrep, order, seed=seed)
+        LAUNCHES["K5"] += 1
+    return _resample_u_outputs(out, batch, return_wsum)
+
+
+def resample_umoments_table_cuda(uv, freq, order: int, weight=None, *, return_wsum: bool = False):
+    r"""K5's kernel consuming the rows of a count table ``freq (nrep, R)``
+    (int32; other integer types are converted) in place of its draws: the
+    parity hook that holds K5 against :func:`resample_umoments_plain` on a
+    materialized table such as ``_poisson_counts(seed, nrep, R)``.  CUDA
+    tensors only; same return contract as
+    :func:`resample_central_umoments_batched_poisson`."""
+    if _device_kind(uv) != "cuda":
+        msg = "resample_umoments_table_cuda runs the CUDA kernel: give it CUDA tensors"
+        raise ValueError(msg)
+    batch = tuple(uv.shape[:-1])
+    u2, w2 = _u_rows(uv, weight)
+    out = _resample_u_cuda(u2, w2, freq.shape[0], order, freq=freq)
+    LAUNCHES["K5"] += 1
+    return _resample_u_outputs(out, batch, return_wsum)
