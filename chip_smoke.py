@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's main path and its ensembles once on an NVIDIA GPU.
+"""Drive the torch port's main path, its ensembles, the perturbation path and
+the streaming pipelines once on an NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -35,10 +36,34 @@ on any failure, without printing a result.  Phases, one line each:
     path;
 11. the exact kernel launch counts of each path of phase 10;
 12. CUDA-event times of K4, K5 and their plain versions and of the three
-    ensemble pipeline calls.
+    ensemble pipeline calls;
+13. K7 against its plain version (float64 on the card) at the perturbation
+    path's shape (R = 1e7, 5 targets, one value column, 128 replicates, int8
+    table) and on a small odd shape with more than 512 contribution rows and
+    int8, int32 and fractional float32 tables;
+14. K8: equal to K7 on its own count table bit for bit, against its float64
+    plain version at R = 1e7, its weight sums at e = 1 against K3's, and two
+    seeds;
+15. the perturbation path (R = 1e7, 128 replicates) with the counts drawn in
+    the kernel and from a table, each with fresh launch counts, against the
+    exact ideal-gas answer, the exact sigma at beta0 and ``PerturbModel``,
+    at two call seeds; K8 at R = 1e8 against its plain version, then one call
+    there whose sigma is held against that version's and the exact one; and a
+    small pipeline call fed numpy arrays, which must run on the card;
+16. K3 and K5 on one streaming chunk (1e7 samples; 64 x 250k at order 7),
+    weight sums included, against their plain versions; the streaming
+    pipelines with fresh launch counts: the main path's R = 1e8 samples in 10
+    chunks and the lnΠ grid in 4 chunks against their one-shot calls, and
+    the streaming perturbation against the one-shot R = 1e8 call;
+17. CUDA-event times of K7, K8, their plain versions, the library matrix
+    products that compute K2's and K7's sums, the perturbation calls and one
+    streaming update.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is the device JSON object.
+Each kernel's bound is the least time the card could take for the same work:
+the larger of its bytes (inputs read once, outputs written once) over the
+memory rate and its operations over their peak rate, worked out from the
+shapes of this run.  The line before the last is a JSON object with one entry
+per kernel; the last line is the device JSON object.
 """
 
 from __future__ import annotations
@@ -61,6 +86,35 @@ GRID_B = 64  # lnΠ macrostates N = 1..64 (benches/bench_pipeline.py:99-121)
 GRID_R = 1_000_000
 MU = 0.3
 VOLUMES = (0.9, 0.95, 1.0, 1.05, 1.1)
+R_PERTURB = 10_000_000  # the perturbation path's size (benches/bench_pipeline.py:147-151)
+NREP_PERTURB = 128
+STREAM_CHUNKS = 10
+GRID_CHUNKS = 4
+
+# Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
+# tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
+# INT32 lanes beside its 128 FP32 lanes, so half the FMA instruction rate.
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+INT32_OPS = 16.75e12
+# Integer operations one in-kernel Poisson count needs (csrc/philox.cuh): a
+# Philox4x32-10 call serves 4 counts with 10 rounds of 2 wide multiplies (low
+# and high half in one instruction) and 2 three-input XORs plus 18 key
+# additions (58), and each count takes 9 compares with the addition folded in
+# and one conversion: 58 / 4 + 10.  The SASS of the draw
+# (python -m thermoextrap_tpu_torch.drawcost) has the 2 wide multiplies per
+# round and 42.5 integer instructions per count in all, register moves and
+# separate compares and additions among them; the bound counts the fewer.
+DRAW_OPS_PER_COUNT = 58 / 4 + 10
+
+
+def bound(nbytes: float, fmas: float = 0.0, draws: float = 0.0):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory rate
+    and the operations over their peak rate (float32 FMAs, and the integer
+    operations of the in-kernel Poisson draws)."""
+    bytes_ms = nbytes / HBM_BPS * 1e3
+    ops_ms = max(2.0 * fmas / F32_FLOPS, draws * DRAW_OPS_PER_COUNT / INT32_OPS) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def _card_line() -> str:
@@ -83,7 +137,17 @@ def main() -> int:
     from thermoextrap_tpu_torch import DataCentralMomentsVals, beta, factory_data_values, idealgas
     from thermoextrap_tpu_torch.ops import _build, dispatch, resample
     from thermoextrap_tpu_torch.ops import moments_cuda as mc
-    from thermoextrap_tpu_torch.pipeline import make_extrap_pipeline, make_lnpi_pipeline, make_volume_pipeline
+    from thermoextrap_tpu_torch.pipeline import (
+        _chunk_seed,
+        _perturb_weights,
+        make_extrap_pipeline,
+        make_lnpi_pipeline,
+        make_perturb_pipeline,
+        make_streaming_extrap_pipeline,
+        make_streaming_lnpi_pipeline,
+        make_streaming_perturb_pipeline,
+        make_volume_pipeline,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -113,6 +177,16 @@ def main() -> int:
     def lead(out):
         """The flat view of a (nbatch=1) plain reduction."""
         return out[0][0], out[1][0], out[2][:, 0], out[3][:, 0]
+
+    def timed(fn):
+        """``(result, ms)`` of one call, by CUDA events."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
 
     # -- phase 1: environment and build ---------------------------------------
     say(
@@ -188,8 +262,9 @@ def main() -> int:
     err_k3k2 = compare("K3 vs K2", k3, k2, 1e-6, 1e-9)
     del counts, counts_ref, k3, k2
     k3_main = mc.resample_central_comoments_poisson(u, x1, NREP_MAIN, ORDER, seed=SEED)
-    ref3 = mc.resample_poisson_plain(u.double(), x1.double(), NREP_MAIN, ORDER, seed=SEED)[:4]
-    errs["K3"] = compare("K3", k3_main, ref3, 2e-3, 1e-5)
+    # the plain version takes seconds: this one call is also its time
+    ref3, k3_plain_ms = timed(lambda: mc.resample_poisson_plain(u.double(), x1.double(), NREP_MAIN, ORDER, seed=SEED))
+    errs["K3"] = compare("K3", k3_main, ref3[:4], 2e-3, 1e-5)
     xstd = float(k3_main[0].double().std())
     if not xstd > 0:
         raise AssertionError(f"K3 replicate means do not scatter (std {xstd})")
@@ -276,10 +351,15 @@ def main() -> int:
         ),
         "K3": (
             time_ms(lambda: mc.resample_central_comoments_poisson(u, x1, NREP_MAIN, ORDER, seed=SEED), 5),
-            time_ms(lambda: mc.resample_poisson_plain(u, x1, NREP_MAIN, ORDER, seed=SEED), 2),
+            k3_plain_ms,
         ),
     }
-    shapes = {"K1": "R=1e8 V=1 f32", "K6": "(100, 1e5) V=1 f32", "K2": "R=1e5 nrep=100 int32", "K3": "R=1e8 nrep=256"}
+    shapes = {
+        "K1": "R=1e8 V=1 f32",
+        "K6": "(100, 1e5) V=1 f32",
+        "K2": "R=1e5 nrep=100 int32",
+        "K3": "R=1e8 nrep=256 (plain: float64, one call)",
+    }
     ub, xb = u.to(torch.bfloat16), x1.to(torch.bfloat16)
     extra = {
         "K1": ("R=1e8 V=1 bf16", time_ms(lambda: mc.reduce_central_comoments_fused(ub, xb, ORDER), 10), None),
@@ -347,7 +427,9 @@ def main() -> int:
     # its weight sums (~1e8, beyond float32's exact integers) are held
     # against K3's below
     k5_flat = mc.resample_central_umoments_batched_poisson(u[None], NREP_MAIN, ORDER + 1, seed=SEED, return_wsum=True)
-    ref5f = mc.resample_umoments_poisson_plain(u[None].double(), None, NREP_MAIN, ORDER + 1, seed=SEED)
+    ref5f, k5_flat_plain_ms = timed(
+        lambda: mc.resample_umoments_poisson_plain(u[None].double(), None, NREP_MAIN, ORDER + 1, seed=SEED)
+    )
     err_flat = compare("K5 flat", k5_flat[:2], ref5f[:2], 2e-3, 1e-5)
     errs["K5"] = max(err_grid, err_flat)
     wsum5 = k5_flat[2]
@@ -469,7 +551,7 @@ def main() -> int:
     )
     k5_flat = (
         time_ms(lambda: mc.resample_central_umoments_batched_poisson(u1, NREP_MAIN, ORDER + 1, seed=SEED), 5),
-        time_ms(lambda: mc.resample_umoments_poisson_plain(u1, None, NREP_MAIN, ORDER + 1, seed=SEED), 2),
+        k5_flat_plain_ms,  # float64, the one call of phase 9
     )
     say(12, card=card, kernel="K4", shape="(64, 1e6) order 6 f32", ms=times["K4"][0], plain_ms=times["K4"][1])
     say(12, card=card, kernel="K4", shape="R=1e8 order 7 f32", ms=k4_flat[0], plain_ms=k4_flat[1])
@@ -485,6 +567,304 @@ def main() -> int:
         nrep=NREP_MAIN,
     )
 
+    # -- phase 13: K7 ---------------------------------------------------------------------
+    def rel_err(name, got, ref, bar):
+        """Largest relative error of positive sums; fails beyond ``bar``."""
+        got, ref = got.double(), ref.double()
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()) or not bool((ref > 0).all()):
+            raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}, non-finite or non-positive sums")
+        worst = float(((got - ref).abs() / ref).max())
+        if not worst <= bar:
+            raise AssertionError(f"{name}: max relative error {worst} beyond {bar}")
+        return worst, float((got - ref).abs().max())
+
+    up, xp = u[:R_PERTURB], x1[:R_PERTURB]
+    dalpha32 = (betas.to(dev) - BETA0).to(torch.float32)
+    ep = _perturb_weights(up, dalpha32, None)  # (5, 1e7) float32, as the pipeline builds it
+    na, vp = ep.shape[0], xp.shape[1]
+    table7 = resample.poisson1_freq(gen, (NREP_PERTURB, R_PERTURB), dtype=torch.int8)
+    ref7, k7_plain_ms = timed(lambda: mc.resample_perturb_plain(ep.double(), xp.double(), table7))
+    k7_rel, errs["K7"] = rel_err("K7 int8", mc.resample_perturb_freq(ep, xp, table7), ref7, 1e-5)
+    del ref7
+    # a small odd shape: R a multiple of no tile, V = 2, zero columns in a
+    # weighted e, 171 x 3 = 513 contribution rows (two row tiles), 37 replicates
+    ro, ao, nrepo = 100_003, 171, 37
+    uo = u[:ro]
+    xo = torch.stack([x[:ro], x[:ro] ** 2], dim=1)
+    wo = (torch.rand(ro, generator=gen, device=dev) > 0.25).float() * (torch.rand(ro, generator=gen, device=dev) + 0.5)
+    eo = _perturb_weights(uo, torch.linspace(-0.4, 0.4, ao, device=dev), wo)
+    if not bool((eo[:, wo == 0] == 0).all()):
+        raise AssertionError("zero-weight samples did not give exact zero perturbation weights")
+    table_o = resample.poisson1_freq(gen, (nrepo, ro), dtype=torch.int32)
+    frac_o = table_o.float() * 0.5 + 0.25
+    k7_odd = {}
+    for tag, tab in (("int8", table_o.to(torch.int8)), ("int32", table_o), ("float32", frac_o)):
+        ref_o = mc.resample_perturb_plain(eo.double(), xo.double(), tab)
+        k7_odd[tag] = rel_err(f"K7 odd shape {tag}", mc.resample_perturb_freq(eo, xo, tab), ref_o, 1e-5)[0]
+    say(13, card=card, K7_max_rel_err=k7_rel, K7_max_abs_err=errs["K7"], K7_odd_shape_max_rel_err=k7_odd, bar=1e-5)
+
+    # -- phase 14: K8 ---------------------------------------------------------------------
+    k8 = mc.resample_perturb_poisson(ep, xp, NREP_PERTURB, seed=SEED)
+    counts8 = mc.poisson_counts_cuda(SEED, NREP_PERTURB, R_PERTURB, dev)
+    if not torch.equal(k8, mc.resample_perturb_freq(ep, xp, counts8)):
+        raise AssertionError("K8 differs from K7 on its own count table")
+    del counts8
+    ref8, k8_plain_ms = timed(lambda: mc.resample_perturb_poisson_plain(ep.double(), xp.double(), NREP_PERTURB, seed=SEED))
+    k8_rel, errs["K8"] = rel_err("K8", k8, ref8, 1e-5)
+    del ref8
+    ones8 = torch.ones((1, R_PERTURB), dtype=torch.float32, device=dev)
+    wsum8 = mc.resample_perturb_poisson(ones8, xp, NREP_PERTURB, seed=SEED)[0, :, -1]
+    wsum3 = mc.resample_central_comoments_poisson(up, xp, NREP_PERTURB, ORDER, seed=SEED, return_wsum=True)[4]
+    if not torch.equal(wsum8, wsum3):
+        raise AssertionError(f"K8 weight sums at e = 1 differ from K3's: max diff {float((wsum8 - wsum3).abs().max())}")
+    if torch.equal(k8, mc.resample_perturb_poisson(ep, xp, NREP_PERTURB, seed=SEED + 1)):
+        raise AssertionError("K8 gave the same sums for two seeds")
+    del ones8, k8
+    say(
+        14,
+        card=card,
+        K8_equals_K7_on_its_table=True,
+        K8_max_rel_err_vs_f64_plain=k8_rel,
+        K8_max_abs_err=errs["K8"],
+        bar=1e-5,
+        reference_bar=3.3e-7,
+        wsum_equal_to_K3=True,
+        seeds_differ=True,
+    )
+
+    # -- phase 15: the perturbation path, each mode with fresh launch counts --------------
+    run_pd = make_perturb_pipeline(BETA0, nrep=NREP_PERTURB, poisson="device")
+    run_pt = make_perturb_pipeline(BETA0, nrep=NREP_PERTURB, poisson="table")
+    xpf = x[:R_PERTURB]
+    # the calls a user makes, with the default seed
+    ppred_d, pstd_d = counted("perturb_device", lambda: run_pd(up, xpf, betas))
+    ppred_t, pstd_t = counted("perturb_table", lambda: run_pt(up, xpf, betas))
+    ptruth = idealgas.x_ave(betas).to(dev)
+    # at beta0 the prediction is the plain mean, whose exact sigma is known;
+    # a sigma from 128 replicates has a standard error of 6% of itself
+    sigma0 = math.sqrt(float(idealgas.x_var(BETA0)) / NPART / R_PERTURB)
+    at0 = BETAS.index(BETA0)
+    for mode, got in (("device", pstd_d), ("table", pstd_t)):
+        if not 0.7 < float(got[at0]) / sigma0 < 1.3:
+            raise AssertionError(f"perturbation sigma at beta0 ({mode}) {float(got[at0])} is not within 30% of the exact {sigma0}")
+    pert = {
+        "device_vs_exact": within("perturbation pipeline (device)", ppred_d, pstd_d, ptruth, 5),
+        "table_vs_exact": within("perturbation pipeline (table)", ppred_t, pstd_t, ptruth, 5),
+    }
+    if not torch.equal(ppred_d, ppred_t):
+        raise AssertionError("the two perturbation modes predict differently")
+    ratio = pstd_d / pstd_t
+    if not bool(((ratio > 0.7) & (ratio < 1.3)).all()):
+        raise AssertionError(f"the two modes' sigmas differ by more than 30%: {pstd_d.tolist()} vs {pstd_t.tolist()}")
+    mpred = beta.factory_perturbmodel(BETA0, up, xpf).predict(betas.to(dev))
+    pert["model_vs_pipeline_rel"] = float(((mpred.double() - ppred_d) / ppred_d).abs().max())
+    if not pert["model_vs_pipeline_rel"] <= 1e-6:
+        raise AssertionError(f"PerturbModel.predict differs from the pipeline by {pert['model_vs_pipeline_rel']} (relative)")
+    del mpred
+    # a second call seed.  Two independent sigmas of 128 replicates, each with
+    # a standard error of 6.3% of itself, have a ratio that scatters by 9%: 40%
+    # is 4.5 of those, and this seed is the widest of those tried (1.27-1.30)
+    _, pstd_d2 = run_pd(up, xpf, betas, seed=SEED)
+    _, pstd_t2 = run_pt(up, xpf, betas, seed=SEED)
+    ratio2 = pstd_d2 / pstd_t2
+    if not bool(((ratio2 > 0.6) & (ratio2 < 1.4)).all()):
+        raise AssertionError(f"seed {SEED}: the two modes' sigmas differ by more than 40%: {pstd_d2.tolist()} vs {pstd_t2.tolist()}")
+    for mode, got in (("device", pstd_d2), ("table", pstd_t2)):
+        if not 0.6 < float(got[at0]) / sigma0 < 1.4:
+            raise AssertionError(f"seed {SEED}: perturbation sigma at beta0 ({mode}) {float(got[at0])} is not within 40% of the exact {sigma0}")
+    # R = 1e8: e is 2 GB at 5 targets, and building it takes two such blocks.
+    # K8 picks another chunking there, so it is held against its float64 plain
+    # version at this shape too, and the call's sigma against that version's
+    ebig = _perturb_weights(u, dalpha32, None)
+    k8_big = mc.resample_perturb_poisson(ebig, x1, NREP_PERTURB, seed=SEED)
+    ref8_big = mc.resample_perturb_poisson_plain(ebig, x1.double(), NREP_PERTURB, seed=SEED)
+    k8_big_rel, _ = rel_err("K8 at R = 1e8", k8_big, ref8_big, 1e-5)
+    std_plain_big = (ref8_big[..., :vp] / ref8_big[..., vp:]).std(dim=1, correction=0)[:, 0]
+    del ebig, k8_big, ref8_big
+    ppred_big, pstd_big = counted("perturb_device_1e8", lambda: run_pd(u, x, betas, seed=SEED))
+    pert["1e8_vs_exact"] = within("perturbation pipeline (device, R = 1e8)", ppred_big, pstd_big, ptruth, 5)
+    pert["1e8_K8_rel_vs_f64_plain"] = k8_big_rel
+    pert["1e8_sigma_rel_vs_f64_plain"] = float(((pstd_big - std_plain_big) / std_plain_big).abs().max())
+    if not pert["1e8_sigma_rel_vs_f64_plain"] <= 1e-3:
+        raise AssertionError(f"R = 1e8: the call's sigma {pstd_big.tolist()} differs from the plain version's {std_plain_big.tolist()}")
+    sigma0_big = sigma0 / math.sqrt(R_MAIN / R_PERTURB)
+    if not 0.7 < float(pstd_big[at0]) / sigma0_big < 1.3:
+        raise AssertionError(f"R = 1e8: sigma at beta0 {float(pstd_big[at0])} is not within 30% of the exact {sigma0_big}")
+    # numpy input goes to the card: a small call must launch K1
+    u_np, x_np = u[:100_000].cpu().numpy(), x[:100_000].cpu().numpy()
+    npred = counted("numpy_input", lambda: make_extrap_pipeline(order=ORDER, beta0=BETA0)(u_np, x_np, list(BETAS)))
+    if path_launches["numpy_input"]["K1"] != 1 or npred.device.type != "cuda":
+        raise AssertionError(f"numpy input did not run on the card: {path_launches['numpy_input']}, result on {npred.device}")
+    say(
+        15,
+        card=card,
+        betas=list(BETAS),
+        pred=ppred_d.tolist(),
+        std_device=pstd_d.tolist(),
+        std_table=pstd_t.tolist(),
+        std_device_second_seed=pstd_d2.tolist(),
+        std_table_second_seed=pstd_t2.tolist(),
+        exact_std_at_beta0=sigma0,
+        exact_std_at_beta0_1e8=sigma0_big,
+        exact=ptruth.tolist(),
+        pred_1e8=ppred_big.tolist(),
+        std_1e8=pstd_big.tolist(),
+        max_abs_diff=pert,
+        numpy_input_on_card=True,
+    )
+
+    # -- phase 16: the streaming pipelines, with fresh launch counts ----------------------
+    def rel_close(name, got, ref, rtol, atol=0.0):
+        """Largest ``|got - ref| / (|ref| + atol / rtol)``; fails beyond ``rtol``."""
+        worst = float(((got - ref).abs() / (ref.abs() + atol / rtol)).max())
+        if not bool(torch.isfinite(got).all()) or not worst <= rtol:
+            raise AssertionError(f"{name}: max relative difference {worst} beyond {rtol} (atol {atol})")
+        return worst
+
+    def sigma_close(name, got, ref):
+        """Sigmas within 30% of each other; both exactly 0 where the target
+        is the samples' own state (lnPi at beta0)."""
+        some = ref > 0
+        if not torch.equal(got[~some], ref[~some]):
+            raise AssertionError(f"{name}: nonzero sigma where the one-shot sigma is 0")
+        ratio = got[some] / ref[some]
+        if not bool(((ratio > 0.7) & (ratio < 1.3)).all()):
+            raise AssertionError(f"{name}: sigma ratio outside 30%: min {float(ratio.min())} max {float(ratio.max())}")
+        return float((ratio - 1).abs().max())
+
+    # the replicate folds of one chunk, at the streaming shapes, with the
+    # chunk's own seed and the weight sums the state carries, against their
+    # float64 plain versions
+    seed1 = _chunk_seed(SEED, 1)
+    uc1, xc1 = u.chunk(STREAM_CHUNKS)[1], x1.chunk(STREAM_CHUNKS)[1]
+    k3c = mc.resample_central_comoments_poisson(uc1, xc1, NREP_MAIN, ORDER, seed=seed1, return_wsum=True)
+    ref3c = mc.resample_poisson_plain(uc1.double(), xc1.double(), NREP_MAIN, ORDER, seed=seed1)
+    gc1 = grid.chunk(GRID_CHUNKS, dim=1)[1]
+    k5c = mc.resample_central_umoments_batched_poisson(gc1, NREP_MAIN, ORDER + 1, seed=seed1, return_wsum=True)
+    ref5c = mc.resample_umoments_poisson_plain(gc1.double(), None, NREP_MAIN, ORDER + 1, seed=seed1)
+    chunk_errs = {
+        "K3_chunk_1e7": compare("K3 streaming chunk", k3c[:4], ref3c[:4], 2e-3, 1e-5),
+        "K5_chunk_64x250k_order7": compare("K5 streaming chunk", k5c[:2], ref5c[:2], 2e-3, 1e-5),
+    }
+    if not torch.equal(k3c[4].double(), ref3c[4]) or not torch.equal(k5c[2].double(), ref5c[2]):
+        raise AssertionError("a streaming chunk's weight sums differ from the plain version's")
+    del k3c, ref3c, k5c, ref5c
+    say(16, card=card, chunk_calls_max_abs_err=chunk_errs, wsum_equal_to_plain=True, rtol=2e-3, atol=1e-5)
+
+    def stream_main():
+        state, update, predict = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP_MAIN, seed=SEED)
+        for uc, xc in zip(u.chunk(STREAM_CHUNKS), x.chunk(STREAM_CHUNKS)):
+            state = update(state, uc, xc)
+        return state, predict(state, betas)
+
+    def stream_grid():
+        state, update, predict = make_streaming_lnpi_pipeline(ORDER, BETA0, grid_shape=(GRID_B,), nrep=NREP_MAIN, seed=SEED)
+        for gc in grid.chunk(GRID_CHUNKS, dim=1):
+            state = update(state, gc)
+        return state, predict(state, lnpi0, mudotn, betas)
+
+    def stream_perturb():
+        state, update, predict = make_streaming_perturb_pipeline(BETA0, betas)
+        for uc, xc in zip(u.chunk(STREAM_CHUNKS), x.chunk(STREAM_CHUNKS)):
+            state = update(state, uc, xc)
+        return predict(state)
+
+    sstate, (spred, sstd) = counted("stream_extrap", stream_main)
+    gstate, (gpred, gstd) = counted("stream_lnpi", stream_grid)
+    sppred = counted("stream_perturb", stream_perturb)
+    if sstate[2] != STREAM_CHUNKS or gstate[2] != GRID_CHUNKS or float(sstate[0].wsum) != R_MAIN:
+        raise AssertionError(f"streaming states count {sstate[2]} / {gstate[2]} chunks, weight {float(sstate[0].wsum)}")
+    stream = {
+        "extrap_pred_rel": rel_close("streaming extrapolation vs one shot", spred, pred, 1e-6),
+        "extrap_sigma": sigma_close("streaming extrapolation sigma", sstd, std),
+        # lnPi crosses zero on the grid: 1e-6 absolute is a thousandth of its sigma
+        "lnpi_pred_rel": rel_close("streaming lnPi vs one shot", gpred, lpred, 1e-6, atol=1e-6),
+        "lnpi_sigma": sigma_close("streaming lnPi sigma", gstd, lstd),
+        "perturb_pred_rel": rel_close("streaming perturbation vs one shot", sppred, ppred_big, 1e-6),
+    }
+    say(16, card=card, chunks={"extrap": STREAM_CHUNKS, "lnpi": GRID_CHUNKS, "perturb": STREAM_CHUNKS}, max_diff=stream, rtol=1e-6, lnpi_atol=1e-6)
+
+    new_expected = {
+        "perturb_device": {"K8": 1},
+        "perturb_table": {"K7": 1},
+        "perturb_device_1e8": {"K8": 1},
+        "numpy_input": {"K1": 1},
+        "stream_extrap": {"K1": STREAM_CHUNKS, "K3": STREAM_CHUNKS},
+        "stream_lnpi": {"K4": GRID_CHUNKS, "K5": GRID_CHUNKS},
+        "stream_perturb": {},
+    }
+    say(16, launches={path: path_launches[path] for path in new_expected})
+    for path, want in new_expected.items():
+        counts = path_launches[path]
+        if counts != {k: want.get(k, 0) for k in counts}:
+            raise AssertionError(f"{path} path launched {counts}, expected {want}")
+
+    # -- phase 17: times of K7, K8, the library products and the new calls ----------------
+    def contribution_rows(uv, x2, order):
+        """The ``(R, (V+1)(order+1))`` float32 rows K2 contracts its counts with."""
+        du = (uv - uv[: mc.HEAD_N].mean())[:, None]
+        dx = torch.cat([torch.ones_like(x2[:, :1]), x2 - x2[: mc.HEAD_N].mean(dim=0)], dim=1)
+        powers = torch.cat([du**n for n in range(order + 1)], dim=1)
+        return (dx[:, :, None] * powers[:, None, :]).reshape(uv.shape[0], -1)
+
+    rows2 = contribution_rows(u2q, x2q, ORDER)
+    tableq_f = tableq.float()
+    rows7 = (ep[:, :, None] * torch.cat([xp, torch.ones_like(xp)], dim=1)[None]).permute(1, 0, 2).reshape(R_PERTURB, -1).contiguous()
+    table7_f = table7.float()
+    library = {
+        "K2": time_ms(lambda: torch.matmul(tableq_f, rows2), 5),
+        "K7": time_ms(lambda: torch.matmul(table7_f, rows7), 5),
+    }
+    del rows7, table7_f
+    times["K7"] = (time_ms(lambda: mc.resample_perturb_freq(ep, xp, table7), 5), k7_plain_ms)
+    times["K8"] = (time_ms(lambda: mc.resample_perturb_poisson(ep, xp, NREP_PERTURB, seed=SEED), 5), k8_plain_ms)
+    for name in ("K7", "K8"):
+        say(
+            17,
+            card=card,
+            kernel=name,
+            shape="R=1e7 A=5 V=1 nrep=128" + (" int8 table" if name == "K7" else "") + " (plain: float64, one call)",
+            ms=times[name][0],
+            plain_ms=times[name][1],
+            library_ms=library.get(name),
+        )
+    say(17, card=card, kernel="K2", shape="R=1e5 nrep=100, float32 matmul of the table", library_ms=library["K2"])
+    sstate0, supdate, _ = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP_MAIN, seed=SEED)
+    uc, xc = u[:R_PERTURB], x[:R_PERTURB]
+    say(
+        17,
+        card=card,
+        perturb_weights_ms=time_ms(lambda: _perturb_weights(up, dalpha32, None), 5),
+        perturb_device_pipeline_ms=time_ms(lambda: run_pd(up, xpf, betas), 5),
+        perturb_table_pipeline_ms=time_ms(lambda: run_pt(up, xpf, betas), 3),
+        perturb_device_pipeline_1e8_ms=time_ms(lambda: run_pd(u, x, betas, seed=SEED), 3),
+        streaming_update_1e7_ms=time_ms(lambda: supdate(sstate0, uc, xc), 5),
+        R=R_PERTURB,
+        nrep=NREP_PERTURB,
+        streaming_nrep=NREP_MAIN,
+    )
+
+    # each kernel's least time on this card at the shape it was timed at
+    f4 = 4.0
+    n1 = ORDER + 1
+    bounds = {
+        "K1": bound(f4 * R_MAIN * 2, fmas=R_MAIN * 2 * n1),
+        "K2": bound(f4 * nrep2 * r2q + f4 * r2q * 2, fmas=nrep2 * r2q * 2 * n1),
+        "K3": bound(f4 * R_MAIN * 2, fmas=NREP_MAIN * R_MAIN * 2 * n1, draws=NREP_MAIN * R_MAIN),
+        "K4": bound(f4 * GRID_B * GRID_R, fmas=GRID_B * GRID_R * n1),
+        "K5": bound(f4 * GRID_B * GRID_R, fmas=NREP_MAIN * GRID_B * GRID_R * n1, draws=NREP_MAIN * GRID_R),
+        "K6": bound(f4 * 10_000_000 * 2, fmas=10_000_000 * 2 * n1),
+        "K7": bound(
+            1.0 * NREP_PERTURB * R_PERTURB + f4 * R_PERTURB * (na + vp) + f4 * na * NREP_PERTURB * (vp + 1),
+            fmas=NREP_PERTURB * R_PERTURB * na * (vp + 1),
+        ),
+        "K8": bound(
+            f4 * R_PERTURB * (na + vp) + f4 * na * NREP_PERTURB * (vp + 1),
+            fmas=NREP_PERTURB * R_PERTURB * na * (vp + 1),
+            draws=NREP_PERTURB * R_PERTURB,
+        ),
+    }
+
     # kernel: (source, TPU kernel it replaces, the path whose count is its `launches`)
     meta = {
         "K1": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:192", "main"),
@@ -493,6 +873,8 @@ def main() -> int:
         "K4": ("umoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1656", "u_f32"),
         "K5": ("umoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1092", "u_f32"),
         "K6": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1875", "main"),
+        "K7": ("perturb_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1404", "perturb_table"),
+        "K8": ("perturb_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1357", "perturb_device"),
     }
     kernels = [
         {
@@ -505,6 +887,9 @@ def main() -> int:
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": library.get(name),
         }
         for name, (src, replaces, path) in meta.items()
     ]

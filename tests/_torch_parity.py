@@ -6,10 +6,16 @@ import numpy as np
 import pytest
 import torch
 
+import thermoextrap_tpu_torch as tx
+
+# The parity tests compare float64 CPU paths: numpy inputs stay on the CPU
+# whether or not the machine has a card.  GPU tests hand over CUDA tensors.
+tx.set_default_device("cpu")
+
 
 def tt(a, dtype=None):
     """numpy (or JAX) array -> CPU tensor (a copy: JAX buffers are read-only)."""
-    return torch.as_tensor(np.array(a), dtype=dtype)
+    return torch.as_tensor(np.array(a), dtype=dtype, device="cpu")
 
 
 def npy(a):

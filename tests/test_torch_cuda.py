@@ -11,7 +11,10 @@ Tolerances: the float32 kernels against the float64 plain versions at the
 bar of tests/test_parallel.py:87 (rtol 2e-3, atol 1e-5), K4 at the bar of
 tests/test_parallel.py:158-161 (uave rtol 1e-6; du rtol 5e-3, atol 1e-4);
 K3 against K2, and K5 against its own consume of the same count table,
-which share one kernel body, at float32 roundoff.
+which share one kernel body, at float32 roundoff.  K7 and K8 sum positive
+float32 terms (a few hundred per thread, then float64): rtol 2e-5 / atol 1e-5,
+the bar of tests/test_parallel.py:716-818; K8 against K7 on its own table,
+and its weight sums at e = 1 against K3's, exactly.
 """
 
 import numpy as np
@@ -287,3 +290,166 @@ def test_lnpi_and_volume_pipelines_on_gpu(rng, cuda_device):
     )
     assert mc.LAUNCHES["K1"] == 1 and mc.LAUNCHES["K3"] == 1
     assert np.all(np.abs(npy(vpred) - npy(vcpu)) <= 0.1 * npy(vstd) + 1e-6)
+
+
+# -- K7 / K8: the perturbation bootstrap ------------------------------------------------
+
+RTOL_P, ATOL_P = 2e-5, 1e-5
+
+
+def _perturb_inputs(rng, r, v, na, weighted):
+    """Stabilized weights ``e (A, R)`` as the pipeline builds them, in float64
+    on the CPU, with zeroed columns when ``weighted``."""
+    u, x = _samples(rng, r, v)
+    w = None
+    if weighted:
+        w = rng.uniform(0.5, 1.5, r) * (rng.uniform(size=r) > 0.2)
+    e = tpipe._perturb_weights(tt(u), tt(np.linspace(-0.3, 0.3, na)), None if w is None else tt(w))
+    return e, tt(x)
+
+
+@pytest.mark.parametrize(
+    ("r", "v", "na", "nrep", "weighted", "table"),
+    [
+        (1000, 1, 5, 16, False, torch.int8),
+        (100_003, 2, 5, 37, True, torch.int8),
+        (40_001, 2, 171, 9, True, torch.int32),  # 513 contribution rows: two row tiles
+        (5000, 3, 4, 130, True, torch.float32),  # fractional counts, two replicate blocks
+    ],
+)
+def test_k7_kernel_matches_plain(rng, cuda_device, r, v, na, nrep, weighted, table):
+    e, x = _perturb_inputs(rng, r, v, na, weighted)
+    freq = tt(rng.poisson(1.0, (nrep, r))).to(table)
+    if table == torch.float32:
+        freq = freq * 0.5 + 0.25
+    ref = mc.resample_perturb_freq(e, x, freq)
+    mc.reset_launches()
+    got = mc.resample_perturb_freq(e.to(cuda_device), x.to(cuda_device), freq.to(cuda_device))
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["K7"] == 1 and mc.LAUNCHES["K8"] == 0
+    assert got.dtype == torch.float32 and got.is_cuda and got.shape == (na, nrep, v + 1)
+    assert_close(got, ref, RTOL_P, ATOL_P)
+
+
+def test_k8_kernel_equals_k7_on_its_table_and_k3_weight_sums(rng, cuda_device):
+    r, nrep = (1 << 16) + 3, 40
+    e, x = _perturb_inputs(rng, r, 2, 5, True)
+    ec, xc = e.to(cuda_device), x.to(cuda_device)
+    mc.reset_launches()
+    k8 = mc.resample_perturb_poisson(ec, xc, nrep, seed=9)
+    assert mc.LAUNCHES["K8"] == 1 and mc.LAUNCHES["K7"] == 0
+    counts = mc.poisson_counts_cuda(9, nrep, r, cuda_device)
+    assert torch.equal(counts.cpu(), mc._poisson_counts(9, nrep, r))
+    assert torch.equal(k8, mc.resample_perturb_freq(ec, xc, counts))
+    assert_close(k8, mc.resample_perturb_poisson(e, x, nrep, seed=9), RTOL_P, ATOL_P)
+    assert not torch.equal(k8, mc.resample_perturb_poisson(ec, xc, nrep, seed=10))
+    ones = torch.ones((1, r), dtype=torch.float32, device=cuda_device)
+    wsum8 = mc.resample_perturb_poisson(ones, xc, nrep, seed=9)[0, :, -1]
+    u = _f32(rng.normal(size=r), cuda_device)
+    k3 = mc.resample_central_comoments_poisson(u, xc, nrep, 2, seed=9, return_wsum=True)
+    assert torch.equal(wsum8, k3[4])
+
+
+def test_k7_k8_zero_rows_return_zero_sums(rng, cuda_device):
+    """A replicate of all-zero counts and a target whose weights are all zero
+    give zero sums in the kernel; the 0/0 is the pipeline's."""
+    r = 3000
+    u, x = _samples(rng, r, 1)
+    w = np.zeros(r)
+    e = tpipe._perturb_weights(tt(u), tt([0.1, -0.1]), tt(w))
+    assert torch.equal(e, torch.zeros_like(e))
+    e[1] = 1.0
+    freq = tt(rng.poisson(1.0, (4, r))).to(torch.int8)
+    freq[2] = 0
+    got = mc.resample_perturb_freq(e.to(cuda_device), tt(x).to(cuda_device), freq.to(cuda_device))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(got[1, 2], torch.zeros_like(got[1, 2]))
+    assert bool((got[1, [0, 1, 3], -1] > 0).all())
+    pred, std = tpipe.make_perturb_pipeline(1.0, nrep=8, weighted=True)(
+        _f32(u, cuda_device), _f32(x, cuda_device), tt([1.1]), tt(w).to(cuda_device)
+    )
+    assert bool(torch.isnan(pred).all()) and bool(torch.isnan(std).all())
+
+
+@pytest.mark.parametrize(("mode", "kernel"), [("device", "K8"), ("table", "K7")])
+def test_perturb_pipeline_on_gpu_launches_its_kernel_only(rng, cuda_device, monkeypatch, mode, kernel):
+    """Each mode launches exactly its kernel, never reaches a plain version
+    on CUDA tensors, and agrees with the float64 CPU path to a tenth of its
+    bootstrap error."""
+    r = 50_000
+    u, x = _samples(rng, r, 2)
+    cpu = tpipe.make_perturb_pipeline(5.0)(tt(u), tt(x), tt(BETAS) + 4.0)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version was called on a CUDA tensor")
+
+    for name in ("resample_perturb_plain", "resample_perturb_poisson_plain", "_perturb_sums_plain"):
+        monkeypatch.setattr(mc, name, refuse)
+    mc.reset_launches()
+    pred, std = tpipe.make_perturb_pipeline(5.0, nrep=64, poisson=mode)(
+        _f32(u, cuda_device), _f32(x, cuda_device), tt(BETAS) + 4.0, seed=3
+    )
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), kernel: 1}
+    assert pred.shape == (3, 2) and pred.dtype == torch.float64
+    assert np.all(np.abs(npy(pred) - npy(cpu)) <= 0.1 * npy(std) + 1e-6)
+
+
+def test_numpy_input_runs_on_the_default_device(rng, cuda_device, monkeypatch):
+    """Arrays that are not tensors go to the card when it is the default."""
+    import thermoextrap_tpu_torch as tx
+
+    monkeypatch.setattr(tx.utils.device, "_DEVICE", None)
+    u, x = _samples(rng, 20_000, 1)
+    mc.reset_launches()
+    pred = tpipe.make_extrap_pipeline(4, 1.0)(u.astype(np.float32), x.astype(np.float32), BETAS)
+    assert mc.LAUNCHES["K1"] == 1 and pred.is_cuda
+
+
+def test_streaming_pipelines_on_gpu(rng, cuda_device):
+    """Four chunks through K1 + K3 (and K4 + K5 with x_is_u) give the
+    one-shot prediction to float32 roundoff; the state keeps type and place."""
+    r = 80_000
+    u, x = _samples(rng, r, 1)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    one = tpipe.make_extrap_pipeline(4, 1.0)(uc, xc, tt(BETAS))
+    state, update, predict = tpipe.make_streaming_extrap_pipeline(4, 1.0, val_shape=(1,), nrep=32, device=cuda_device)
+    mc.reset_launches()
+    for a, b in zip(uc.chunk(4), xc.chunk(4)):
+        state = update(state, a, b)
+    assert mc.LAUNCHES["K1"] == 4 and mc.LAUNCHES["K3"] == 4
+    pred, std = predict(state, tt(BETAS))
+    assert state[2] == 4 and state[0].xave.dtype == torch.float64 and state[1].dxdu.is_cuda
+    assert_close(pred, one, 1e-6, 1e-9)
+    assert bool((std > 0).all())
+    one_u = tpipe.make_extrap_pipeline(4, 1.0, x_is_u=True)(uc, tt(BETAS))
+    state, update, predict = tpipe.make_streaming_extrap_pipeline(4, 1.0, x_is_u=True, nrep=32, device=cuda_device)
+    mc.reset_launches()
+    for a in uc.chunk(4):
+        state = update(state, a)
+    assert mc.LAUNCHES["K4"] == 4 and mc.LAUNCHES["K5"] == 4
+    assert_close(predict(state, tt(BETAS))[0], one_u, 1e-6, 1e-9)
+
+
+def test_streaming_perturbation_on_gpu_bootstraps_through_k7(rng, cuda_device):
+    """With replicates the streaming perturbation folds each chunk through
+    K7 on an int8 table: one launch per chunk, the one-shot prediction to
+    float32 roundoff and a sigma within 40% of the one-shot sigma (two
+    independent 64-replicate draws, each sigma with a 9% standard error)."""
+    r = 60_000
+    u, x = _samples(rng, r, 1)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    betas = tt(BETAS) + 4.0
+    one, one_std = tpipe.make_perturb_pipeline(5.0, nrep=64)(uc, xc, betas, seed=5)
+    state, update, predict = tpipe.make_streaming_perturb_pipeline(
+        5.0, betas, val_shape=(1,), nrep=64, seed=5, device=cuda_device
+    )
+    mc.reset_launches()
+    for a, b in zip(uc.chunk(3), xc.chunk(3)):
+        state = update(state, a, b)
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K7": 3}
+    pred, std = predict(state)
+    assert state[5] == 3 and state[3].dtype == torch.float64 and state[3].is_cuda
+    assert_close(pred, one, 1e-6, 1e-9)
+    ratio = npy(std) / npy(one_std)
+    assert np.all((ratio > 0.6) & (ratio < 1.4))

@@ -165,7 +165,9 @@ def test_cpu_path_launches_no_kernel(rng):
     dispatch.reduce_central(tt(u), tt(x), 3)
     mc.reduce_central_umoments_batched(tt(u), 3)
     mc.resample_central_umoments_batched_poisson(tt(u)[None], 4, 3)
-    assert mc.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    mc.resample_perturb_freq(torch.ones(2, 300), tt(x).float(), torch.ones(4, 300))
+    mc.resample_perturb_poisson(torch.ones(2, 300), tt(x).float(), 4)
+    assert mc.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
 
 
 def test_dispatch_impl_control(rng):
@@ -209,8 +211,36 @@ def test_build_digest_tracks_sources():
     assert {p.name for p in cu} == {
         "comoments_reduce.cu",
         "comoments_resample.cu",
+        "perturb_resample.cu",
         "umoments_reduce.cu",
         "umoments_resample.cu",
     }
-    assert {p.name for p in cuh} == {"common.cuh", "philox.cuh"}
+    assert {p.name for p in cuh} == {"common.cuh", "philox.cuh", "resample_tile.cuh"}
     assert len(_build._digest()) == 16
+
+
+def test_drawcost_reads_sass_listing():
+    """The instruction histogram behind the draw's operation count: opcodes
+    per function, predicates skipped, wide multiplies kept apart."""
+    from thermoextrap_tpu_torch import drawcost
+
+    sass = """
+	Function : draw_probe
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+                                                                           /* 0x000fe20000000800 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R3, -0x2daee0ad, RZ ; /* 0x0 */
+        /*0020*/              @!P0 IMAD.MOV.U32 R4, RZ, RZ, R2 ;           /* 0x0 */
+        /*0030*/                   ISETP.GT.U32.AND P0, PT, R1, UR4, PT ;  /* 0x0 */
+        /*0040*/               @P0 VIADD R5, R5, 0x1 ;                     /* 0x0 */
+        /*0050*/                   LOP3.LUT R6, R6, R7, R8, 0x96, !PT ;    /* 0x0 */
+        /*0060*/                   EXIT ;                                  /* 0x0 */
+	Function : base_probe
+        /*0000*/                   I2FP.F32.S32 R0, R0 ;                   /* 0x0 */
+"""
+    hist = drawcost._histograms(sass)
+    assert hist == {
+        "draw_probe": {"LDC": 1, "IMAD.WIDE": 1, "IMAD": 1, "ISETP": 1, "VIADD": 1, "LOP3": 1, "EXIT": 1},
+        "base_probe": {"I2FP": 1},
+    }
+    assert '#include "philox.cuh"' in drawcost._PROBE

@@ -248,3 +248,42 @@ def test_port_never_imports_jax():
     root = Path(__file__).resolve().parent.parent
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# -- the default device ----------------------------------------------------------------------
+
+
+def test_numpy_input_goes_to_the_default_device(monkeypatch):
+    """Arrays that are not tensors land on ``default_device()``: with the
+    default patched to the meta device (a sentinel that computes shapes
+    only), the pipelines, the streaming states and the interop constructors
+    ask for it, while a tensor keeps its own device."""
+    from thermoextrap_tpu_torch.utils import device as tdevice
+    from thermoextrap_tpu_torch.utils.random import validate_rng
+
+    assert tx.default_device() == torch.device("cpu")  # pinned by the parity helper
+    monkeypatch.setattr(tdevice, "_DEVICE", torch.device("meta"))
+    assert tx.default_device().type == "meta"
+    u, x = np.arange(10.0), np.arange(10.0) ** 2
+    assert tpipe.make_extrap_pipeline(3, 1.0)(u, x, [1.1]).device.type == "meta"
+    assert tpipe.make_extrap_pipeline(3, 1.0, x_is_u=True)(u, [1.1]).device.type == "meta"
+    assert tpipe.make_perturb_pipeline(1.0)(u, x, [1.1]).device.type == "meta"
+    assert tpipe.make_lnpi_pipeline(2, 1.0)(u[None], [0.0], [1.0], [1.1]).device.type == "meta"
+    assert tpipe.make_volume_pipeline(1.0)(u, x, x, [1.1]).device.type == "meta"
+    assert tpipe.make_streaming_extrap_pipeline(3, 1.0)[0].xave.device.type == "meta"
+    assert tpipe.make_streaming_lnpi_pipeline(2, 1.0, grid_shape=(2,))[0].wsum.device.type == "meta"
+    assert tpipe.make_streaming_volume_pipeline(1.0)[0].dxdu.device.type == "meta"
+    assert tpipe.make_streaming_perturb_pipeline(1.0, [1.1])[0][0].device.type == "meta"
+    assert tx.DataCentralMoments.zeros(2).wsum.device.type == "meta"
+    assert tx.DataCentralMoments.from_vals(x, u, 2).xave.device.type == "meta"
+    state = interop.data_to_numpy(tx.DataCentralMoments.zeros(2, device="cpu"))
+    assert interop.state_from_numpy(state).xave.device.type == "meta"
+    # a tensor keeps its device, and an explicit device wins
+    assert tpipe.make_extrap_pipeline(3, 1.0)(tt(u), x, [1.1]).device.type == "cpu"
+    assert tpipe.make_streaming_extrap_pipeline(3, 1.0, device="cpu")[0].xave.device.type == "cpu"
+    assert validate_rng(3, device="cpu").device.type == "cpu"
+    monkeypatch.setattr(tdevice, "_DEVICE", None)
+    assert tx.default_device().type == ("cuda" if torch.cuda.is_available() else "cpu")
+    tx.set_default_device("cpu")
+    assert tdevice._DEVICE == torch.device("cpu")
+    assert tideal.x_sample((4, 2), 1.0, rng=1).device.type == "cpu"

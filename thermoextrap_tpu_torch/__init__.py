@@ -3,22 +3,27 @@
 The port of the JAX package ``thermoextrap_tpu`` to PyTorch, with the TPU's
 Pallas kernels rewritten by hand in CUDA C++ for Hopper (``csrc/``, built on
 first use).  Module names mirror the JAX package.  It carries the
-β-extrapolation main path and the ensembles:
+β-extrapolation main path, the ensembles, perturbation reweighting and the
+streaming pipelines:
 
 - (co)moment reduction and bootstrap (:mod:`.ops.moments`,
   :mod:`.ops.resample`, kernels in :mod:`.ops.moments_cuda`, routed by
   device in :mod:`.ops.dispatch`);
 - the truncated-series derivative engine (:mod:`.ops.series`,
   :mod:`.models.derivatives`);
-- data containers (:mod:`.data`), the Taylor model (:mod:`.models.extrap`),
-  the β factories (:mod:`.beta`), the ideal-gas oracle (:mod:`.idealgas`),
-  the serving pipelines (:mod:`.pipeline`) and the moment state shared with
-  the JAX package (:mod:`.interop`);
+- data containers and the streaming accumulator (:mod:`.data`), the Taylor
+  and perturbation models (:mod:`.models.extrap`), the β factories
+  (:mod:`.beta`), the ideal-gas oracle (:mod:`.idealgas`), the one-shot and
+  streaming serving pipelines (:mod:`.pipeline`, with the perturbation
+  bootstrap kernels K7 / K8) and the states shared with the JAX package
+  (:mod:`.interop`);
 - the lnΠ macrostate-grid expansion (:mod:`.lnpi`) and the volume expansion
   (:mod:`.volume`, :mod:`.volume_idealgas`), with the batched u-moment
   kernels K4 / K5 behind the lnΠ and ⟨u⟩ paths.
 
-Importing the package needs neither CUDA nor a compiler.
+Arrays that are not tensors go to :func:`default_device`: the CUDA card when
+there is one, unless :func:`set_default_device` says otherwise.  Importing
+the package needs neither CUDA nor a compiler.
 """
 
 from . import beta, data, idealgas, interop, lnpi, pipeline, volume, volume_idealgas
@@ -32,7 +37,8 @@ from .data import (
     factory_data_values,
 )
 from .models.derivatives import Derivatives
-from .models.extrap import ExtrapModel
+from .models.extrap import ExtrapModel, PerturbModel
+from .utils.device import default_device, set_default_device
 
 __version__ = "0.1.0"
 
@@ -45,13 +51,16 @@ __all__ = [
     "DataValuesCentral",
     "Derivatives",
     "ExtrapModel",
+    "PerturbModel",
     "beta",
     "data",
+    "default_device",
     "factory_data_values",
     "idealgas",
     "interop",
     "lnpi",
     "pipeline",
+    "set_default_device",
     "volume",
     "volume_idealgas",
 ]

@@ -3,7 +3,6 @@ r"""Inverse-temperature (β) extrapolation factories.
 Counterpart of ``thermoextrap_tpu/beta.py``: each named observable maps to a
 closed-form series recursion of :mod:`.models.derivatives`.  Names:
 ``x_ave``, ``u_ave``, ``dun_ave``, ``dxdun_ave``, ``un_ave``, ``xun_ave``.
-(``factory_perturbmodel`` waits for the perturbation kernels.)
 """
 
 from __future__ import annotations
@@ -23,9 +22,10 @@ from .models.derivatives import (
     un_ave_coefs,
     xun_ave_coefs,
 )
-from .models.extrap import ExtrapModel
+from .data import DataValues
+from .models.extrap import ExtrapModel, PerturbModel
 
-__all__ = ["factory_derivatives", "factory_extrapmodel"]
+__all__ = ["factory_derivatives", "factory_extrapmodel", "factory_perturbmodel"]
 
 
 def _build_coefs_fn(name: str, xalpha: bool, central: bool, n=None, d=None):
@@ -172,3 +172,10 @@ def factory_extrapmodel(
         minus_log=minus_log,
         alpha_name=alpha_name,
     )
+
+
+def factory_perturbmodel(beta: float, uv, xv, alpha_name: str = "beta", **kws) -> PerturbModel:
+    """PerturbModel for the β reweighting of the samples ``uv (R,)``,
+    ``xv (R, *val)`` drawn at ``beta``."""
+    data = DataValues.from_vals(xv, uv, order=0, **kws)
+    return PerturbModel(alpha0=beta, data=data, alpha_name=alpha_name)

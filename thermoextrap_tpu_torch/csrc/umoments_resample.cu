@@ -14,74 +14,33 @@
 // The caller sums the chunk partials in float64 (deterministic, no atomics)
 // and recentres exactly.
 //
-// Bound on the H100: instruction throughput.  Each count costs a quarter of a
-// Philox4x32-10 call and 9 compares, then one FMA per contribution row
-// (nbatch (order+1) of them, 448 on a 64-macrostate grid at order 6).  A
-// kernel that tiles rows across blocks redraws every count once per row tile
-// (K3's 16-row tiles would draw each count 28 times there).  The simple
-// design: a block owns a tile of up to 512 contribution rows and up to 128
-// replicates; for each tile of TX_URS_TILE samples it draws every count of
-// its replicates ONCE into shared memory and builds every contribution row
-// once, then each thread accumulates a 4-replicate x 16-row outer product in
-// f32 FMAs (no tensor cores, no TF32: the sums must hold f32 accuracy).  The
-// 256 threads split as nr row-threads x np replicate-threads x sl sample
-// lanes (sl divides 32; the lanes are summed with shuffles at the end), so a
-// 448-row grid takes one row tile (each count drawn once per replicate
-// block) and the 8-row flat path spreads its threads over replicates and
-// samples instead of idling.
+// The contraction, its count tile in shared memory and its thread layout are
+// the kernel of resample_tile.cuh (what bounds it is said there); this file
+// gives it K5's contribution rows.
 
-#include "philox.cuh"
-
-#define TX_URS_THREADS 256
-#define TX_URS_RB 4
-#define TX_URS_CB 16
-#define TX_URS_TILE 32
+#include "resample_tile.cuh"
 
 namespace {
 
-__device__ __forceinline__ float sum_lanes(float v, int sl) {
-  for (int off = sl >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+// rows c = b (order + 1) + n of the batch rows behind a block's row tile
+template <typename T>
+struct UMomentFill {
+  const T* u;        // (nbatch, R)
+  const float* w;    // (nbatch, R) or null
+  const float* su;   // (nbatch,)
+  long long R;
+  int n1;     // order + 1
+  int c0;     // first row of the tile
+  int ncol;   // rows of the tile
+  int b_lo;   // first batch row behind the tile
+  int nb;     // batch rows behind the tile
 
-template <typename T, typename Counts>
-__global__ void __launch_bounds__(TX_URS_THREADS)
-resample_umoments_kernel(const T* __restrict__ u, const float* __restrict__ w,
-                         const float* __restrict__ su, Counts counts, float* __restrict__ part,
-                         long long R, int nbatch, int order, int nrep, long long chunk, int nr,
-                         int np) {
-  extern __shared__ __align__(16) float smem[];
-  const int n1 = order + 1;
-  const int m = nbatch * n1;
-  const int sl = TX_URS_THREADS / (nr * np);
-  const int rows_block = nr * TX_URS_CB;
-  const int reps_block = np * TX_URS_RB;
-  const int tstride = rows_block + 1;  // odd strides spread the shared banks
-  const int cstride = reps_block + 1;
-  float* tile = smem;                            // [TILE][rows_block + 1]
-  float* cnt = smem + TX_URS_TILE * tstride;     // [TILE][reps_block + 1]
-
-  const int c0 = blockIdx.z * rows_block;
-  const int r0 = blockIdx.y * reps_block;
-  const long long j_begin = (long long)blockIdx.x * chunk;
-  const long long j_end = (j_begin + chunk < R) ? j_begin + chunk : R;
-  const int c_end = (c0 + rows_block < m) ? c0 + rows_block : m;
-  const int b_lo = c0 / n1;
-  const int nb = (c_end - 1) / n1 - b_lo + 1;  // batch rows behind the row tile
-
-  const int s = threadIdx.x % sl;
-  const int rt = (threadIdx.x / sl) % nr;
-  const int pt = threadIdx.x / (sl * nr);
-
-  float acc[TX_URS_RB][TX_URS_CB];
-#pragma unroll
-  for (int i = 0; i < TX_URS_RB; ++i)
-#pragma unroll
-    for (int k = 0; k < TX_URS_CB; ++k) acc[i][k] = 0.f;
-
-  for (long long t0 = j_begin; t0 < j_end; t0 += TX_URS_TILE) {
-    __syncthreads();  // the previous tile has been consumed
-    // contribution rows w du^n, one (batch row, sample) pair per item
+  __device__ __forceinline__ void fill(float* tile, int tstride, long long t0,
+                                       long long j_end) const {
+    // one (batch row, sample) pair per item, 8 items a thread on a 64-row
+    // grid; unrolled by two, which on an H100 runs that shape 5% faster than
+    // the compiler's own choice
+#pragma unroll 2
     for (int item = threadIdx.x; item < nb * TX_URS_TILE; item += TX_URS_THREADS) {
       const int b = b_lo + item / TX_URS_TILE;
       const int i = item % TX_URS_TILE;
@@ -93,78 +52,43 @@ resample_umoments_kernel(const T* __restrict__ u, const float* __restrict__ w,
       const int row0 = b * n1 - c0;
 #pragma unroll
       for (int n = 0; n <= TX_MAX_ORDER; ++n) {
-        if (n <= order) {
+        if (n < n1) {
           const int cc = row0 + n;
-          if (cc >= 0 && cc < rows_block) tile[i * tstride + cc] = p;
+          if ((unsigned)cc < (unsigned)ncol) tile[i * tstride + cc] = p;
           p *= du;
         }
       }
     }
-    // counts: each (replicate, 4 samples) of the block drawn once
-    for (int item = threadIdx.x; item < reps_block * (TX_URS_TILE / 4);
-         item += TX_URS_THREADS) {
-      const int rr = item / (TX_URS_TILE / 4);
-      const int q = 4 * (item % (TX_URS_TILE / 4));
-      const int r = r0 + rr;
-      float f[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < nrep && t0 + q < j_end) counts.load4(r, t0 + q, f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cnt[(q + e) * cstride + rr] = f[e];
-    }
-    __syncthreads();
-
-    for (int i = s; i < TX_URS_TILE; i += sl) {
-      float f[TX_URS_RB];
-      float cv[TX_URS_CB];
-#pragma unroll
-      for (int a = 0; a < TX_URS_RB; ++a) f[a] = cnt[i * cstride + pt + np * a];
-#pragma unroll
-      for (int k = 0; k < TX_URS_CB; ++k) cv[k] = tile[i * tstride + rt + nr * k];
-#pragma unroll
-      for (int a = 0; a < TX_URS_RB; ++a)
-#pragma unroll
-        for (int k = 0; k < TX_URS_CB; ++k) acc[a][k] = fmaf(f[a], cv[k], acc[a][k]);
-    }
   }
-
-#pragma unroll
-  for (int a = 0; a < TX_URS_RB; ++a) {
-    const int r = r0 + pt + np * a;
-#pragma unroll
-    for (int k = 0; k < TX_URS_CB; ++k) {
-      const int c = c0 + rt + nr * k;
-      const float v = sum_lanes(acc[a][k], sl);
-      if (s == 0 && r < nrep && c < m) part[((long long)blockIdx.x * nrep + r) * m + c] = v;
-    }
-  }
-}
-
-template <typename T, typename Counts>
-int launch_umoments(dim3 grid, size_t smem, cudaStream_t s, const void* u, const void* w,
-                    const void* su, Counts counts, void* part, long long R, int nbatch,
-                    int order, int nrep, long long chunk, int nr, int np) {
-  auto kernel = resample_umoments_kernel<T, Counts>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, TX_URS_THREADS, smem, s>>>((const T*)u, (const float*)w, (const float*)su,
-                                            counts, (float*)part, R, nbatch, order, nrep,
-                                            chunk, nr, np);
-  return (int)cudaGetLastError();
-}
+};
 
 template <typename T>
-int launch_by_counts(dim3 grid, size_t smem, cudaStream_t s, const void* u, const void* w,
-                     const void* freq, const void* su, void* part, long long R, int nbatch,
-                     int order, int nrep, long long chunk, int nr, int np, long long seed,
-                     const unsigned int* thresholds) {
-  if (freq != nullptr) {
-    return launch_umoments<T>(grid, smem, s, u, w, su,
-                              TableCounts<int32_t>{(const int32_t*)freq, R}, part, R, nbatch,
-                              order, nrep, chunk, nr, np);
+struct UMomentRows {
+  const T* u;
+  const float* w;
+  const float* su;
+  long long R;
+  int n1;
+
+  __device__ __forceinline__ UMomentFill<T> block(int c0, int c_end) const {
+    const int b_lo = c0 / n1;
+    return {u, w, su, R, n1, c0, c_end - c0, b_lo, (c_end - 1) / n1 - b_lo + 1};
   }
-  return launch_umoments<T>(grid, smem, s, u, w, su, make_poisson(seed, thresholds, R), part,
-                            R, nbatch, order, nrep, chunk, nr, np);
+};
+
+template <typename T>
+int launch_by_counts(const void* u, const void* w, const void* freq, const void* su, void* part,
+                     long long R, int nbatch, int order, int nrep, int nchunk, long long chunk,
+                     int nr, int np, long long seed, const unsigned int* thresholds,
+                     cudaStream_t s) {
+  const UMomentRows<T> rows{(const T*)u, (const float*)w, (const float*)su, R, order + 1};
+  const int m = nbatch * (order + 1);
+  if (freq != nullptr) {
+    return launch_resample_rows(rows, TableCounts<int32_t>{(const int32_t*)freq, R}, part, R, m,
+                                nrep, nchunk, chunk, nr, np, s);
+  }
+  return launch_resample_rows(rows, make_poisson(seed, thresholds, R), part, R, m, nrep, nchunk,
+                              chunk, nr, np, s);
 }
 
 }  // namespace
@@ -184,29 +108,19 @@ int tx_resample_umoments(const void* u, const void* w, const void* freq, const v
                          int nchunk, long long chunk, int nr, int np, int bf16,
                          long long seed, const unsigned int* thresholds, int device,
                          void* stream) {
-  if (order < 0 || order > TX_MAX_ORDER || nbatch < 1 || nrep < 1 || R < 1 || nchunk < 1 ||
-      nr < 1 || np < 1 || TX_URS_THREADS % (nr * np) != 0 ||
-      32 % (TX_URS_THREADS / (nr * np)) != 0 || chunk % TX_URS_TILE != 0 ||
-      (long long)nchunk * chunk < R || nbatch * (order + 1) > 2147483647LL) {
+  if (order < 0 || order > TX_MAX_ORDER || nbatch < 1 ||
+      !resample_rows_shape_ok(nbatch * (order + 1), R, nrep, nchunk, chunk, nr, np)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long m = nbatch * (order + 1);
-  const long long rows_block = (long long)nr * TX_URS_CB;
-  const long long reps_block = (long long)np * TX_URS_RB;
-  const long long ycount = (nrep + reps_block - 1) / reps_block;
-  const long long zcount = (m + rows_block - 1) / rows_block;
-  if (ycount > 65535 || zcount > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(float) * TX_URS_TILE * (rows_block + 1 + reps_block + 1);
-  const dim3 grid((unsigned)nchunk, (unsigned)ycount, (unsigned)zcount);
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    return launch_by_counts<__nv_bfloat16>(grid, smem, s, u, w, freq, su, part, R, (int)nbatch,
-                                           order, nrep, chunk, nr, np, seed, thresholds);
+    return launch_by_counts<__nv_bfloat16>(u, w, freq, su, part, R, (int)nbatch, order, nrep,
+                                           nchunk, chunk, nr, np, seed, thresholds, s);
   }
-  return launch_by_counts<float>(grid, smem, s, u, w, freq, su, part, R, (int)nbatch, order,
-                                 nrep, chunk, nr, np, seed, thresholds);
+  return launch_by_counts<float>(u, w, freq, su, part, R, (int)nbatch, order, nrep, nchunk,
+                                 chunk, nr, np, seed, thresholds, s);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 r"""Data layer: sample values and (co)moment containers on torch tensors.
 
-Counterpart of ``thermoextrap_tpu/data.py`` (its streaming methods ``zeros``
-/ ``merge`` / ``push_vals`` and ``from_data`` / ``cmom`` / ``rmom`` are not
-ported yet).  Layout conventions:
+Counterpart of ``thermoextrap_tpu/data.py`` (its checkpoint methods ``save``
+/ ``load`` and ``from_data`` / ``cmom`` / ``rmom`` are not ported yet).
+Layout conventions:
 
 - ``uv``: ``(*batch, rec)`` energy-like samples; ``batch`` is empty or
   ``(rep,)`` after a bootstrap.
@@ -35,6 +35,7 @@ from .ops.convert import (
     u_from_xu_when_x_is_u,
 )
 from .ops.resample import freq_from_indices, random_indices, resample_values
+from .utils.device import default_device
 from .utils.random import validate_rng
 
 __all__ = [
@@ -75,10 +76,12 @@ class DataCallback(DataCallbackABC):
 
 
 def _as_tensor(a, device=None):
-    """numpy arrays, sequences and tensors → tensor (numpy keeps its type)."""
+    """numpy arrays, sequences and tensors → tensor (numpy keeps its type).
+    With no ``device`` a tensor stays where it is and anything else goes to
+    :func:`.utils.device.default_device`."""
     if isinstance(a, torch.Tensor):
         return a if device is None else a.to(device)
-    return torch.as_tensor(np.asarray(a), device=device)
+    return torch.as_tensor(np.asarray(a), device=default_device() if device is None else device)
 
 
 def _host_f64(a):
@@ -105,7 +108,7 @@ def _normalize_sampler(sampler, nrec: int, device, rng=None):
         if "indices" in sampler:
             indices = _as_tensor(sampler["indices"], device)
         else:
-            gen = validate_rng(sampler.get("rng", rng))
+            gen = validate_rng(sampler.get("rng", rng), device=device)
             indices = random_indices(gen, sampler["nrep"], nrec, device=device)
         return indices, freq_from_indices(indices, nrec)
     indices = _as_tensor(sampler, device)
@@ -512,6 +515,120 @@ class DataCentralMoments:
         if meta is not None:
             obj = dataclasses.replace(obj, meta=meta.resample(obj, indices=indices, freq=freq))
         return obj
+
+    # -- streaming accumulation ---------------------------------------------
+    # Each chunk is reduced on its own (K1 / K4 on the card) and pooled with
+    # the running state by the exact shifted-moment merge, as if all samples
+    # had been reduced in one shot; no samples are kept.
+
+    @classmethod
+    def zeros(
+        cls,
+        order: int,
+        *,
+        val_shape: tuple[int, ...] = (),
+        batch_shape: tuple[int, ...] = (),
+        deriv: int | None = None,
+        dtype=torch.float64,
+        device=None,
+        central: bool = True,
+        x_is_u: bool = False,
+        xalpha: bool = False,
+        meta: DataCallbackABC | None = None,
+    ):
+        """Empty (zero-weight) accumulator state on ``device`` (the default
+        device when None).
+
+        ``batch_shape`` adds kept batch axes (a macrostate grid, replicates)
+        that chunks pool into elementwise.  ``deriv`` (xalpha only, flat) is
+        the size of the explicit β-derivative axis (``order + 1`` by
+        default).  Merging the empty state with a chunk returns that chunk's
+        moments; ``derivs_args`` of a still-empty state is undefined (0/0).
+        """
+        val_shape = tuple(val_shape)
+        batch_shape = tuple(batch_shape)
+        if xalpha and batch_shape:
+            msg = "zeros with both a deriv axis and batch axes is not supported"
+            raise ValueError(msg)
+        device = default_device() if device is None else torch.device(device)
+        d = (int(deriv) if deriv is not None else order + 1,) if xalpha else ()
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        du = z(order + 1, *batch_shape, *(1,) * len(val_shape))
+        du[0] = 1.0
+        return cls(
+            xave=z(*d, *batch_shape, *val_shape),
+            uave=z(*batch_shape),
+            du=du,
+            dxdu=z(order + 1, *d, *batch_shape, *val_shape),
+            wsum=z(*batch_shape),
+            meta=meta if meta is not None else DataCallback(),
+            order=int(order),
+            central=bool(central),
+            x_is_u=bool(x_is_u),
+            xalpha=bool(xalpha),
+            val_ndim=len(val_shape),
+        )
+
+    def merge(self, *others: "DataCentralMoments"):
+        """Exactly pool this moment state with ``others`` (each weighted by
+        its ``wsum``), as if all their samples had been reduced in one shot.
+        Batch axes are kept and pooled elementwise; ``xalpha`` is supported
+        for flat states.  The result keeps this state's dtype and device."""
+        states = (self, *others)
+        for o in others:
+            same = (
+                o.order == self.order
+                and o.central == self.central
+                and o.x_is_u == self.x_is_u
+                and o.xalpha == self.xalpha
+                and o.val_ndim == self.val_ndim
+                and o.wsum.shape == self.wsum.shape
+            )
+            if not same:
+                msg = "merge requires identical order/central/x_is_u/xalpha/val_ndim and batch shape"
+                raise ValueError(msg)
+        if self.xalpha and self.wsum.ndim != 0:
+            msg = "merge with both a deriv axis and batch axes is not supported"
+            raise ValueError(msg)
+
+        def stack(name, dim):
+            like = getattr(self, name)
+            return torch.stack([getattr(s, name).to(like) for s in states], dim=dim)
+
+        # the states' axis leads the means and weights and follows the moment
+        # axis; an xalpha deriv axis stays behind it as one more value axis
+        dxdu = stack("dxdu", 1)
+        du = torch.stack(
+            [_pad_val(s.du, s.dxdu.ndim - s.du.ndim).to(self.du) for s in states], dim=1
+        )
+        xave, uave, du, dxdu, wsum = merge_central_comoments(
+            stack("xave", 0), stack("uave", 0), du, dxdu, stack("wsum", 0), axis=0
+        )
+        du = du.reshape((self.order + 1, *uave.shape) + (1,) * self.val_ndim)
+        return dataclasses.replace(
+            self, xave=xave, uave=uave, du=du, dxdu=dxdu, wsum=wsum, meta=self.meta.reduce(self)
+        )
+
+    def push_vals(self, xv, uv, *, weight=None):
+        """Streaming update: reduce one chunk of samples (``xv`` is ignored
+        with ``x_is_u``) and merge it into this state; returns the new
+        state.  Arrays that are not tensors go to this state's device."""
+        if not isinstance(uv, torch.Tensor):
+            uv = _as_tensor(uv, self.wsum.device)  # xv and weight follow uv
+        chunk = type(self).from_vals(
+            None if self.x_is_u else xv,
+            uv,
+            self.order,
+            weight=weight,
+            central=self.central,
+            xalpha=self.xalpha,
+            x_is_u=self.x_is_u,
+            meta=self.meta,
+        )
+        return self.merge(chunk)
 
     def __len__(self) -> int:
         return int(self.wsum if self.wsum.ndim == 0 else self.wsum.reshape(-1)[0])

@@ -6,8 +6,10 @@ Run from the repository root on a CUDA machine::
 
 It builds ``chip_smoke.py``'s inputs (R = 1e8 ideal-gas configurations of 8
 particles, the 64 x 1e6 lnΠ grid; same seed) and prints one JSON line per
-call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, and K4 and
-K5 alone.  Each line holds
+call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, K4 and K5
+alone, the perturbation call at R = 1e7 (counts drawn in the kernel, then
+from a table) and at R = 1e8, its weight build alone, K7 and K8 alone, and
+one streaming update of a 1e7-sample chunk.  Each line holds
 
 - ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
 - ``device_ms``: device time per call from ``torch.profiler`` over 5 more
@@ -70,7 +72,15 @@ def main() -> int:
 
     from . import idealgas
     from .ops import moments_cuda as mc
-    from .pipeline import make_extrap_pipeline, make_lnpi_pipeline, make_volume_pipeline
+    from .ops.resample import poisson1_freq
+    from .pipeline import (
+        _perturb_weights,
+        make_extrap_pipeline,
+        make_lnpi_pipeline,
+        make_perturb_pipeline,
+        make_streaming_extrap_pipeline,
+        make_volume_pipeline,
+    )
 
     if not torch.cuda.is_available():
         print("devtime: no CUDA device")
@@ -93,6 +103,15 @@ def main() -> int:
     run_lnpi = make_lnpi_pipeline(ORDER, BETA0, nrep=NREP)
     run_vol = make_volume_pipeline(1.0, ndim=1, nrep=NREP)
     wv = -BETA0 * u
+    # the perturbation path's size: R = 1e7, 128 replicates
+    rp, nrep_p = 10_000_000, 128
+    up, xp = u[:rp], x[:rp]
+    run_pd = make_perturb_pipeline(BETA0, nrep=nrep_p, poisson="device")
+    run_pt = make_perturb_pipeline(BETA0, nrep=nrep_p, poisson="table")
+    dalpha = (betas.to(dev) - BETA0).float()
+    ep = _perturb_weights(up, dalpha, None)
+    table = poisson1_freq(gen, (nrep_p, rp), dtype=torch.int8)
+    state0, update, _ = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP, seed=SEED)
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
@@ -101,6 +120,13 @@ def main() -> int:
         "K4_grid_order6": lambda: mc.reduce_central_umoments_batched(grid, ORDER),
         "K4_flat_order7": lambda: mc.reduce_central_umoments_batched(u, ORDER + 1),
         "K5_grid_order6": lambda: mc.resample_central_umoments_batched_poisson(grid, NREP, ORDER, seed=SEED),
+        "perturb_pipeline_device_1e7": lambda: run_pd(up, xp, betas, seed=SEED),
+        "perturb_pipeline_table_1e7": lambda: run_pt(up, xp, betas, seed=SEED),
+        "perturb_pipeline_device_1e8": lambda: run_pd(u, x, betas, seed=SEED),
+        "perturb_weights_1e7": lambda: _perturb_weights(up, dalpha, None),
+        "K7_int8_1e7": lambda: mc.resample_perturb_freq(ep, xp[:, None], table),
+        "K8_1e7": lambda: mc.resample_perturb_poisson(ep, xp[:, None], nrep_p, seed=SEED),
+        "streaming_update_1e7": lambda: update(state0, up, xp),
     }
     for name, fn in calls.items():
         wall, device, top = device_time(fn)

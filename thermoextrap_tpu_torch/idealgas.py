@@ -80,7 +80,8 @@ def x_cdf(x, beta, vol=1.0):
 
 def x_sample(shape, beta, vol=1.0, rng=None, *, device=None, dtype=torch.float64):
     """Inverse-CDF sampling of positions, drawn on ``device`` (the
-    generator's device when ``rng`` is a ``torch.Generator``)."""
+    generator's device when ``rng`` is a ``torch.Generator``, else the
+    package's default device when ``device`` is None)."""
     gen = validate_rng(rng, device=device)
     shape = shape if isinstance(shape, tuple) else (shape,)
     r = torch.rand(shape, generator=gen, dtype=dtype, device=gen.device)

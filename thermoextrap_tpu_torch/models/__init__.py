@@ -1,6 +1,6 @@
-"""Derivative engine and extrapolation model of the torch port."""
+"""Derivative engine and models of the torch port."""
 
 from .derivatives import Derivatives
-from .extrap import ExtrapModel
+from .extrap import ExtrapModel, PerturbModel
 
-__all__ = ["Derivatives", "ExtrapModel"]
+__all__ = ["Derivatives", "ExtrapModel", "PerturbModel"]

@@ -60,6 +60,10 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I, _I, _I, _LL, _P, _I, _P],
         _I,
     ),
+    "tx_resample_perturb": (
+        [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I, _I, _I, _LL, _P, _I, _P],
+        _I,
+    ),
 }
 
 

@@ -1,8 +1,9 @@
 r"""Hand-written CUDA kernels for the (co)moment reduction and bootstrap,
 with the plain torch version of each beside it.
 
-Counterpart of ``thermoextrap_tpu/ops/moments_pallas.py`` for the kernels of
-the β-extrapolation main path and of the lnΠ / ⟨u⟩ ensembles:
+Counterpart of ``thermoextrap_tpu/ops/moments_pallas.py``: the kernels of
+the β-extrapolation main path, of the lnΠ / ⟨u⟩ ensembles and of the
+perturbation bootstrap:
 
 ======  =================================================  ===============================
 kernel  wrapper here                                       CUDA source
@@ -13,6 +14,8 @@ K2      :func:`resample_central_comoments_fused`            ``csrc/comoments_res
 K3      :func:`resample_central_comoments_poisson`          ``csrc/comoments_resample.cu``
 K4      :func:`reduce_central_umoments_batched`             ``csrc/umoments_reduce.cu``
 K5      :func:`resample_central_umoments_batched_poisson`   ``csrc/umoments_resample.cu``
+K7      :func:`resample_perturb_freq`                       ``csrc/perturb_resample.cu``
+K8      :func:`resample_perturb_poisson`                    ``csrc/perturb_resample.cu``
 ======  =================================================  ===============================
 
 Every wrapper runs its kernel on a CUDA tensor and its plain torch version on
@@ -23,7 +26,8 @@ float64.  Both share one algorithm: the shift is the weighted mean of the
 first :data:`HEAD_N` samples (:func:`_head_shift`), the kernel sums shifted
 powers, and one epilogue (:func:`_shifted_epilogue`, or :func:`_u_epilogue`
 for the u-moment kernels K4 and K5) recentres the sums exactly.  Each
-wrapper adds one to ``LAUNCHES[name]`` when it launches its kernel.  The
+wrapper adds one to ``LAUNCHES[name]`` when it launches its kernel.  K7 and
+K8 take no shift: they sum the streamed reweighting factors as they are.  The
 kernels are forward only: a CUDA input that requires grad raises, and the
 CPU path differentiates by autograd.
 """
@@ -52,6 +56,10 @@ __all__ = [
     "resample_central_comoments_poisson",
     "resample_central_umoments_batched_poisson",
     "resample_comoments_plain",
+    "resample_perturb_freq",
+    "resample_perturb_plain",
+    "resample_perturb_poisson",
+    "resample_perturb_poisson_plain",
     "resample_poisson_plain",
     "resample_umoments_plain",
     "resample_umoments_poisson_plain",
@@ -61,19 +69,23 @@ __all__ = [
 
 HEAD_N = 8192  # samples behind the shift estimate
 MAX_ORDER = 15  # TX_MAX_ORDER of csrc/common.cuh
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu
 _RS_REPS = 32  # TX_RS_REPS of comoments_resample.cu
 _RS_CB = 16  # TX_RS_CB
 _RS_TILE = 512  # TX_RS_TILE
-_URS_THREADS = 256  # TX_URS_THREADS of umoments_resample.cu
+_URS_THREADS = 256  # TX_URS_THREADS of resample_tile.cuh (K5, K7, K8)
 _URS_RB = 4  # TX_URS_RB
 _URS_CB = 16  # TX_URS_CB
 _URS_TILE = 32  # TX_URS_TILE
 _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
+# K7/K8 cut the samples four times finer: a thread's serial float32 sum of
+# positive terms then runs over a few hundred samples at R = 1e7, which holds
+# the sums to ~1e-7 relative once the partials are added in float64
+_PERTURB_TARGET_BLOCKS = 4 * _TARGET_BLOCKS
 
-# count-table codes of tx_resample_comoments
+# count-table codes of tx_resample_comoments and tx_resample_perturb
 _COUNT_KIND = {
     torch.int8: 0,
     torch.int16: 1,
@@ -210,11 +222,31 @@ def _stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _signed64(seed: int) -> int:
+    """``seed mod 2^64`` as a signed 64-bit value (the kernels' seed type)."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return seed - (1 << 64) if seed >= 1 << 63 else seed
+
+
 def _weight_rows(weight, shape, device):
     if weight is None:
         return None
     w = torch.as_tensor(weight, device=device)
     return torch.broadcast_to(w, shape)
+
+
+def _count_table(freq, nrep: int, r: int, device):
+    """A count table as the kernels stream it: ``(table, kind code)``."""
+    freq = torch.as_tensor(freq, device=device)
+    if freq.shape != (nrep, r):
+        msg = f"freq must have shape {(nrep, r)}, got {tuple(freq.shape)}"
+        raise ValueError(msg)
+    if freq.dtype not in _COUNT_KIND:
+        # wide or unsigned integer tables stream as int32; other float
+        # tables as float32 (fractional counts must stay fractional)
+        freq = freq.to(torch.float32 if freq.is_floating_point() else torch.int32)
+    freq = freq.contiguous()
+    return freq, _COUNT_KIND[freq.dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -467,16 +499,7 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
         kind = _POISSON_KIND
         fptr = None
     else:
-        freq = torch.as_tensor(freq, device=u.device)
-        if freq.shape != (nrep, r):
-            msg = f"freq must have shape {(nrep, r)}, got {tuple(freq.shape)}"
-            raise ValueError(msg)
-        if freq.dtype not in _COUNT_KIND:
-            # wide or unsigned integer tables stream as int32; other float
-            # tables as float32 (fractional counts must stay fractional)
-            freq = freq.to(torch.float32 if freq.is_floating_point() else torch.int32)
-        freq = freq.contiguous()
-        kind = _COUNT_KIND[freq.dtype]
+        freq, kind = _count_table(freq, nrep, r, u.device)
         fptr = freq.data_ptr()
     m = (v + 1) * (order + 1)
     ycount = math.ceil(nrep / _RS_REPS)
@@ -504,7 +527,7 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
         chunk,
         int(sdt == torch.bfloat16),
         kind,
-        int(seed),
+        _signed64(seed),
         thresholds,
         u.device.index,
         _stream_ptr(u.device),
@@ -581,7 +604,7 @@ def poisson_counts_cuda(seed: int, nrep: int, nrec: int, device):
         out.data_ptr(),
         nrec,
         nrep,
-        int(seed),
+        _signed64(seed),
         _thresholds(),
         out.device.index,
         _stream_ptr(out.device),
@@ -787,7 +810,7 @@ def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0)
         nr,
         npt,
         bf16,
-        int(seed),
+        _signed64(seed),
         thresholds,
         u.device.index,
         _stream_ptr(u.device),
@@ -843,3 +866,158 @@ def resample_umoments_table_cuda(uv, freq, order: int, weight=None, *, return_ws
     out = _resample_u_cuda(u2, w2, freq.shape[0], order, freq=freq)
     LAUNCHES["K5"] += 1
     return _resample_u_outputs(out, batch, return_wsum)
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: perturbation bootstrap, counts from a table or drawn in the kernel
+# ---------------------------------------------------------------------------
+
+
+def _perturb_prep(ev, xv, dtype):
+    """``ev (A, R)`` and ``xv (R, *val)`` as contiguous ``dtype`` operands
+    ``(ev, x2 (R, V))`` on ``ev``'s device."""
+    if ev.ndim != 2:
+        msg = f"ev must be (targets, samples), got {tuple(ev.shape)}"
+        raise ValueError(msg)
+    kind = ev.device.type
+    if kind not in ("cpu", "cuda"):
+        msg = f"the perturbation kernels run on cuda or cpu tensors, not {ev.device}"
+        raise ValueError(msg)
+    if xv.device != ev.device:
+        msg = f"ev is on {ev.device} but xv on {xv.device}"
+        raise ValueError(msg)
+    r = ev.shape[1]
+    if xv.shape[0] != r:
+        msg = f"xv {tuple(xv.shape)} does not lead with the {r} samples of ev"
+        raise ValueError(msg)
+    return ev.to(dtype).contiguous(), xv.reshape(r, -1).to(dtype).contiguous()
+
+
+def _perturb_plain_dtype(ev, xv):
+    return torch.float64 if torch.float64 in (ev.dtype, xv.dtype) else torch.float32
+
+
+def _perturb_sums_plain(e, x2, counts):
+    """``sum_j counts[r, j] e[a, j] [x2[j] | 1]`` → ``(A, nrep, V+1)``."""
+    xe = torch.cat([x2, torch.ones_like(x2[:, :1])], dim=1)
+    y = e[:, :, None] * xe[None]
+    return torch.einsum("nr,arv->anv", counts.to(device=e.device, dtype=e.dtype), y)
+
+
+def resample_perturb_plain(ev, xv, counts, *, chunk: int = 1 << 20):
+    """Plain torch version of K7: for target ``a`` and replicate ``r`` the
+    sums ``sum_j counts[r, j] ev[a, j] [xv[j] | 1]`` as ``(A, nrep, V+1)``,
+    ``chunk`` samples at a time.  ``ev (A, R)``, ``xv (R, *val)``,
+    ``counts (nrep, R)``; float64 inputs compute in float64, the rest in
+    float32."""
+    e, x2 = _perturb_prep(ev, xv, _perturb_plain_dtype(ev, xv))
+    r = e.shape[1]
+    if tuple(counts.shape[1:]) != (r,):
+        msg = f"counts must have shape (nrep, {r}), got {tuple(counts.shape)}"
+        raise ValueError(msg)
+    sums = 0
+    for j0 in range(0, r, chunk):
+        j1 = min(r, j0 + chunk)
+        sums = sums + _perturb_sums_plain(e[:, j0:j1], x2[j0:j1], counts[:, j0:j1])
+    return sums
+
+
+def resample_perturb_poisson_plain(ev, xv, nrep: int, *, seed: int = 0, chunk: int = 1 << 20):
+    """Plain torch version of K8: :func:`resample_perturb_plain` on the counts
+    of :func:`_poisson_counts`, drawn and consumed ``chunk`` samples at a time
+    so that the ``(nrep, R)`` table never exists whole."""
+    e, x2 = _perturb_prep(ev, xv, _perturb_plain_dtype(ev, xv))
+    r = e.shape[1]
+    chunk = max(4, chunk // 4 * 4)
+    sums = 0
+    for j0 in range(0, r, chunk):
+        j1 = min(r, j0 + chunk)
+        counts = _poisson_counts(seed, nrep, j1 - j0, e.device, start=j0)
+        sums = sums + _perturb_sums_plain(e[:, j0:j1], x2[j0:j1], counts)
+    return sums
+
+
+def _resample_perturb_cuda(ev, xv, nrep: int, *, freq=None, seed: int = 0):
+    """Launch the perturbation bootstrap kernel (table counts when ``freq``
+    is given, in-kernel Poisson counts otherwise); returns the sums
+    ``(A, nrep, V+1)``, float32."""
+    _check_cuda_inputs(ev, xv, freq)
+    e, x2 = _perturb_prep(ev, xv, torch.float32)
+    na, r = e.shape
+    v = x2.shape[1]
+    if nrep < 1 or r < 1 or na < 1:
+        msg = f"need at least one target, sample and replicate; got ev {tuple(e.shape)}, nrep {nrep}"
+        raise ValueError(msg)
+    if freq is None:
+        kind = _POISSON_KIND
+        fptr = None
+    else:
+        freq, kind = _count_table(freq, nrep, r, e.device)
+        fptr = freq.data_ptr()
+    m = na * (v + 1)
+    nr, npt = _u_thread_split(m, nrep)
+    ycount = math.ceil(nrep / (npt * _URS_RB))
+    zcount = math.ceil(m / (nr * _URS_CB))
+    ntile = math.ceil(r / _URS_TILE)
+    nchunk = max(1, min(ntile, math.ceil(_PERTURB_TARGET_BLOCKS / (ycount * zcount))))
+    chunk = math.ceil(ntile / nchunk) * _URS_TILE
+    nchunk = math.ceil(r / chunk)
+    part = torch.empty((nchunk, nrep, m), dtype=torch.float32, device=e.device)
+    thresholds = _thresholds()  # kept alive across the call
+    lib = _build.library()
+    status = lib.tx_resample_perturb(
+        e.data_ptr(),
+        x2.data_ptr(),
+        fptr,
+        part.data_ptr(),
+        na,
+        r,
+        v,
+        nrep,
+        nchunk,
+        chunk,
+        nr,
+        npt,
+        kind,
+        _signed64(seed),
+        thresholds,
+        e.device.index,
+        _stream_ptr(e.device),
+    )
+    _build.check(status, "tx_resample_perturb")
+    # deterministic second pass: (nrep, A (V+1)) -> (A, nrep, V+1)
+    sums = part.double().sum(0).reshape(nrep, na, v + 1).permute(1, 0, 2)
+    return sums.to(torch.float32).contiguous()
+
+
+def resample_perturb_freq(ev, xv, freq):
+    r"""K7: bootstrap sums of perturbation-reweighted samples against a count
+    table.  ``ev (A, R)`` holds the max-shift-stabilized reweighting factors
+    of ``pipeline._perturb_weights`` (sample weights and zero masks folded
+    in), ``xv (R, *val)`` the observable, ``freq (nrep, R)`` the counts
+    (int8/16/32 and float32/bfloat16 stream as they are; other types are
+    converted).  Returns ``(A, nrep, V+1)``: per target and replicate the
+    numerators ``sum_j f_rj e_a(j) x_j`` and, last, the weight sum
+    ``sum_j f_rj e_a(j)``.  The caller divides; a replicate or target of zero
+    weight sum returns zeros here.  On the card the operands are cast to
+    float32 and any number of contribution rows ``A (V+1)`` runs in the
+    kernel (it loops over 512-row tiles)."""
+    if ev.device.type == "cpu":
+        return resample_perturb_plain(ev, xv, torch.as_tensor(freq))
+    out = _resample_perturb_cuda(ev, xv, freq.shape[0], freq=freq)
+    LAUNCHES["K7"] += 1
+    return out
+
+
+def resample_perturb_poisson(ev, xv, nrep: int, *, seed: int = 0):
+    r"""K8: :func:`resample_perturb_freq` with Poisson(1) counts drawn inside
+    the kernel from ``seed`` by K3's schedule (:func:`_poisson_counts`), so
+    the ``(nrep, R)`` table never exists: K8 on ``seed`` equals K7 on
+    ``poisson_counts_cuda(seed, nrep, R)`` bit for bit, and at ``ev = 1`` its
+    last column is K3's per-replicate weight sum.
+    :func:`resample_perturb_poisson_plain` is the plain version."""
+    if ev.device.type == "cpu":
+        return resample_perturb_poisson_plain(ev, xv, nrep, seed=seed)
+    out = _resample_perturb_cuda(ev, xv, nrep, seed=seed)
+    LAUNCHES["K8"] += 1
+    return out

@@ -1,16 +1,26 @@
 r"""Serving pipelines: samples → extrapolation (+ bootstrap CI).
 
-Counterpart of ``make_extrap_pipeline``, ``make_lnpi_pipeline`` and
-``make_volume_pipeline`` in ``thermoextrap_tpu/pipeline.py`` (without a
-mesh; the streaming, perturbation and GPR pipelines are not ported yet).
-The path runs by the device of the samples, decided per call:
+Counterpart of ``thermoextrap_tpu/pipeline.py`` without a mesh: the one-shot
+``make_extrap_pipeline``, ``make_lnpi_pipeline``, ``make_volume_pipeline``
+and ``make_perturb_pipeline``, their streaming forms
+(``make_streaming_{extrap,lnpi,volume,perturb}_pipeline``) and
+``streaming_jackknife``.  The streaming interpolation and the GPR pipelines
+are not ported yet.  Arrays that are not tensors go to the package's default
+device (:func:`.utils.device.default_device`); the path then runs by the
+device of the samples, decided per call:
 
 - CUDA: a shifted single-pass reduction kernel (K1 for ⟨x⟩ and volume, K4
   for ⟨u⟩ and the lnΠ grid), then, with ``nrep > 0``, a Poisson bootstrap
-  kernel whose counts are drawn in the kernel (K3, or K5 for the u-moments),
-  so no ``(nrep, R)`` table exists;
-- CPU: the float64 two-pass reduction, then a multinomial count-table
-  bootstrap drawn from a ``torch.Generator`` seeded with ``seed``.
+  kernel whose counts are drawn in the kernel (K3, or K5 for the u-moments;
+  K8 for the perturbation sums, or K7 against a count table), so no
+  ``(nrep, R)`` table exists unless the caller asks for one;
+- CPU: the float64 two-pass reduction, then a count-table bootstrap drawn
+  from a ``torch.Generator`` seeded with ``seed``.
+
+A streaming pipeline is ``(state0, update, predict)``: ``update`` reduces one
+chunk by the same kernels and pools it exactly into the state (a
+:class:`.data.DataCentralMoments`, or a tuple with the replicate accumulators
+and the chunk counter), ``predict`` reads the state at any time.
 
 The truncated-series coefficients and the Taylor evaluation always run in
 float64 (a few hundred tiny operations), so the predictions are float64.
@@ -18,16 +28,29 @@ float64 (a few hundred tiny operations), so the predictions are float64.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from .data import _as_tensor
+from .data import DataCentralMoments, _as_tensor
 from .models.derivatives import central_u_ave_coefs, central_x_ave_coefs, central_x_ave_coefs_xalpha, lnpi_coefs
-from .models.extrap import _poly_eval
+from .models.extrap import _poly_eval, _weighted_sums
 from .ops import dispatch, moments_cuda, resample
 from .ops.series import series_neg_log
+from .utils.device import default_device
 from .utils.random import validate_rng
 
-__all__ = ["make_extrap_pipeline", "make_lnpi_pipeline", "make_volume_pipeline"]
+__all__ = [
+    "make_extrap_pipeline",
+    "make_lnpi_pipeline",
+    "make_perturb_pipeline",
+    "make_streaming_extrap_pipeline",
+    "make_streaming_lnpi_pipeline",
+    "make_streaming_perturb_pipeline",
+    "make_streaming_volume_pipeline",
+    "make_volume_pipeline",
+    "streaming_jackknife",
+]
 
 
 def _xalpha_mean_coefs(xave, du, dxdu, order):
@@ -51,7 +74,7 @@ def _xalpha_boot_coefs(bx, bdu, bdxdu, nrep, order):
 
 
 def _multinomial_freq(seed, nrep: int, nrec: int, device):
-    gen = validate_rng(int(seed))
+    gen = validate_rng(int(seed), device=device)
     return resample.freq_from_indices(resample.random_indices(gen, nrep, nrec, device=device), nrec)
 
 
@@ -300,3 +323,573 @@ def make_volume_pipeline(
             return _run(wv, xv, dxdqv, volumes, None, seed)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# perturbation reweighting
+# ---------------------------------------------------------------------------
+
+
+def _log_mask(weight, like):
+    """``log w`` of per-sample weights with ``-inf`` where ``w <= 0``, so
+    that zero-weight samples drop out exactly."""
+    w = _as_tensor(weight, like.device).to(like.dtype)
+    pos = w > 0
+    return torch.where(pos, torch.log(torch.where(pos, w, torch.ones_like(w))), -torch.inf)
+
+
+def _perturb_weights(uv, dalpha, weight):
+    """Max-shift-stabilized unnormalized perturbation weights ``(A, R)``:
+    ``exp(-dalpha_a u_n + log w_n - max_n)``.  Zero sample weights drop
+    exactly (``-inf`` log mask), and a target whose samples are all masked
+    gets a row of exact zeros (shift 0 in place of ``-inf``), so the 0/0 NaN
+    of an empty target appears in one place, the normalization.  The
+    ``(A, R)`` block is built in place: at ``A = 5``, ``R = 1e8`` each
+    float32 temporary is 2 GB."""
+    logw = -dalpha[:, None] * uv[None, :]
+    if weight is not None:
+        logw += _log_mask(weight, uv)[None, :]
+    shift = logw.max(dim=1, keepdim=True).values
+    shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
+    return logw.sub_(shift).exp_()
+
+
+def _perturb_predict(e, xflat):
+    """``<x>`` per target from stabilized weights, ``(A, V)`` float64."""
+    return _weighted_sums(e, xflat).double() / e.sum(dim=1).double()[:, None]
+
+
+def _perturb_boot(e, xflat, freq):
+    """Replicate predictions ``(A, nrep, V)``: the numerators of
+    :func:`.ops.moments_cuda.resample_perturb_freq` over its weight sums."""
+    v = xflat.shape[1]
+    s = moments_cuda.resample_perturb_freq(e, xflat, freq)
+    return s[..., :v] / s[..., v:]
+
+
+def _count_table_dtype(like):
+    """Type of a Poisson count table beside the samples ``like``: int8 on
+    the card (K7 streams it as it is), the samples' own type on the CPU."""
+    return torch.int8 if like.device.type == "cuda" else like.dtype
+
+
+def make_perturb_pipeline(beta0: float, *, nrep: int = 0, weighted: bool = False, poisson: str = "device"):
+    r"""Build ``run(uv, xv, betas, seed=0)`` for exponential-reweighting
+    perturbation, the zero-derivative serving path:
+
+    .. math::
+
+        \langle x\rangle_\beta = \frac{\langle x\, e^{-(\beta-\beta_0) u}
+        \rangle_{\beta_0}}{\langle e^{-(\beta-\beta_0) u}\rangle_{\beta_0}}
+
+    stabilized by a max shift and evaluated for every target β at once.
+    ``nrep > 0`` also returns the bootstrap standard deviation: Poisson(1)
+    counts pushed through the same stabilized weights.  On CUDA
+    ``poisson="device"`` draws the counts inside the kernel (K8; no table
+    exists) and ``poisson="table"`` draws one int8
+    :func:`.ops.resample.poisson1_freq` table from the call's seed (K7), so
+    that the counts are those of the plain path at equal seed; any number of
+    targets runs in the kernel.  On CPU both modes run the table through the
+    plain einsum in the samples' type.  ``weighted``: ``run`` takes a
+    per-sample weight after ``betas`` (zero weights drop samples exactly).
+
+    ``run`` maps ``uv (R,)``, ``xv (R, *val)``, ``betas (A,)`` to ``pred (A,
+    *val)`` or ``(pred, std)``, float64.  A target or replicate of zero
+    total weight gives NaN (0/0 at the normalization).
+    """
+    if poisson not in ("table", "device"):
+        msg = f"poisson must be 'table' or 'device', got {poisson!r}"
+        raise ValueError(msg)
+
+    def _run(uv, xv, betas, weight, seed):
+        uv = _as_tensor(uv)
+        xv = _as_tensor(xv, uv.device)
+        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=uv.device))
+        val_shape = tuple(xv.shape[1:])
+        r = uv.shape[0]
+        xflat = xv.reshape(r, -1)
+        v = xflat.shape[1]
+        e = _perturb_weights(uv, (betas - beta0).to(uv.dtype), weight)
+        pred = _perturb_predict(e, xflat).reshape(betas.shape + val_shape)
+        if not nrep:
+            return pred
+        # the kernels stream the stabilized rows the prediction used
+        if uv.device.type == "cuda" and poisson == "device":
+            s = moments_cuda.resample_perturb_poisson(e, xflat, nrep, seed=seed)
+        else:
+            gen = validate_rng(int(seed), device=uv.device)
+            freq = resample.poisson1_freq(gen, (nrep, r), dtype=_count_table_dtype(uv))
+            s = moments_cuda.resample_perturb_freq(e, xflat, freq)
+        s = s.double()
+        bpred = s[..., :v] / s[..., v:]
+        return pred, bpred.std(dim=1, correction=0).reshape(betas.shape + val_shape)
+
+    if weighted:
+
+        def run(uv, xv, betas, weight, seed=0):
+            return _run(uv, xv, betas, weight, seed)
+
+    else:
+
+        def run(uv, xv, betas, seed=0):
+            return _run(uv, xv, betas, None, seed)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# streaming pipelines
+# ---------------------------------------------------------------------------
+
+
+def _chunk_seed(seed: int, step: int) -> int:
+    """The 64-bit seed of chunk ``step``: a Weyl step of the odd golden-ratio
+    constant, so that for one base seed no two chunks share a stream."""
+    return (int(seed) + int(step) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+
+
+def _chunk_freq(seed: int, step: int, nrep: int, nrec: int, device):
+    """The CPU path's Poisson(1) count table of one chunk, ``(nrep, nrec)``
+    int32, from a generator keyed on ``(seed, chunk index)``."""
+    gen = validate_rng(_chunk_seed(seed, step), device=device)
+    return resample.poisson1_freq(gen, (nrep, nrec), dtype=torch.int32)
+
+
+def _freq_wsum(freq, weight, dtype):
+    """Per-replicate total weight ``sum_j freq[r, j] w_j``."""
+    fw = freq.to(dtype)
+    if weight is not None:
+        fw = fw * weight.to(dtype)[None, :]
+    return fw.sum(dim=1)
+
+
+def _split_state(state, nrep: int):
+    """``(mean, rep, step)`` of a streaming state (``rep`` and ``step`` are
+    None without replicates)."""
+    return state if nrep else (state, None, None)
+
+
+def make_streaming_extrap_pipeline(
+    order: int,
+    beta0: float,
+    *,
+    minus_log: bool = False,
+    xalpha: bool = False,
+    x_is_u: bool = False,
+    val_shape: tuple[int, ...] = (),
+    dtype=torch.float64,
+    bf16: bool = False,
+    nrep: int = 0,
+    seed: int = 0,
+    device=None,
+):
+    r"""Streaming form of :func:`make_extrap_pipeline`: fold sample chunks
+    into a running moment state as a simulation runs and predict at any time,
+    keeping no samples.
+
+    Each ``update`` reduces one chunk (K1 on CUDA, K4 with ``x_is_u``) and
+    pools it exactly into the state
+    (:meth:`.data.DataCentralMoments.push_vals`), so the state after any
+    chunking is the one-shot state up to floating-point associativity.
+
+    ``order``, ``beta0``, ``minus_log``, ``xalpha``, ``x_is_u``: as in
+    :func:`make_extrap_pipeline`; with ``xalpha`` a chunk's ``xv`` is
+    ``(chunk, order+1, *val_shape)``, with ``x_is_u`` ``update`` takes no
+    ``xv`` and ``val_shape`` must be ``()``.  ``dtype``: type of the carried
+    state (every update casts its chunk's moments to it, so structure and
+    type never change); float64 by default, the type the kernels' partial
+    sums and the series are already evaluated in.  ``bf16``: stream CUDA chunks as bfloat16.
+    ``nrep > 0``: the state also carries ``nrep`` Poisson-bootstrap replicate
+    accumulators and a chunk counter, and ``predict`` returns ``(pred,
+    std)``.  Each chunk is folded into every replicate with its own
+    Poisson(1) counts, which is one Poisson bootstrap of the whole stream;
+    on CUDA the counts are drawn in the kernel (K3, or K5 with ``x_is_u``)
+    from ``(seed, chunk index)``, on CPU from a count table of a generator
+    keyed the same way.  ``device``: where the state lives and chunks are
+    sent (the default device when None).
+
+    Returns ``(state0, update, predict)``: ``update(state, uv, xv,
+    weight=None) -> state`` (``update(state, uv, weight=None)`` with
+    ``x_is_u``) and ``predict(state, betas) -> (A, *val_shape)`` float64, or
+    ``(pred, std)``.
+    """
+    if x_is_u and xalpha:
+        msg = "x_is_u and xalpha are mutually exclusive"
+        raise ValueError(msg)
+    if x_is_u and tuple(val_shape):
+        msg = "x_is_u streams scalar energies; val_shape must be ()"
+        raise ValueError(msg)
+    device = default_device() if device is None else torch.device(device)
+    on_gpu = device.type == "cuda"
+    # with xalpha the derivative columns ride as a leading value axis of the
+    # accumulator and are disentangled only at predict time
+    val_shape = (order + 1, *val_shape) if xalpha else tuple(val_shape)
+    pad = (1,) * len(val_shape)
+
+    def zeros(batch_shape):
+        return DataCentralMoments.zeros(
+            order, batch_shape=batch_shape, val_shape=val_shape, dtype=dtype, device=device, x_is_u=x_is_u
+        )
+
+    state0 = (zeros(()), zeros((nrep,)), 0) if nrep else zeros(())
+
+    def _rep_update_u(rep, step, uv, weight):
+        # batched u-moment bootstrap of one row at order + 1, whose extra
+        # moment gives the comoments by the shift view dxdu[n] = du[n+1]
+        if on_gpu:
+            bu, bdu_full, bwsum = moments_cuda.resample_central_umoments_batched_poisson(
+                uv[None], nrep, order + 1, weight=weight, seed=_chunk_seed(seed, step), return_wsum=True
+            )
+            bwsum = bwsum[:, 0]
+        else:
+            freq = _chunk_freq(seed, step, nrep, uv.shape[0], device)
+            bu, bdu_full = resample.resample_central_umoments_batched(uv[None], freq, order + 1, weight=weight)
+            bwsum = _freq_wsum(freq, weight, rep.wsum.dtype)
+        chunk_rep = dataclasses.replace(
+            rep,
+            xave=bu[:, 0],
+            uave=bu[:, 0],
+            du=bdu_full[: order + 1, :, 0],
+            dxdu=bdu_full[1 : order + 2, :, 0],
+            wsum=bwsum,
+        )
+        return rep.merge(chunk_rep)
+
+    def _rep_update(rep, step, uv, xflat, weight):
+        if on_gpu:
+            bx, bu, bdu, bdxdu, bwsum = moments_cuda.resample_central_comoments_poisson(
+                uv, xflat, nrep, order, weight=weight, seed=_chunk_seed(seed, step), return_wsum=True
+            )
+        else:
+            freq = _chunk_freq(seed, step, nrep, uv.shape[0], device)
+            bx, bu, bdu, bdxdu = resample.resample_central_comoments(uv, xflat, freq, order, weight=weight)
+            bwsum = _freq_wsum(freq, weight, rep.wsum.dtype)
+        chunk_rep = dataclasses.replace(
+            rep,
+            xave=bx.reshape(nrep, *val_shape),
+            uave=bu,
+            du=bdu.reshape((order + 1, nrep, *pad)),
+            dxdu=bdxdu.reshape((order + 1, nrep, *val_shape)),
+            wsum=bwsum,
+        )
+        # a replicate that drew no sample of this chunk has zero weight; the
+        # merge masks zero-weight members
+        return rep.merge(chunk_rep)
+
+    def _update(state, uv, xv, weight):
+        uv = _as_tensor(uv, device)
+        weight = None if weight is None else _as_tensor(weight, device)
+        if not x_is_u:
+            xv = _as_tensor(xv, device).reshape(uv.shape[0], *val_shape)
+        if bf16 and on_gpu:
+            uv = uv.to(torch.bfloat16)
+            xv = None if x_is_u else xv.to(torch.bfloat16)
+        mean_s, rep_s, step = _split_state(state, nrep)
+        mean_s = mean_s.push_vals(xv, uv, weight=weight)
+        if not nrep:
+            return mean_s
+        if x_is_u:
+            rep_s = _rep_update_u(rep_s, step, uv, weight)
+        else:
+            rep_s = _rep_update(rep_s, step, uv, xv.reshape(uv.shape[0], -1), weight)
+        return mean_s, rep_s, step + 1
+
+    if x_is_u:
+
+        def update(state, uv, weight=None):
+            return _update(state, uv, None, weight)
+
+    else:
+
+        def update(state, uv, xv, weight=None):
+            return _update(state, uv, xv, weight)
+
+    def _coefs(s, *, rep: bool = False):
+        xave, du, dxdu = s.xave.double(), s.du.double(), s.dxdu.double()
+        if xalpha:
+            # the xalpha recursion wants the deriv axis at position 0 (x1) /
+            # 1 (dxdu); in the accumulator it sits after the replicate axis,
+            # and du carries its broadcast pad
+            if rep:
+                c = central_x_ave_coefs_xalpha(
+                    torch.movedim(xave, 1, 0), du.squeeze(2), torch.movedim(dxdu, 2, 1), order
+                )
+            else:
+                c = central_x_ave_coefs_xalpha(xave, du.squeeze(1), dxdu, order)
+        else:
+            c = central_x_ave_coefs(xave, du, dxdu, order)
+        return series_neg_log(c) if minus_log else c
+
+    def predict(state, betas):
+        mean_s, rep_s, _step = _split_state(state, nrep)
+        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
+        dalpha = betas - beta0
+        pred = _poly_eval(_coefs(mean_s), dalpha)
+        if not nrep:
+            return pred
+        return pred, _poly_eval(_coefs(rep_s, rep=True), dalpha).std(dim=1, correction=0)
+
+    return state0, update, predict
+
+
+def make_streaming_lnpi_pipeline(
+    order: int,
+    beta0: float,
+    *,
+    grid_shape: tuple[int, ...],
+    dtype=torch.float64,
+    nrep: int = 0,
+    seed: int = 0,
+    device=None,
+):
+    r"""Streaming form of :func:`make_lnpi_pipeline`: fold
+    ``(*grid_shape, chunk)`` blocks of macrostate energy samples into a
+    batched ``x_is_u`` moment state (K4 on CUDA) and predict lnΠ at any time.
+
+    ``nrep > 0`` adds ``nrep`` replicate grid accumulators whose counts are
+    shared across the grid (a replicate resamples whole configurations): K5
+    on CUDA with a seed per chunk, a count table per chunk on CPU.
+    ``dtype``, ``seed``, ``device``: as in
+    :func:`make_streaming_extrap_pipeline`.
+
+    Returns ``(state0, update, predict)``: ``update(state, uv) -> state`` and
+    ``predict(state, lnpi0, mudotn, betas) -> (A, *grid_shape)`` float64, or
+    ``(pred, std)``.
+    """
+    if order < 1:
+        msg = f"lnPi order must be >= 1, got {order}"
+        raise ValueError(msg)
+    device = default_device() if device is None else torch.device(device)
+    on_gpu = device.type == "cuda"
+    grid_shape = tuple(grid_shape)
+
+    def zeros(batch_shape):
+        return DataCentralMoments.zeros(order, batch_shape=batch_shape, x_is_u=True, dtype=dtype, device=device)
+
+    state0 = (zeros(grid_shape), zeros((nrep, *grid_shape)), 0) if nrep else zeros(grid_shape)
+
+    def _rep_update(rep, step, uv):
+        if on_gpu:
+            bu, bdu_full, bwsum = moments_cuda.resample_central_umoments_batched_poisson(
+                uv, nrep, order + 1, seed=_chunk_seed(seed, step), return_wsum=True
+            )
+        else:
+            freq = _chunk_freq(seed, step, nrep, uv.shape[-1], device)
+            bu, bdu_full = resample.resample_central_umoments_batched(uv, freq, order + 1)
+            bwsum = _freq_wsum(freq, None, rep.wsum.dtype).reshape((nrep,) + (1,) * len(grid_shape))
+            bwsum = bwsum.expand(nrep, *grid_shape)
+        chunk_rep = dataclasses.replace(
+            rep, xave=bu, uave=bu, du=bdu_full[: order + 1], dxdu=bdu_full[1 : order + 2], wsum=bwsum
+        )
+        return rep.merge(chunk_rep)
+
+    def update(state, uv):
+        uv = _as_tensor(uv, device)
+        mean_s, rep_s, step = _split_state(state, nrep)
+        mean_s = mean_s.push_vals(None, uv)
+        if not nrep:
+            return mean_s
+        return mean_s, _rep_update(rep_s, step, uv), step + 1
+
+    def _coefs(s, batch, lnpi0, mudotn):
+        du = s.du.double().reshape((order + 1, *batch))
+        return lnpi_coefs(central_u_ave_coefs(s.uave.double(), du, order - 1), lnpi0, mudotn, order)
+
+    def predict(state, lnpi0, mudotn, betas):
+        mean_s, rep_s, _step = _split_state(state, nrep)
+        lnpi0 = _as_tensor(lnpi0, device).double()
+        mudotn = _as_tensor(mudotn, device).double()
+        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
+        dalpha = betas - beta0
+        pred = _poly_eval(_coefs(mean_s, grid_shape, lnpi0, mudotn), dalpha)
+        if not nrep:
+            return pred
+        bpred = _poly_eval(_coefs(rep_s, (nrep, *grid_shape), lnpi0[None], mudotn[None]), dalpha)
+        return pred, bpred.std(dim=1, correction=0)
+
+    return state0, update, predict
+
+
+def make_streaming_volume_pipeline(
+    volume0: float,
+    *,
+    ndim: int = 3,
+    val_shape: tuple[int, ...] = (),
+    dtype=torch.float64,
+    bf16: bool = False,
+    nrep: int = 0,
+    seed: int = 0,
+    device=None,
+):
+    r"""Streaming form of :func:`make_volume_pipeline`: the order-1 streaming
+    comoment accumulator of :func:`make_streaming_extrap_pipeline` with ``x``
+    and ``dxdq`` packed as a leading value axis (``cov(x, W)`` is the order-1
+    comoment of the first packed column, ``<dxdq>`` the mean of the second),
+    plus the volume prediction.
+
+    Returns ``(state0, update, predict)``: ``update(state, wv, xv, dxdqv,
+    weight=None) -> state`` (``wv (chunk,)`` the temperature-scaled virial,
+    ``xv`` / ``dxdqv (chunk, *val_shape)``) and ``predict(state, volumes) ->
+    (A, *val_shape)`` float64, or ``(pred, std)`` when ``nrep > 0``.
+    """
+    val_shape = tuple(val_shape)
+    v0d = float(volume0) * float(ndim)
+    device = default_device() if device is None else torch.device(device)
+    state0, _update, _ = make_streaming_extrap_pipeline(
+        1, volume0, val_shape=(2, *val_shape), dtype=dtype, bf16=bf16, nrep=nrep, seed=seed, device=device
+    )
+
+    def update(state, wv, xv, dxdqv, weight=None):
+        xv = _as_tensor(xv, device)
+        dxdqv = _as_tensor(dxdqv, device)
+        if xv.shape != dxdqv.shape:
+            msg = f"xv {tuple(xv.shape)} and dxdqv {tuple(dxdqv.shape)} must match"
+            raise ValueError(msg)
+        n = xv.shape[0]
+        packed = torch.stack([xv.reshape(n, *val_shape), dxdqv.reshape(n, *val_shape)], dim=1)
+        return _update(state, wv, packed, weight=weight)
+
+    def _predict_from(s, dalpha, batch_ndim: int):
+        # xave (*b, 2, *val): [x means, dxdq means]; dxdu (2, *b, 2, *val)
+        xave = s.xave.double()
+        x_mean = xave.select(batch_ndim, 0)
+        deriv = (s.dxdu.double()[1].select(batch_ndim, 0) + xave.select(batch_ndim, 1)) / v0d
+        da = dalpha.reshape((-1,) + (1,) * (batch_ndim + len(val_shape)))
+        return x_mean[None] + da * deriv[None]
+
+    def predict(state, volumes):
+        mean_s, rep_s, _step = _split_state(state, nrep)
+        volumes = torch.atleast_1d(torch.as_tensor(volumes, dtype=torch.float64, device=device))
+        dalpha = volumes - volume0
+        pred = _predict_from(mean_s, dalpha, 0)
+        if not nrep:
+            return pred
+        return pred, _predict_from(rep_s, dalpha, 1).std(dim=1, correction=0)
+
+    return state0, update, predict
+
+
+def make_streaming_perturb_pipeline(
+    beta0: float,
+    betas,
+    *,
+    val_shape: tuple[int, ...] = (),
+    dtype=torch.float64,
+    nrep: int = 0,
+    seed: int = 0,
+    device=None,
+):
+    r"""Streaming form of :func:`make_perturb_pipeline`: fold sample chunks
+    into per-target exponential-reweighting accumulators, keeping no samples.
+
+    A running perturbation average needs a stable online normalization, so
+    the state carries, per target β, the running maximum ``m_a`` of the log
+    weights and max-shifted sums (the online-softmax recurrence): when a
+    chunk raises the maximum, the old sums are rescaled by ``exp(m_old -
+    m_new)`` before the chunk's ``exp(logw - m_new)`` terms are added.  The
+    ratio ``num / den`` is the one-shot stabilized reweight up to float
+    associativity, for any chunking.  The recurrence is plain tensor code on
+    every device.
+
+    The targets ``betas (A,)`` are fixed here (they define the
+    accumulators).  ``nrep > 0``: the state also carries replicate sums and
+    the chunk counter, each chunk folded into every replicate with
+    Poisson(1) counts from a generator keyed on ``(seed, chunk index)``
+    through :func:`.ops.moments_cuda.resample_perturb_freq` (K7 on the card,
+    its float32 sums sent to the state's type), and ``predict`` returns
+    ``(pred, std)``.  ``dtype``, ``device``: type and
+    place of the state; chunks are sent there.
+
+    The state is the tuple ``(m (A,), num (A, V), den (A,))``, with ``nrep``
+    followed by ``(bnum (A, nrep, V), bden (A, nrep), step)``.  Returns
+    ``(state0, update, predict)``: ``update(state, uv, xv, weight=None) ->
+    state`` (zero weights drop samples exactly) and ``predict(state) -> (A,
+    *val_shape)`` float64, or ``(pred, std)``.
+    """
+    device = default_device() if device is None else torch.device(device)
+    val_shape = tuple(val_shape)
+    dalpha = torch.atleast_1d(torch.as_tensor(betas, dtype=dtype, device=device)) - beta0
+    a = dalpha.shape[0]
+    v = 1
+    for n in val_shape:
+        v *= int(n)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    state0 = (torch.full((a,), -torch.inf, dtype=dtype, device=device), z(a, v), z(a))
+    if nrep:
+        state0 += (z(a, nrep, v), z(a, nrep), 0)
+
+    def update(state, uv, xv, weight=None):
+        uv = _as_tensor(uv, device).to(dtype)
+        xflat = _as_tensor(xv, device).to(dtype).reshape(uv.shape[0], -1)
+        logw = -dalpha[:, None] * uv[None, :]
+        if weight is not None:
+            logw += _log_mask(weight, uv)[None, :]
+        m = state[0]
+        new_m = torch.maximum(m, logw.max(dim=1).values)
+        # a target that has seen only zero-weight samples keeps m = -inf; the
+        # finite mask keeps exp(-inf - -inf) = NaN out of the recurrence
+        finite = torch.isfinite(new_m)
+        safe_m = torch.where(finite, new_m, torch.zeros_like(new_m))
+        scale = torch.where(finite, torch.exp(m - safe_m), torch.zeros_like(m))
+        e = torch.where(finite[:, None], logw.sub_(safe_m[:, None]).exp_(), torch.zeros_like(logw))
+        num = scale[:, None] * state[1] + _weighted_sums(e, xflat)
+        den = scale * state[2] + e.sum(dim=1)
+        if not nrep:
+            return new_m, num, den
+        bnum, bden, step = state[3:]
+        gen = validate_rng(_chunk_seed(seed, step), device=device)
+        freq = resample.poisson1_freq(gen, (nrep, uv.shape[0]), dtype=_count_table_dtype(uv))
+        s = moments_cuda.resample_perturb_freq(e, xflat, freq).to(dtype)
+        bnum = scale[:, None, None] * bnum + s[..., :v]
+        bden = scale[:, None] * bden + s[..., v]
+        return new_m, num, den, bnum, bden, step + 1
+
+    def predict(state):
+        pred = (state[1].double() / state[2].double()[:, None]).reshape((a, *val_shape))
+        if not nrep:
+            return pred
+        bpred = state[3].double() / state[4].double()[..., None]
+        return pred, bpred.std(dim=1, correction=0).reshape((a, *val_shape))
+
+    return state0, update, predict
+
+
+def streaming_jackknife(states, predict, *args):
+    r"""Delete-one-block jackknife over retained per-chunk states: a
+    prediction and its standard error with no sample retention.
+
+    Every leave-one-chunk-out pooled state is built from prefix and suffix
+    exact merges (``O(C)`` merges), ``predict(state, *args)`` is evaluated on
+    each, and the block-jackknife variance ``(C-1)/C sum_i (theta_i -
+    mean)^2`` is returned.  For time-correlated streams, where each chunk is
+    a correlation block, this is the appropriate estimator.
+
+    ``states``: per-chunk :class:`.data.DataCentralMoments` of one structure.
+    Returns ``(pred, std_err)``: ``pred`` from the pool of all chunks.
+    """
+    states = list(states)
+    c = len(states)
+    if c < 2:
+        msg = f"jackknife needs >= 2 chunk states, got {c}"
+        raise ValueError(msg)
+    # prefix[i] pools states[:i], suffix[i] pools states[i:]
+    prefix = [None] * (c + 1)
+    suffix = [None] * (c + 1)
+    for i, s in enumerate(states):
+        prefix[i + 1] = s if prefix[i] is None else prefix[i].merge(s)
+    for i in range(c - 1, -1, -1):
+        suffix[i] = states[i] if suffix[i + 1] is None else states[i].merge(suffix[i + 1])
+    loo = []
+    for i in range(c):
+        if prefix[i] is None:
+            loo.append(suffix[i + 1])
+        elif suffix[i + 1] is None:
+            loo.append(prefix[i])
+        else:
+            loo.append(prefix[i].merge(suffix[i + 1]))
+    theta = torch.stack([predict(s, *args) for s in loo])
+    var = (c - 1) / c * ((theta - theta.mean(dim=0)) ** 2).sum(dim=0)
+    return predict(prefix[c], *args), torch.sqrt(var)

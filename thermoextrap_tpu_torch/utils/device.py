@@ -1,0 +1,28 @@
+"""Where data that is not yet a tensor goes.
+
+Entry points take numpy arrays, sequences and seeds as well as tensors.  A
+tensor keeps its device; everything else lands on :func:`default_device`:
+the first CUDA card when there is one, else the CPU, unless the caller chose
+with :func:`set_default_device`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["default_device", "set_default_device"]
+
+_DEVICE: torch.device | None = None  # None = by availability
+
+
+def default_device() -> torch.device:
+    """The device of new tensors made from numpy arrays, sequences and seeds."""
+    if _DEVICE is not None:
+        return _DEVICE
+    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+
+
+def set_default_device(device) -> None:
+    """Choose the default device (``None`` restores the choice by availability)."""
+    global _DEVICE
+    _DEVICE = None if device is None else torch.device(device)
