@@ -57,13 +57,25 @@ on any failure, without printing a result.  Phases, one line each:
     the streaming perturbation against the one-shot R = 1e8 call;
 17. CUDA-event times of K7, K8, their plain versions, the library matrix
     products that compute K2's and K7's sums, the perturbation calls and one
-    streaming update.
+    streaming update;
+18. the helper kernels of the K2 / K3 wrapper and the count table's vector
+    loads: the finalize kernel against its plain version on the partials of a
+    real K2 call and on synthetic partials with an all-zero replicate (which
+    must come out equal exactly) at V = 2 and V = 40, the head-shift kernel
+    against its plain version (float32 and bfloat16 streams, weighted, a
+    zero-weight head, fewer samples than the head), and K2 with int8, int16,
+    int32, float32 and bfloat16 tables on a sample count that is no multiple
+    of 4 and on a table that starts at an unaligned address, against the
+    plain reference of phase 3.
 
-Each kernel's bound is the least time the card could take for the same work:
-the larger of its bytes (inputs read once, outputs written once) over the
-memory rate and its operations over their peak rate, worked out from the
-shapes of this run.  The line before the last is a JSON object with one entry
-per kernel; the last line is the device JSON object.
+Each K2 or K3 call must also launch the head-shift and the finalize kernel
+once; phases 6, 11 and 16 hold every path to that.  Each kernel's bound is the
+least time the card could take for the same work: the larger of its bytes
+(inputs read once, outputs written once) over the memory rate and its
+operations over their peak rate, worked out from the shapes of this run.  The
+line before the last is a JSON object with one entry per kernel (K2's carries
+its second shape, R = 1e7, under ``also``); the last line is the device JSON
+object.
 """
 
 from __future__ import annotations
@@ -315,10 +327,12 @@ def main() -> int:
     )
 
     # -- phase 6: launch counts ----------------------------------------------------------
-    missing = [k for k in ("K1", "K2", "K3", "K6") if launches[k] < 1]
+    missing = [k for k in ("K1", "K2", "K3", "K6", "head_shift", "finalize") if launches[k] < 1]
     say(6, launches=launches)
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
+    if not launches["head_shift"] == launches["finalize"] == launches["K2"] + launches["K3"]:
+        raise AssertionError(f"the main path's K2 / K3 calls did not each launch the head shift and the finalize kernel once: {launches}")
 
     # -- phase 7: times ----------------------------------------------------------------
     def time_ms(fn, reps):
@@ -477,6 +491,13 @@ def main() -> int:
         path_launches[path] = dict(mc.LAUNCHES)
         return out
 
+    def full_counts(want):
+        """Every counter's expected value: each K2 / K3 call also launches
+        the head-shift and the finalize kernel once."""
+        full = {k: want.get(k, 0) for k in mc.LAUNCHES}
+        full["head_shift"] = full["finalize"] = full["K2"] + full["K3"]
+        return full
+
     upred, ustd = counted("u_f32", lambda: run_u(u, betas, seed=SEED))
     upred16, ustd16 = counted("u_bf16", lambda: run_u16(u, betas, seed=SEED))
     lpred, lstd = counted("lnpi", lambda: run_lnpi(grid, lnpi0, mudotn, betas, seed=SEED))
@@ -530,7 +551,7 @@ def main() -> int:
     }
     say(11, launches=path_launches)
     for path, counts in path_launches.items():
-        want = {k: expected[path].get(k, 0) for k in counts}
+        want = full_counts(expected[path])
         if counts != want:
             raise AssertionError(f"{path} path launched {counts}, expected {want}")
     path_launches["main"] = launches
@@ -796,7 +817,7 @@ def main() -> int:
     say(16, launches={path: path_launches[path] for path in new_expected})
     for path, want in new_expected.items():
         counts = path_launches[path]
-        if counts != {k: want.get(k, 0) for k in counts}:
+        if counts != full_counts(want):
             raise AssertionError(f"{path} path launched {counts}, expected {want}")
 
     # -- phase 17: times of K7, K8, the library products and the new calls ----------------
@@ -816,6 +837,11 @@ def main() -> int:
         "K7": time_ms(lambda: torch.matmul(table7_f, rows7), 5),
     }
     del rows7, table7_f
+    # K2 at R = 1e7: the product of the float32 table (4 GB) and its rows
+    rows2_big = contribution_rows(u2, x2, ORDER)
+    table_f = table.float()
+    k2_big_library_ms = time_ms(lambda: torch.matmul(table_f, rows2_big), 3)
+    del rows2_big, table_f
     times["K7"] = (time_ms(lambda: mc.resample_perturb_freq(ep, xp, table7), 5), k7_plain_ms)
     times["K8"] = (time_ms(lambda: mc.resample_perturb_poisson(ep, xp, NREP_PERTURB, seed=SEED), 5), k8_plain_ms)
     for name in ("K7", "K8"):
@@ -829,6 +855,7 @@ def main() -> int:
             library_ms=library.get(name),
         )
     say(17, card=card, kernel="K2", shape="R=1e5 nrep=100, float32 matmul of the table", library_ms=library["K2"])
+    say(17, card=card, kernel="K2", shape="R=1e7 nrep=100, float32 matmul of the table", library_ms=k2_big_library_ms)
     sstate0, supdate, _ = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP_MAIN, seed=SEED)
     uc, xc = u[:R_PERTURB], x[:R_PERTURB]
     say(
@@ -842,6 +869,137 @@ def main() -> int:
         R=R_PERTURB,
         nrep=NREP_PERTURB,
         streaming_nrep=NREP_MAIN,
+    )
+
+    # -- phase 18: the helper kernels of the K2 / K3 wrapper, and the table's vector loads --
+    def rel_exact(name, got, ref, bar):
+        """Largest ``|got - ref| / |ref|`` over the outputs (0 where both are
+        0); fails beyond ``bar``, on a shape or type mismatch, or on a
+        non-finite value.  Returns ``(max relative, max absolute)`` error."""
+        worst = worst_abs = 0.0
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if a.shape != b.shape or a.dtype != b.dtype or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}[{i}]: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}, or non-finite")
+            a, b = a.double(), b.double()
+            diff = (a - b).abs()
+            rel = torch.where(diff == 0, diff, diff / b.abs())
+            worst, worst_abs = max(worst, float(rel.max())), max(worst_abs, float(diff.max()))
+        if not worst <= bar:
+            raise AssertionError(f"{name}: max relative error {worst} beyond {bar}")
+        return worst, worst_abs
+
+    # the partials and the shift of a real K2 call (the main path's shape)
+    seen = {}
+    finalize_cuda = mc.finalize_comoments_cuda
+
+    def keep_operands(part, shift, order, v):
+        seen.update(part=part, shift=shift)
+        return finalize_cuda(part, shift, order, v)
+
+    mc.finalize_comoments_cuda = keep_operands
+    try:
+        mc.resample_central_comoments_fused(u2q, x2q, tableq, ORDER)
+    finally:
+        mc.finalize_comoments_cuda = finalize_cuda
+    part_q, shift_q = seen["part"], seen["shift"]
+    fin_rel, fin_abs = rel_exact(
+        "finalize on K2's partials",
+        mc.finalize_comoments_cuda(part_q, shift_q, ORDER, 1),
+        mc.finalize_comoments_plain(part_q, shift_q[:1], shift_q[1:], ORDER, 1),
+        1e-6,
+    )
+    fin_synth = {}
+    for v_s in (2, 40):  # one tile of value columns, and several
+        part_s = torch.rand((37, 5, (v_s + 1) * (ORDER + 1)), generator=gen, device=dev) - 0.3
+        part_s[:, :, 0] = part_s[:, :, 0].abs() + 0.5
+        part_s[:, 2] = 0.0
+        shift_s = torch.rand(v_s + 1, generator=gen, device=dev)
+        got_s = mc.finalize_comoments_cuda(part_s, shift_s, ORDER, v_s)
+        ref_s = mc.finalize_comoments_plain(part_s, shift_s[:1], shift_s[1:], ORDER, v_s)
+        fin_synth[f"V={v_s}"] = rel_exact(f"finalize on synthetic partials, V = {v_s}", got_s, ref_s, 1e-6)[0]
+        if not all(torch.equal(a[..., 2:3, :] if a.ndim == 3 else a[..., 2], b[..., 2:3, :] if b.ndim == 3 else b[..., 2]) for a, b in zip(got_s[2:4], ref_s[2:4])):
+            raise AssertionError("finalize: the all-zero replicate's central moments differ from the plain version's")
+        if not (torch.equal(got_s[0][2], ref_s[0][2]) and torch.equal(got_s[1][2], ref_s[1][2]) and float(got_s[4][2]) == 0.0):
+            raise AssertionError("finalize: the all-zero replicate's means are not the shift, or its weight is not 0")
+    errs["finalize"] = fin_abs
+
+    def head_pair(uh, xh, wh=None):
+        """The head-shift kernel's buffer and its plain version's, as 1-tuples."""
+        s_u, s_x = mc._head_shift(uh[None].float(), None if wh is None else wh[None], xh[None])
+        return (mc.head_shift_cuda(uh, xh, wh),), (torch.cat([s_u, s_x[0]]),)
+
+    w_head = torch.rand(r2q, generator=gen, device=dev) + 0.5
+    x_head = torch.stack([x[:r2q], x[:r2q] ** 2, u[:r2q]], dim=1).contiguous()
+    head_cases = {
+        "f32": head_pair(u2q, x2q),
+        "f32_weighted_V3": head_pair(u2q, x_head, w_head),
+        "bf16": head_pair(u2q.to(torch.bfloat16), x_head.to(torch.bfloat16)),
+        "short_R_1000": head_pair(u2q[:1000].contiguous(), x_head[:1000].contiguous(), w_head[:1000].contiguous()),
+    }
+    head_rel = {}
+    errs["head_shift"] = 0.0
+    for tag, (got_h, ref_h) in head_cases.items():
+        head_rel[tag], abs_h = rel_exact(f"head shift {tag}", got_h, ref_h, 1e-6)
+        errs["head_shift"] = max(errs["head_shift"], abs_h)
+    w_zero = w_head.clone()
+    w_zero[: mc.HEAD_N] = 0.0
+    if not torch.equal(mc.head_shift_cuda(u2q, x_head, w_zero), torch.zeros(4, device=dev)):
+        raise AssertionError("head shift: a zero-weight head did not give shift 0 exactly")
+    del w_head, w_zero, x_head, head_cases
+
+    # the count table's two load paths, for every table type: a sample count
+    # that is no multiple of 4 (rows start at every alignment), and a table
+    # that starts one entry past an aligned address (no row is aligned)
+    r_odd = 100_003
+    table_odd = torch.poisson(torch.ones((nrep2, r_odd), device=dev), generator=gen).to(torch.int32)
+    ref_odd = mc.resample_comoments_plain(u[:r_odd].double(), x1[:r_odd].double(), table_odd, ORDER)[:4]
+    frac_q = tableq.float() * 0.5 + 0.25
+    ref_frac_odd = mc.resample_comoments_plain(u[:r_odd].double(), x1[:r_odd].double(), table_odd.float() * 0.5 + 0.25, ORDER)[:4]
+    ref_whole = mc.resample_comoments_plain(u2q.double(), x2q.double(), tableq, ORDER)[:4]
+    ref_frac = mc.resample_comoments_plain(u2q.double(), x2q.double(), frac_q, ORDER)[:4]
+    table_loads = {}
+    for dtype in (torch.int8, torch.int16, torch.int32, torch.float32, torch.bfloat16):
+        tag = str(dtype).removeprefix("torch.")
+        fractional = dtype == torch.float32
+        odd = (table_odd.float() * 0.5 + 0.25) if fractional else table_odd.to(dtype)
+        whole = frac_q if fractional else tableq.to(dtype)
+        shifted = torch.empty(whole.numel() + 1, dtype=dtype, device=dev)[1:].view(whole.shape)
+        shifted.copy_(whole)
+        if shifted.data_ptr() % (4 * shifted.element_size()) == 0 or not shifted.is_contiguous():
+            raise AssertionError("the shifted table is aligned after all")
+        table_loads[tag] = {
+            "R_100003": compare(f"K2 {tag} table, R = 100003", mc.resample_central_comoments_fused(u[:r_odd], x1[:r_odd], odd, ORDER), ref_frac_odd if fractional else ref_odd, 2e-3, 1e-5),
+            "unaligned": compare(f"K2 {tag} table, unaligned", mc.resample_central_comoments_fused(u2q, x2q, shifted, ORDER), ref_frac if fractional else ref_whole, 2e-3, 1e-5),
+            "aligned": compare(f"K2 {tag} table, aligned", mc.resample_central_comoments_fused(u2q, x2q, whole, ORDER), ref_frac if fractional else ref_whole, 2e-3, 1e-5),
+        }
+        if not all(torch.equal(a, b) for a, b in zip(mc.resample_central_comoments_fused(u2q, x2q, shifted, ORDER), mc.resample_central_comoments_fused(u2q, x2q, whole, ORDER))):
+            raise AssertionError(f"K2 {tag} table: the vector and the entry-by-entry loads give different bits")
+    errs["K2"] = max(errs["K2"], *(e for case in table_loads.values() for e in case.values()))
+    del table_odd, ref_odd, ref_frac_odd, ref_whole, ref_frac, frac_q
+    times["head_shift"] = (
+        time_ms(lambda: mc.head_shift_cuda(u2q, x2q), 10),
+        time_ms(lambda: mc._head_shift(u2q[None], None, x2q[None]), 10),
+    )
+    times["finalize"] = (
+        time_ms(lambda: mc.finalize_comoments_cuda(part_q, shift_q, ORDER, 1), 10),
+        time_ms(lambda: mc.finalize_comoments_plain(part_q, shift_q[:1], shift_q[1:], ORDER, 1), 10),
+    )
+    say(
+        18,
+        card=card,
+        finalize_max_rel_err=fin_rel,
+        finalize_synthetic_max_rel_err=fin_synth,
+        zero_replicate_equal=True,
+        head_shift_max_rel_err=head_rel,
+        zero_weight_head_is_zero=True,
+        K2_table_loads_max_abs_err=table_loads,
+        vector_and_scalar_loads_same_bits=True,
+        bar=1e-6,
+        rtol_K2=2e-3,
+        atol_K2=1e-5,
+        head_shift_ms=times["head_shift"],
+        finalize_ms=times["finalize"],
+        finalize_partials=list(part_q.shape),
     )
 
     # each kernel's least time on this card at the shape it was timed at
@@ -863,7 +1021,12 @@ def main() -> int:
             fmas=NREP_PERTURB * R_PERTURB * na * (vp + 1),
             draws=NREP_PERTURB * R_PERTURB,
         ),
+        # the first HEAD_N samples of u and x in, two shifts out
+        "head_shift": bound(f4 * min(mc.HEAD_N, r2q) * 2 + f4 * 2),
+        # the chunk partials in, the five outputs out
+        "finalize": bound(f4 * part_q.numel() + f4 * nrep2 * (3 + 2 * n1)),
     }
+    k2_big_bound = bound(f4 * nrep2 * r2 + f4 * r2 * 2, fmas=nrep2 * r2 * 2 * n1)
 
     # kernel: (source, TPU kernel it replaces, the path whose count is its `launches`)
     meta = {
@@ -875,6 +1038,9 @@ def main() -> int:
         "K6": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1875", "main"),
         "K7": ("perturb_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1404", "perturb_table"),
         "K8": ("perturb_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1357", "perturb_device"),
+        # helpers of the K2 / K3 wrapper; the reference leaves these two steps to XLA
+        "head_shift": ("finalize.cu", "thermoextrap_tpu/ops/moments_pallas.py:112", "main"),
+        "finalize": ("finalize.cu", "thermoextrap_tpu/ops/moments_pallas.py:810", "main"),
     }
     kernels = [
         {
@@ -893,6 +1059,15 @@ def main() -> int:
         }
         for name, (src, replaces, path) in meta.items()
     ]
+    # K2 once more at R = 1e7, where the table's bytes bound it
+    next(k for k in kernels if k["name"] == "K2")["also"] = {
+        "shape": extra["K2"][0],
+        "ms": extra["K2"][1],
+        "plain_ms": extra["K2"][2],
+        "bound_ms": k2_big_bound[0],
+        "bound_by": k2_big_bound[1],
+        "library_ms": k2_big_library_ms,
+    }
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -11,7 +11,10 @@ Tolerances: the float32 kernels against the float64 plain versions at the
 bar of tests/test_parallel.py:87 (rtol 2e-3, atol 1e-5), K4 at the bar of
 tests/test_parallel.py:158-161 (uave rtol 1e-6; du rtol 5e-3, atol 1e-4);
 K3 against K2, and K5 against its own consume of the same count table,
-which share one kernel body, at float32 roundoff.  K7 and K8 sum positive
+which share one kernel body, at float32 roundoff (exactly, on the ragged
+shapes).  The finalize kernel of the K2 / K3 wrapper against its plain version
+at 1e-6 relative (both recentre in float64, then cast), the head-shift kernel
+at 1e-6 relative (float32 sums in another order).  K7 and K8 sum positive
 float32 terms (a few hundred per thread, then float64): rtol 2e-5 / atol 1e-5,
 the bar of tests/test_parallel.py:716-818; K8 against K7 on its own table,
 and its weight sums at e = 1 against K3's, exactly.
@@ -453,3 +456,171 @@ def test_streaming_perturbation_on_gpu_bootstraps_through_k7(rng, cuda_device):
     assert_close(pred, one, 1e-6, 1e-9)
     ratio = npy(std) / npy(one_std)
     assert np.all((ratio > 0.6) & (ratio < 1.4))
+
+
+# -- the helper kernels of the K2 / K3 wrapper, and the count table's load paths ---------
+
+
+def _rel_err(got, ref):
+    """Largest ``|got - ref| / |ref|`` over two tuples (0 where both agree)."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        diff = (a.double() - b.double()).abs()
+        worst = max(worst, float(torch.where(diff == 0, diff, diff / b.double().abs()).max()))
+    return worst
+
+
+def test_k2_k3_wrapper_is_three_launches(rng, cuda_device, monkeypatch):
+    """Each K2 / K3 call launches the head shift, the bootstrap kernel and the
+    finalize kernel once, and reaches no plain version on CUDA tensors."""
+    u, x = _samples(rng, 30_000, 2)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    table = torch.as_tensor(rng.poisson(1.0, (9, 30_000)), dtype=torch.int8, device=cuda_device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version was called on a CUDA tensor")
+
+    for name in ("_head_shift", "_shifted_epilogue", "finalize_comoments_plain"):
+        monkeypatch.setattr(mc, name, refuse)
+    mc.reset_launches()
+    mc.resample_central_comoments_fused(uc, xc, table, 6)
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K2": 1, "head_shift": 1, "finalize": 1}
+    out = mc.resample_central_comoments_poisson(uc, xc, 9, 6, seed=3, return_wsum=True)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K2": 1, "K3": 1, "head_shift": 2, "finalize": 2}
+    assert len(out) == 5 and out[4].shape == (9,) and all(t.dtype == torch.float32 for t in out)
+
+
+@pytest.mark.parametrize(("v", "order", "nchunk"), [(1, 6, 196), (2, 6, 37), (40, 6, 3), (3, 15, 1), (1, 1, 5)])
+def test_finalize_kernel_matches_plain(cuda_device, v, order, nchunk):
+    """The finalize kernel against its plain version (1e-6 relative after the
+    float32 cast: both recentre in float64); an all-zero replicate comes out
+    equal exactly, with its means at the shift and weight 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    nrep = 6
+    part = torch.rand((nchunk, nrep, (v + 1) * (order + 1)), generator=gen, device=cuda_device) - 0.3
+    part[:, :, 0] = part[:, :, 0].abs() + 0.5
+    part[:, 2] = 0.0
+    shift = torch.rand(v + 1, generator=gen, device=cuda_device)
+    mc.reset_launches()
+    got = mc.finalize_comoments_cuda(part, shift, order, v)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["finalize"] == 1
+    ref = mc.finalize_comoments_plain(part, shift[:1], shift[1:], order, v)
+    assert _rel_err(got, ref) <= 1e-6
+    assert torch.equal(got[2][:, 2], ref[2][:, 2]) and torch.equal(got[3][:, 2], ref[3][:, 2])
+    assert torch.equal(got[0][2], shift[1:]) and float(got[1][2]) == float(shift[0]) and float(got[4][2]) == 0.0
+    assert torch.equal(got[0], mc.finalize_comoments_cuda(part, shift, order, v)[0])  # the same bits on every run
+    with pytest.raises(ValueError, match="do not fit"):
+        mc.finalize_comoments_cuda(part, shift[:-1], order, v)
+
+
+def test_finalize_kernel_on_k2_partials(rng, cuda_device, monkeypatch):
+    """On the partials of a real K2 call (the quick start's shape)."""
+    r, nrep = 100_000, 100
+    u, x = _samples(rng, r, 1)
+    table = torch.as_tensor(rng.poisson(1.0, (nrep, r)), dtype=torch.int32, device=cuda_device)
+    seen = {}
+    finalize = mc.finalize_comoments_cuda
+
+    def keep(part, shift, order, v):
+        seen.update(part=part, shift=shift)
+        return finalize(part, shift, order, v)
+
+    monkeypatch.setattr(mc, "finalize_comoments_cuda", keep)
+    got = mc.resample_central_comoments_fused(_f32(u, cuda_device), _f32(x, cuda_device), table, 6)
+    part, shift = seen["part"], seen["shift"]
+    assert part.shape == (*mc._resample_chunks(r, nrep, 14)[:1], nrep, 14)
+    ref = mc.finalize_comoments_plain(part, shift[:1], shift[1:], 6, 1)
+    assert _rel_err(got, ref[:4]) <= 1e-6
+
+
+@pytest.mark.parametrize(
+    ("r", "v", "dtype", "weighted"),
+    [(100_000, 1, torch.float32, False), (100_000, 3, torch.float32, True), (20_000, 3, torch.bfloat16, True), (1000, 2, torch.float32, True), (1, 1, torch.float32, False)],
+)
+def test_head_shift_kernel_matches_plain(rng, cuda_device, r, v, dtype, weighted):
+    u, x = _samples(rng, r, v)
+    uc, xc = tt(u).to(dtype).to(cuda_device), tt(x).to(dtype).to(cuda_device)
+    wc = _f32(rng.uniform(0.5, 1.5, r), cuda_device) if weighted else None
+    mc.reset_launches()
+    got = mc.head_shift_cuda(uc, xc, wc)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["head_shift"] == 1 and got.shape == (v + 1,) and got.dtype == torch.float32
+    s_u, s_x = mc._head_shift(uc[None].float(), None if wc is None else wc[None], xc[None])
+    assert _rel_err((got,), (torch.cat([s_u, s_x[0]]),)) <= 1e-6
+    if weighted:
+        wc[: mc.HEAD_N] = 0.0
+        assert torch.equal(mc.head_shift_cuda(uc, xc, wc), torch.zeros(v + 1, device=cuda_device))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32, torch.float32, torch.bfloat16])
+def test_k2_table_vector_and_scalar_loads(rng, cuda_device, dtype):
+    """K2 reads its table by vector loads where a row's 4 entries are aligned
+    and entry by entry elsewhere: a sample count that is no multiple of 4, a
+    table that starts one entry past an aligned address and an aligned table
+    all match the plain version, and the last two give the same bits."""
+    nrep = 11
+    for r in (4099, 4096):
+        u, x = _samples(rng, r, 1)
+        uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+        counts = tt(rng.poisson(1.0, (nrep, r)))
+        table = (counts.float() * 0.5 + 0.25 if dtype == torch.float32 else counts.to(dtype)).to(cuda_device)
+        ref = mc.resample_central_comoments_fused(tt(u), tt(x), table.cpu().double(), 6)
+        got = mc.resample_central_comoments_fused(uc, xc, table, 6)
+        assert_close(got, ref, RTOL32, ATOL32)
+        shifted = torch.empty(table.numel() + 1, dtype=dtype, device=cuda_device)[1:].view(table.shape)
+        shifted.copy_(table)
+        assert shifted.is_contiguous() and shifted.data_ptr() % (4 * shifted.element_size()) != 0
+        off = mc.resample_central_comoments_fused(uc, xc, shifted, 6)
+        assert all(torch.equal(a, b) for a, b in zip(got, off))
+
+
+# -- K5 / K7 / K8 on ragged shapes: the shared contraction kernel's edges ------------------
+
+
+@pytest.mark.parametrize(
+    ("r", "nrep", "na", "v"),
+    [
+        (1, 1, 1, 1),  # one sample, one replicate, the fewest rows a call can have (2)
+        (63, 129, 5, 1),  # a tile less one sample; two replicate blocks; 10 rows
+        (65, 1, 9, 1),  # a tile plus one sample; 18 rows (two row-threads)
+        (129, 129, 171, 2),  # 513 rows: two row tiles
+        (4097, 37, 5, 1),
+    ],
+)
+def test_k7_k8_ragged_shapes(rng, cuda_device, r, nrep, na, v):
+    """K7 against the float64 plain version and K8 equal to K7 on its own
+    table bit for bit, where the samples end inside a tile, the replicates
+    inside a block and the rows inside a row tile."""
+    u, x = _samples(rng, r, v)
+    e = tpipe._perturb_weights(tt(u), tt(np.linspace(-0.3, 0.3, na)), None)
+    xv = tt(x)
+    ec, xc = e.to(cuda_device), xv.to(cuda_device)
+    for dtype in (torch.int8, torch.int32):
+        freq = tt(rng.poisson(1.0, (nrep, r))).to(dtype)
+        got = mc.resample_perturb_freq(ec, xc, freq.to(cuda_device))
+        assert got.shape == (na, nrep, v + 1)
+        assert_close(got, mc.resample_perturb_freq(e, xv, freq), RTOL_P, ATOL_P)
+    k8 = mc.resample_perturb_poisson(ec, xc, nrep, seed=21)
+    counts = mc.poisson_counts_cuda(21, nrep, r, cuda_device)
+    assert torch.equal(k8, mc.resample_perturb_freq(ec, xc, counts))
+    assert torch.equal(k8, mc.resample_perturb_freq(ec, xc, counts.to(torch.int8)))
+
+
+@pytest.mark.parametrize(
+    ("nbatch", "r", "nrep", "order"),
+    [(1, 1, 1, 1), (1, 63, 129, 7), (3, 65, 1, 6), (74, 129, 9, 6), (6, 4097, 129, 6)],
+)
+def test_k5_ragged_shapes(rng, cuda_device, nbatch, r, nrep, order):
+    """K5's draws equal its consume of the same count table exactly, and both
+    match the plain table version, on shapes that end inside a tile, a
+    replicate block and a row tile (74 x 7 = 518 rows)."""
+    u = _grid_samples(rng, nbatch, r)
+    uc = _f32(u, cuda_device)
+    table = mc._poisson_counts(13, nrep, r)
+    k5 = mc.resample_central_umoments_batched_poisson(uc, nrep, order, seed=13, return_wsum=True)
+    consume = mc.resample_umoments_table_cuda(uc, table.to(cuda_device), order, return_wsum=True)
+    assert all(torch.equal(a, b) for a, b in zip(k5, consume))
+    assert_close(consume, mc.resample_umoments_plain(tt(u), None, table, order), RTOL32, ATOL32)

@@ -1,0 +1,165 @@
+"""The CUDA kernels of the torch port run on the CPU: their sources compiled
+by the host's g++ against a stand-in for the CUDA runtime
+(``thermoextrap_tpu_torch.emulate``) and driven through the same wrappers that
+launch them on a card.  This holds each kernel's indexing, masking and
+pipelining to its plain torch version where there is no GPU:
+
+- the few-rows and the many-rows kernel of ``csrc/resample_tile.cuh`` behind
+  K7 / K8 and K5, on shapes that end inside a tile, a replicate block and a row
+  tile, for every count-table type, an unaligned table, and chunks of several
+  tiles (so that the double buffer and the loads that run ahead are used);
+- K8 equal to K7 on its own count table bit for bit, K5's draws equal to its
+  table consume bit for bit, K8's weight sums at e = 1 equal to K3's;
+- K2 / K3 through the head-shift kernel, the bootstrap kernel and the
+  finalize kernel, and the finalize kernel alone against its plain version
+  (exact after the float32 cast), the zero-weight replicate included.
+
+Tolerances: float32 kernels against float64 plain versions at the bars of
+tests/test_torch_cuda.py (rtol 2e-3 / atol 1e-5 for the moment kernels,
+rtol 2e-5 / atol 1e-5 for the perturbation sums).
+"""
+
+import numpy as np
+import pytest
+import torch
+from _torch_parity import assert_close, tt
+
+from thermoextrap_tpu_torch import emulate
+from thermoextrap_tpu_torch.ops import moments_cuda as mc
+
+RTOL32, ATOL32 = 2e-3, 1e-5
+RTOL_P, ATOL_P = 2e-5, 1e-5
+
+
+@pytest.fixture(scope="module")
+def kernels():
+    if not emulate.available():
+        pytest.skip("needs g++ to compile the kernels for the CPU")
+    with emulate.emulated() as lib:
+        yield lib
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(29)
+
+
+@pytest.fixture
+def few_blocks(monkeypatch):
+    """Cut the samples into few chunks, so that a chunk holds several tiles."""
+    monkeypatch.setattr(mc, "_TARGET_BLOCKS", 2)
+    monkeypatch.setattr(mc, "_PERTURB_TARGET_BLOCKS", 2)
+
+
+def _f32(a):
+    return tt(a, torch.float32)
+
+
+def _perturb_inputs(rng, r, v, na):
+    e = _f32(rng.uniform(0.1, 1.0, (na, r)))
+    e[:, rng.uniform(size=r) < 0.1] = 0.0
+    return e, _f32(rng.normal(2.0, 0.5, (r, v)))
+
+
+@pytest.mark.parametrize(
+    ("r", "v", "na", "nrep", "dtype"),
+    [
+        (1, 1, 1, 1, torch.int8),  # the fewest rows a call can have (2)
+        (255, 1, 5, 16, torch.int8),  # a tile less one sample; 10 rows
+        (257, 1, 5, 129, torch.int16),  # a tile plus one; two replicate blocks
+        (300, 2, 2, 9, torch.int32),
+        (130, 3, 4, 40, torch.float32),  # 16 rows: every slot of the few-rows kernel
+        (90, 1, 9, 5, torch.bfloat16),  # 18 rows: the many-rows kernel
+        (70, 2, 171, 3, torch.int8),  # 513 rows: two row tiles
+    ],
+)
+def test_k7_emulated_matches_plain(kernels, rng, r, v, na, nrep, dtype):
+    e, x = _perturb_inputs(rng, r, v, na)
+    freq = tt(rng.poisson(1.0, (nrep, r))).to(dtype)
+    if dtype == torch.float32:
+        freq = freq * 0.5 + 0.25
+    got = mc._resample_perturb_cuda(e, x, nrep, freq=freq)
+    assert got.shape == (na, nrep, v + 1) and got.dtype == torch.float32
+    assert_close(got, mc.resample_perturb_plain(e.double(), x.double(), freq.double()), RTOL_P, ATOL_P)
+    shifted = torch.empty(freq.numel() + 1, dtype=dtype)[1:].view(freq.shape)
+    shifted.copy_(freq)
+    assert shifted.data_ptr() % (4 * shifted.element_size()) != 0
+    assert torch.equal(mc._resample_perturb_cuda(e, x, nrep, freq=shifted), got)
+
+
+@pytest.mark.parametrize(("r", "v", "na", "nrep"), [(1500, 1, 5, 16), (1030, 2, 3, 70), (200, 2, 171, 9)])
+def test_k8_emulated_equals_k7_on_its_table(kernels, rng, few_blocks, r, v, na, nrep):
+    e, x = _perturb_inputs(rng, r, v, na)
+    k8 = mc._resample_perturb_cuda(e, x, nrep, seed=11)
+    counts = mc.poisson_counts_cuda(11, nrep, r, torch.device("cpu"))
+    assert torch.equal(counts, mc._poisson_counts(11, nrep, r))
+    assert torch.equal(k8, mc._resample_perturb_cuda(e, x, nrep, freq=counts))
+    assert torch.equal(k8, mc._resample_perturb_cuda(e, x, nrep, freq=counts.to(torch.int8)))
+    assert_close(k8, mc.resample_perturb_poisson_plain(e.double(), x.double(), nrep, seed=11), RTOL_P, ATOL_P)
+    assert not torch.equal(k8, mc._resample_perturb_cuda(e, x, nrep, seed=12))
+
+
+@pytest.mark.parametrize(
+    ("nbatch", "r", "order", "nrep", "weighted", "dtype"),
+    [
+        (1, 1, 1, 1, False, torch.float32),
+        (1, 1300, 7, 40, False, torch.float32),  # the <u> path's shape: few rows, several tiles a chunk
+        (2, 700, 6, 130, True, torch.bfloat16),  # 14 rows, two replicate blocks
+        (6, 333, 6, 129, False, torch.float32),  # 42 rows: many-rows kernel
+        (74, 50, 6, 3, True, torch.float32),  # 518 rows: two row tiles
+    ],
+)
+def test_k5_emulated_draws_equal_table_consume_and_match_plain(kernels, rng, few_blocks, nbatch, r, order, nrep, weighted, dtype):
+    u = _f32(rng.normal(5.0, 1.0, (nbatch, r))).to(dtype)
+    w = _f32(rng.uniform(0.5, 1.5, (nbatch, r))) if weighted else None
+    table = mc._poisson_counts(9, nrep, r)
+    k5 = mc._resample_u_cuda(u, w, nrep, order, seed=9)
+    consume = mc._resample_u_cuda(u, w, nrep, order, freq=table)
+    assert all(torch.equal(a, b) for a, b in zip(k5, consume))
+    ref = mc.resample_umoments_plain(u.double(), None if w is None else w.double(), table, order)
+    assert_close(k5, ref, RTOL32, 2e-5 if dtype == torch.bfloat16 else ATOL32)
+
+
+def test_k8_and_k5_emulated_weight_sums_equal_k3(kernels, rng):
+    r, nrep = 900, 12
+    u, x = _f32(rng.normal(5.0, 1.0, r)), _f32(rng.normal(2.0, 0.5, (r, 1)))
+    k3 = mc._resample_cuda(u, x, None, 3, nrep, seed=5)
+    wsum8 = mc._resample_perturb_cuda(torch.ones(1, r), x, nrep, seed=5)[0, :, -1]
+    wsum5 = mc._resample_u_cuda(u[None], None, nrep, 3, seed=5)[2][:, 0]
+    assert torch.equal(wsum8, k3[4]) and torch.equal(wsum5, k3[4])
+
+
+@pytest.mark.parametrize(("r", "v", "order", "weighted", "dtype"), [(700, 2, 4, True, torch.int32), (1025, 1, 6, False, torch.int8), (100, 17, 2, True, torch.float32)])
+def test_k2_k3_emulated_three_launches_match_plain(kernels, rng, r, v, order, weighted, dtype):
+    u, x = _f32(rng.normal(5.0, 1.0, r)), _f32(rng.normal(2.0, 0.5, (r, v)))
+    w = _f32(rng.uniform(0.5, 1.5, r)) if weighted else None
+    table = tt(rng.poisson(1.0, (6, r))).to(dtype)
+    table[2] = 0  # a replicate of zero weight
+    mc.reset_launches()
+    out = mc._resample_cuda(u, x, w, order, 6, freq=table)
+    assert mc.LAUNCHES["head_shift"] == 1 and mc.LAUNCHES["finalize"] == 1
+    ref = mc.resample_comoments_plain(u.double(), x.double(), table.double(), order, None if w is None else w.double())
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    assert_close(out, ref, RTOL32, ATOL32)
+    k3 = mc._resample_cuda(u, x, w, order, 6, seed=3)
+    k2 = mc._resample_cuda(u, x, w, order, 6, freq=mc._poisson_counts(3, 6, r))
+    assert_close(k3, k2, 1e-6, 1e-9)
+
+
+@pytest.mark.parametrize(("v", "order", "nchunk"), [(1, 6, 196), (2, 6, 37), (40, 3, 3), (3, 15, 1), (1, 1, 5)])
+def test_finalize_and_head_shift_emulated_match_plain(kernels, rng, v, order, nchunk):
+    nrep = 5
+    part = _f32(rng.uniform(-0.3, 0.7, (nchunk, nrep, (v + 1) * (order + 1))))
+    part[:, :, 0] = part[:, :, 0].abs() + 0.5
+    part[:, 2] = 0.0
+    shift = _f32(rng.uniform(size=v + 1))
+    got = mc.finalize_comoments_cuda(part, shift, order, v)
+    ref = mc.finalize_comoments_plain(part, shift[:1], shift[1:], order, v)
+    assert all(a.dtype == torch.float32 and a.shape == b.shape for a, b in zip(got, ref))
+    assert_close(got, ref, 1e-6, 1e-30)
+    assert torch.equal(got[2][:, 2], ref[2][:, 2]) and torch.equal(got[0][2], shift[1:]) and float(got[4][2]) == 0.0
+    u, x, w = _f32(rng.normal(5.0, 1.0, 9000)), _f32(rng.normal(2.0, 0.5, (9000, v))), _f32(rng.uniform(0.5, 1.5, 9000))
+    s_u, s_x = mc._head_shift(u[None], w[None], x[None])
+    assert_close(mc.head_shift_cuda(u, x, w), torch.cat([s_u, s_x[0]]), 1e-6)
+    w[: mc.HEAD_N] = 0.0
+    assert torch.equal(mc.head_shift_cuda(u, x, w), torch.zeros(v + 1))

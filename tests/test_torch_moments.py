@@ -167,7 +167,13 @@ def test_cpu_path_launches_no_kernel(rng):
     mc.resample_central_umoments_batched_poisson(tt(u)[None], 4, 3)
     mc.resample_perturb_freq(torch.ones(2, 300), tt(x).float(), torch.ones(4, 300))
     mc.resample_perturb_poisson(torch.ones(2, 300), tt(x).float(), 4)
-    assert mc.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+    mc.resample_central_comoments_fused(tt(u), tt(x), torch.ones(4, 300), 3)
+    mc.resample_central_comoments_poisson(tt(u), tt(x), 4, 3)
+    assert mc.LAUNCHES == {
+        **{f"K{i}": 0 for i in range(1, 9)},
+        "head_shift": 0,
+        "finalize": 0,
+    }
 
 
 def test_dispatch_impl_control(rng):
@@ -211,6 +217,7 @@ def test_build_digest_tracks_sources():
     assert {p.name for p in cu} == {
         "comoments_reduce.cu",
         "comoments_resample.cu",
+        "finalize.cu",
         "perturb_resample.cu",
         "umoments_reduce.cu",
         "umoments_resample.cu",

@@ -23,3 +23,28 @@ __device__ __forceinline__ float tx_warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+
+// Pin a value loaded ahead of its use: the compiler may neither sink the load
+// below this point nor recompute the value later (an empty volatile asm that
+// claims to rewrite it), so a prefetch stays in flight across the work that
+// follows.  No instruction is emitted.
+__device__ __forceinline__ void tx_keep(float& v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+f"(v));
+#endif
+}
+__device__ __forceinline__ void tx_keep(unsigned int& v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+r"(v));
+#endif
+}
+__device__ __forceinline__ void tx_keep(uint2& v) {
+  tx_keep(v.x);
+  tx_keep(v.y);
+}
+__device__ __forceinline__ void tx_keep(uint4& v) {
+  tx_keep(v.x);
+  tx_keep(v.y);
+  tx_keep(v.z);
+  tx_keep(v.w);
+}

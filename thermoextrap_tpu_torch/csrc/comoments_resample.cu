@@ -11,11 +11,14 @@
 // For replicate r and contribution row c = (kx + 1) (order + 1) + n
 // (kx = -1 for the u rows, else the value column):
 //   part[chunk, r, c] = sum_{j in chunk} count(r, j) w_j du_j^n dx_j,kx
-// with du = u - s_u, dx = x - s_x (dx_j,-1 = 1).  The caller sums the chunk
-// partials (deterministic second pass, no atomics) and recentres exactly.
+// with du = u - s_u, dx = x - s_x (dx_j,-1 = 1).  The shift comes from the
+// head-shift kernel of finalize.cu, and its finalize kernel sums the chunk
+// partials in float64 (deterministic second pass, no atomics) and recentres
+// exactly: the wrapper is those three launches.
 //
 // Bound on the H100: K2 streams the count table (nrep R entries, 1-4 bytes
-// each) and does (order+1)(V+1) FMAs per entry; K3 reads only the samples and
+// each, 4 entries to a vector load where they are aligned: philox.cuh) and
+// does (order+1)(V+1) FMAs per entry; K3 reads only the samples and
 // is bound by instruction throughput: one Philox4x32-10 call per 4 counts, 9
 // compares per count, then the FMAs.  The simple design: a block owns a tile
 // of contribution rows (TX_RS_CB of them, grid.z tiles the rest) and a tile

@@ -16,19 +16,22 @@
 // The caller sums the chunk partials in float64 and divides numerators by
 // the last column.
 //
-// The contraction, its count tile in shared memory and its thread layout are
-// the kernel of resample_tile.cuh (what bounds it is said there): each count
-// is drawn or loaded once per (replicate, sample) for all A (V + 1) rows of a
-// block, and beyond 512 rows the kernel loops over row tiles on grid.z,
-// drawing once per tile.  K8 draws by the Philox schedule of philox.cuh
-// indexed by the global sample, as K3 does: at e = 1 its weight-sum column
-// is K3's per-replicate weight sum exactly, and K8 on a seed equals K7 on
-// that seed's count table bit for bit (same path through the sums).
+// The contraction is one of the two kernels of resample_tile.cuh (what bounds
+// them is said there): up to 16 rows A (V + 1), the serving shape among them,
+// run in the few-rows kernel, where the counts go from the table (or the
+// draw) through registers into the FMAs; more rows run in the many-rows
+// kernel, where each count is drawn or loaded once per (replicate, sample)
+// into shared memory for all rows of a block, and beyond 512 rows the kernel
+// loops over row tiles on grid.z, drawing once per tile.  K8 draws by the
+// Philox schedule of philox.cuh indexed by the global sample, as K3 does: at
+// e = 1 its weight-sum column is K3's per-replicate weight sum exactly, and
+// K8 on a seed equals K7 on that seed's count table bit for bit (same path
+// through the sums).
 //
-// Bound on the H100 at the serving shape (A = 5, V = 1, nrep = 128): the
-// Philox draw for K8 (10 FMAs a count against a quarter Philox call and 9
-// compares); for K7 the count table's bytes (nrep R, 1 to 4 bytes each)
-// beside 4 A R bytes of e.
+// Bound on the H100 at the serving shape (A = 5, V = 1, nrep = 128; 10 FMAs a
+// count): for K7 the count table's bytes (nrep R, 1 to 4 bytes each) beside
+// 4 (A + V) R bytes of e and x; for K8 the integer instructions of the draw
+// (a quarter Philox call and 9 compares a count).  PERF.md has the times.
 
 #include "resample_tile.cuh"
 
@@ -36,6 +39,12 @@ namespace {
 
 // rows c = a (V + 1) + k of the targets behind a block's row tile
 struct PerturbFill {
+  // one (target, sample) item of the few-rows kernel: e_a(j) and the first
+  // value column are fetched ahead, further value columns are read when the
+  // rows are stored
+  struct Raw {
+    float e, x0;
+  };
   const float* e;  // (A, R)
   const float* x;  // (R, V)
   long long R;
@@ -43,13 +52,44 @@ struct PerturbFill {
   int c0;     // first row of the tile
   int ncol;   // rows of the tile
   int a_lo;   // first target behind the tile
-  int na;     // targets behind the tile
+  int nsrc;   // targets behind the tile
+
+  static __device__ __forceinline__ void keep(Raw& raw) {
+    tx_keep(raw.e);
+    tx_keep(raw.x0);
+  }
+
+  __device__ __forceinline__ Raw fetch(int item, long long t0, long long j_end) const {
+    const long long j = t0 + item % TX_FEW_TILE;
+    Raw raw = {0.f, 0.f};
+    if (j < j_end) {
+      raw.e = e[(long long)(a_lo + item / TX_FEW_TILE) * R + j];
+      if (V > 0) raw.x0 = x[j * V];
+    }
+    return raw;
+  }
+
+  __device__ __forceinline__ void store(Raw raw, int item, float* tile, int gstride,
+                                        long long t0, long long j_end) const {
+    const int i = item % TX_FEW_TILE;
+    const long long j = t0 + i;
+    const bool valid = j < j_end;
+    float* at = tile + (i >> 2) * gstride + (i & 3);
+    const int row0 = (a_lo + item / TX_FEW_TILE) * (V + 1) - c0;
+    for (int k = 0; k <= V; ++k) {
+      const int cc = row0 + k;
+      if ((unsigned)cc < (unsigned)ncol) {
+        const float xk = (k == V) ? 1.f : ((k == 0) ? raw.x0 : (valid ? x[j * V + k] : 0.f));
+        at[4 * cc] = raw.e * xk;  // raw.e is 0 past j_end
+      }
+    }
+  }
 
   __device__ __forceinline__ void fill(float* tile, int tstride, long long t0,
                                        long long j_end) const {
     const int v1 = V + 1;
     // one (target, sample) pair per item
-    for (int item = threadIdx.x; item < na * TX_URS_TILE; item += TX_URS_THREADS) {
+    for (int item = threadIdx.x; item < nsrc * TX_URS_TILE; item += TX_URS_THREADS) {
       const int a = a_lo + item / TX_URS_TILE;
       const int i = item % TX_URS_TILE;
       const long long j = t0 + i;
@@ -68,6 +108,7 @@ struct PerturbFill {
 };
 
 struct PerturbRows {
+  using Filler = PerturbFill;
   const float* e;
   const float* x;
   long long R;

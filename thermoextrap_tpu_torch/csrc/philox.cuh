@@ -1,4 +1,5 @@
-// The Poisson(1) bootstrap counts drawn inside the kernels K3 and K5.
+// The count sources of the bootstrap kernels: the Poisson(1) counts drawn
+// inside K3, K5 and K8, and the materialized tables of K2 and K7.
 //
 // Counter layout (K8 must reuse it): the count of replicate r at global
 // sample index j is word (j & 3) of
@@ -40,12 +41,23 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32
   }
 }
 
-// counts of one replicate for the 4 samples j .. j+3 (j a multiple of 4)
+// Every count source gives the counts of one replicate for the 4 samples
+// j .. j+3 (j a multiple of 4) in two steps, so that a kernel can put work
+// between them: fetch(r, j) issues whatever global loads the counts need and
+// returns them raw, expand(raw, r, j, f) turns them into float32 counts, zero
+// from sample R on; keep(raw) pins what was fetched (tx_keep).  load4 is
+// fetch and expand in one.
+
+// Poisson(1) counts drawn from the Philox schedule above: nothing to fetch,
+// the draw is the expansion
 struct PoissonCounts {
+  struct Raw {};
   uint32_t k0, k1;
   PoissonThresholds th;
   long long R;
-  __device__ __forceinline__ void load4(int r, long long j, float f[4]) const {
+  __device__ __forceinline__ Raw fetch(int, long long) const { return Raw(); }
+  static __device__ __forceinline__ void keep(Raw&) {}
+  __device__ __forceinline__ void expand(Raw, int r, long long j, float f[4]) const {
     uint32_t c[4] = {(uint32_t)(j >> 2), (uint32_t)r, (uint32_t)(j >> 34), 0u};
     philox4x32_10(c, k0, k1);
 #pragma unroll
@@ -56,17 +68,63 @@ struct PoissonCounts {
       f[q] = (j + q < R) ? (float)n : 0.f;
     }
   }
+  __device__ __forceinline__ void load4(int r, long long j, float f[4]) const {
+    expand(Raw(), r, j, f);
+  }
 };
 
-// counts of one replicate loaded from a materialized (nrep, R) table
+// the integer vector that holds 4 table entries of BYTES / 4 bytes each
+template <int BYTES>
+struct TableWord;
+template <>
+struct TableWord<4> {
+  using type = unsigned int;
+};
+template <>
+struct TableWord<8> {
+  using type = uint2;
+};
+template <>
+struct TableWord<16> {
+  using type = uint4;
+};
+
+// counts of one replicate loaded from a materialized (nrep, R) table, for the
+// 4 samples j .. j+3.  One vector load (16 bytes for int32 / float32, 8 for
+// int16 / bfloat16, 4 for int8) where the 4 entries lie inside the row and
+// their address is aligned to it; entry by entry otherwise (a row length that
+// is no multiple of 4, a table that starts at an odd offset, the row's end),
+// with zero bits past the row's end.  The values are the same either way, so
+// the sums keep their bits.
 template <typename F>
 struct TableCounts {
+  using Raw = typename TableWord<4 * sizeof(F)>::type;
   const F* freq;
   long long R;
-  __device__ __forceinline__ void load4(int r, long long j, float f[4]) const {
-    const F* row = freq + (long long)r * R;
+  __device__ __forceinline__ Raw fetch(int r, long long j) const {
+    const F* p = freq + (long long)r * R + j;
+    if (j + 3 < R && (reinterpret_cast<uintptr_t>(p) & (sizeof(Raw) - 1)) == 0) {
+      return *reinterpret_cast<const Raw*>(p);
+    }
+    F v[4];
+    memset(v, 0, sizeof(Raw));
 #pragma unroll
-    for (int q = 0; q < 4; ++q) f[q] = (j + q < R) ? tx_to_float(row[j + q]) : 0.f;
+    for (int q = 0; q < 4; ++q) {
+      if (j + q < R) v[q] = p[q];
+    }
+    Raw raw;
+    memcpy(&raw, v, sizeof(Raw));
+    return raw;
+  }
+  static __device__ __forceinline__ void keep(Raw& raw) { tx_keep(raw); }
+  __device__ __forceinline__ void expand(Raw raw, int, long long, float f[4]) const {
+    F v[4];
+    memcpy(v, &raw, sizeof(Raw));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f[q] = tx_to_float(v[q]);
+  }
+  __device__ __forceinline__ void load4(int r, long long j, float f[4]) const {
+    expand(fetch(r, j), r, j, f);
   }
 };
 

@@ -14,9 +14,10 @@
 // The caller sums the chunk partials in float64 (deterministic, no atomics)
 // and recentres exactly.
 //
-// The contraction, its count tile in shared memory and its thread layout are
-// the kernel of resample_tile.cuh (what bounds it is said there); this file
-// gives it K5's contribution rows.
+// The contraction is one of the two kernels of resample_tile.cuh (what bounds
+// them is said there): a macrostate grid runs in the many-rows kernel, one
+// row (the <u> path) in the few-rows kernel; this file gives them K5's
+// contribution rows.
 
 #include "resample_tile.cuh"
 
@@ -25,6 +26,10 @@ namespace {
 // rows c = b (order + 1) + n of the batch rows behind a block's row tile
 template <typename T>
 struct UMomentFill {
+  // one (batch row, sample) item of the few-rows kernel: u and its weight
+  struct Raw {
+    float u, w;
+  };
   const T* u;        // (nbatch, R)
   const float* w;    // (nbatch, R) or null
   const float* su;   // (nbatch,)
@@ -33,7 +38,41 @@ struct UMomentFill {
   int c0;     // first row of the tile
   int ncol;   // rows of the tile
   int b_lo;   // first batch row behind the tile
-  int nb;     // batch rows behind the tile
+  int nsrc;   // batch rows behind the tile
+
+  static __device__ __forceinline__ void keep(Raw& raw) {
+    tx_keep(raw.u);
+    tx_keep(raw.w);
+  }
+
+  __device__ __forceinline__ Raw fetch(int item, long long t0, long long j_end) const {
+    const long long j = t0 + item % TX_FEW_TILE;
+    Raw raw = {0.f, 0.f};
+    if (j < j_end) {
+      const long long off = (long long)(b_lo + item / TX_FEW_TILE) * R + j;
+      raw.u = tx_to_float(u[off]);
+      raw.w = (w != nullptr) ? w[off] : 1.f;
+    }
+    return raw;
+  }
+
+  __device__ __forceinline__ void store(Raw raw, int item, float* tile, int gstride,
+                                        long long t0, long long j_end) const {
+    const int i = item % TX_FEW_TILE;
+    const int b = b_lo + item / TX_FEW_TILE;
+    float* at = tile + (i >> 2) * gstride + (i & 3);
+    float p = raw.w;  // 0 past j_end, and so is every row
+    const float du = (t0 + i < j_end) ? raw.u - su[b] : 0.f;
+    const int row0 = b * n1 - c0;
+#pragma unroll
+    for (int n = 0; n <= TX_MAX_ORDER; ++n) {
+      if (n < n1) {
+        const int cc = row0 + n;
+        if ((unsigned)cc < (unsigned)ncol) at[4 * cc] = p;
+        p *= du;
+      }
+    }
+  }
 
   __device__ __forceinline__ void fill(float* tile, int tstride, long long t0,
                                        long long j_end) const {
@@ -41,7 +80,7 @@ struct UMomentFill {
     // grid; unrolled by two, which on an H100 runs that shape 5% faster than
     // the compiler's own choice
 #pragma unroll 2
-    for (int item = threadIdx.x; item < nb * TX_URS_TILE; item += TX_URS_THREADS) {
+    for (int item = threadIdx.x; item < nsrc * TX_URS_TILE; item += TX_URS_THREADS) {
       const int b = b_lo + item / TX_URS_TILE;
       const int i = item % TX_URS_TILE;
       const long long j = t0 + i;
@@ -64,6 +103,7 @@ struct UMomentFill {
 
 template <typename T>
 struct UMomentRows {
+  using Filler = UMomentFill<T>;
   const T* u;
   const float* w;
   const float* su;

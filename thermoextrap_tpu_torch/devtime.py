@@ -6,15 +6,18 @@ Run from the repository root on a CUDA machine::
 
 It builds ``chip_smoke.py``'s inputs (R = 1e8 ideal-gas configurations of 8
 particles, the 64 x 1e6 lnΠ grid; same seed) and prints one JSON line per
-call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, K4 and K5
-alone, the perturbation call at R = 1e7 (counts drawn in the kernel, then
+call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, K2 at the quick
+start's shape (R = 1e5) and at R = 1e7 (100 replicates, int32 table), K4 and
+K5 alone (K5 at the grid and at one row of R = 1e8), the perturbation call at R = 1e7 (counts drawn in the kernel, then
 from a table) and at R = 1e8, its weight build alone, K7 and K8 alone, and
 one streaming update of a 1e7-sample chunk.  Each line holds
 
 - ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
 - ``device_ms``: device time per call from ``torch.profiler`` over 5 more
   calls, summing device-side activities only (kernels, copies, fills), so
-  that an operator and the kernel it launched are not counted twice;
+  that an operator and the kernel it launched are not counted twice (a
+  kernel's time per call is its mean time over the records the profiler kept,
+  times its launches per call, so a lost record does not read as idle time);
 - ``idle``: ``1 - device_ms / wall_ms``;
 - ``top``: the kernels with the most device time per call, in ms.
 """
@@ -58,11 +61,13 @@ def device_time(fn, calls: int = CALLS):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    per_kernel: dict[str, float] = {}
+    spans: dict[str, list[float]] = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA and evt.name not in _OVERHEAD:
-            name = evt.name[:60]
-            per_kernel[name] = per_kernel.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / calls
+            spans.setdefault(evt.name[:60], []).append(evt.time_range.elapsed_us() / 1e3)
+    # the profiler now and then loses a kernel's record: a kernel seen n times
+    # in `calls` calls ran round(n / calls) times a call, at its mean time
+    per_kernel = {name: sum(ms) / len(ms) * max(1, round(len(ms) / calls)) for name, ms in spans.items()}
     top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4])
     return sum(walls) / calls, sum(per_kernel.values()), top
 
@@ -112,14 +117,21 @@ def main() -> int:
     ep = _perturb_weights(up, dalpha, None)
     table = poisson1_freq(gen, (nrep_p, rp), dtype=torch.int8)
     state0, update, _ = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP, seed=SEED)
+    # K2: a 100-replicate count table of 1e5 samples (the quick start) and of 1e7
+    x1 = x[:, None]
+    table2 = torch.poisson(torch.ones((100, rp), device=dev), generator=gen).to(torch.int32)
+    table2q = table2[:, :100_000].contiguous()
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
         "lnpi_pipeline": lambda: run_lnpi(grid, -0.01 * ncoord**2, 0.3 * ncoord, betas, seed=SEED),
         "volume_pipeline": lambda: run_vol(wv, x, x, volumes, seed=SEED),
+        "K2_int32_1e5": lambda: mc.resample_central_comoments_fused(u[:100_000], x1[:100_000], table2q, ORDER),
+        "K2_int32_1e7": lambda: mc.resample_central_comoments_fused(up, x1[:rp], table2, ORDER),
         "K4_grid_order6": lambda: mc.reduce_central_umoments_batched(grid, ORDER),
         "K4_flat_order7": lambda: mc.reduce_central_umoments_batched(u, ORDER + 1),
         "K5_grid_order6": lambda: mc.resample_central_umoments_batched_poisson(grid, NREP, ORDER, seed=SEED),
+        "K5_flat_1e8_order7": lambda: mc.resample_central_umoments_batched_poisson(u[None], NREP, ORDER + 1, seed=SEED),
         "perturb_pipeline_device_1e7": lambda: run_pd(up, xp, betas, seed=SEED),
         "perturb_pipeline_table_1e7": lambda: run_pt(up, xp, betas, seed=SEED),
         "perturb_pipeline_device_1e8": lambda: run_pd(u, x, betas, seed=SEED),

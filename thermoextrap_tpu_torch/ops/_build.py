@@ -55,6 +55,8 @@ _SIGNATURES = {
         _I,
     ),
     "tx_poisson_counts": ([_P, _LL, _I, _LL, _P, _I, _P], _I),
+    "tx_head_shift": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "tx_finalize_comoments": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "tx_reduce_umoments": ([_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P], _I),
     "tx_resample_umoments": (
         [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I, _I, _I, _LL, _P, _I, _P],

@@ -18,6 +18,12 @@ K7      :func:`resample_perturb_freq`                       ``csrc/perturb_resam
 K8      :func:`resample_perturb_poisson`                    ``csrc/perturb_resample.cu``
 ======  =================================================  ===============================
 
+K2 and K3 run between two helper kernels of ``csrc/finalize.cu``: the head
+shift (:func:`head_shift_cuda`; plain version :func:`_head_shift`) and the
+finalize pass over the chunk partials (:func:`finalize_comoments_cuda`; plain
+version :func:`finalize_comoments_plain`), so their wrapper is three launches
+and issues no tensor arithmetic from Python.
+
 Every wrapper runs its kernel on a CUDA tensor and its plain torch version on
 a CPU tensor; any other device raises.  On the card the sample streams are
 float32 or bfloat16 (float64 is cast to float32 first), weights are float32,
@@ -27,7 +33,10 @@ first :data:`HEAD_N` samples (:func:`_head_shift`), the kernel sums shifted
 powers, and one epilogue (:func:`_shifted_epilogue`, or :func:`_u_epilogue`
 for the u-moment kernels K4 and K5) recentres the sums exactly.  Each
 wrapper adds one to ``LAUNCHES[name]`` when it launches its kernel.  K7 and
-K8 take no shift: they sum the streamed reweighting factors as they are.  The
+K8 take no shift: they sum the streamed reweighting factors as they are.  K5,
+K7 and K8 share the contraction of ``csrc/resample_tile.cuh``, which runs up
+to 16 contribution rows in its few-rows kernel and more in its many-rows
+kernel (:func:`_rows_launch` gives the launch shape of either).  The
 kernels are forward only: a CUDA input that requires grad raises, and the
 CPU path differentiates by autograd.
 """
@@ -35,6 +44,7 @@ CPU path differentiates by autograd.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -46,6 +56,9 @@ from .resample import POISSON1_THRESHOLDS
 __all__ = [
     "HEAD_N",
     "LAUNCHES",
+    "finalize_comoments_cuda",
+    "finalize_comoments_plain",
+    "head_shift_cuda",
     "poisson_counts_cuda",
     "reduce_central_comoments_batched",
     "reduce_central_comoments_fused",
@@ -69,7 +82,18 @@ __all__ = [
 
 HEAD_N = 8192  # samples behind the shift estimate
 MAX_ORDER = 15  # TX_MAX_ORDER of csrc/common.cuh
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+LAUNCHES = {
+    "K1": 0,
+    "K2": 0,
+    "K3": 0,
+    "K4": 0,
+    "K5": 0,
+    "K6": 0,
+    "K7": 0,
+    "K8": 0,
+    "head_shift": 0,  # helper kernels of the K2 / K3 wrapper (csrc/finalize.cu)
+    "finalize": 0,
+}
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu
 _RS_REPS = 32  # TX_RS_REPS of comoments_resample.cu
@@ -78,7 +102,8 @@ _RS_TILE = 512  # TX_RS_TILE
 _URS_THREADS = 256  # TX_URS_THREADS of resample_tile.cuh (K5, K7, K8)
 _URS_RB = 4  # TX_URS_RB
 _URS_CB = 16  # TX_URS_CB
-_URS_TILE = 32  # TX_URS_TILE
+_URS_TILE = 32  # TX_URS_TILE: sample tile of the many-rows kernel
+_FEW_TILE = 256  # TX_FEW_TILE: sample tile of the few-rows kernel (up to _URS_CB rows)
 _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
 # K7/K8 cut the samples four times finer: a thread's serial float32 sum of
 # positive terms then runs over a few hundred samples at R = 1e7, which holds
@@ -476,9 +501,88 @@ def resample_poisson_plain(uv, x2, nrep: int, order: int, weight=None, *, seed: 
     return _shifted_epilogue(sum_u, sum_x, s_u.expand(nrep), s_x.expand(nrep, -1))
 
 
+def finalize_comoments_plain(part, s_u, s_x, order: int, v: int):
+    """Plain torch version of the finalize kernel: the chunk partials
+    ``part (nchunk, nrep, (v+1)(order+1))`` of K2 / K3 summed in float64 and
+    recentred exactly about the shift ``s_u (1,)``, ``s_x (v,)``.  Returns
+    the epilogue's 5-tuple with batch axis ``nrep``, in float32 (float64
+    partials keep float64)."""
+    nrep = part.shape[1]
+    sums = part.double().sum(0)  # (nrep, m), deterministic second pass
+    sum_u = sums[:, : order + 1].T
+    sum_x = sums[:, order + 1 :].reshape(nrep, v, order + 1).permute(2, 0, 1)
+    out = _shifted_epilogue(
+        sum_u, sum_x, s_u.double().expand(nrep), s_x.double().expand(nrep, -1)
+    )
+    dtype = torch.float64 if part.dtype == torch.float64 else torch.float32
+    return tuple(t.to(dtype) for t in out)
+
+
+def head_shift_cuda(u, x, w=None):
+    """Launch the head-shift kernel on the kernel operands ``u (R,)``,
+    ``x (R, V)`` (both float32 or both bfloat16, contiguous) and ``w (R,)``
+    float32 or None.  Returns one float32 buffer ``(V+1,)``: ``s_u`` then
+    ``s_x`` (:func:`_head_shift` on one row is the plain version)."""
+    v = x.shape[1]
+    shift = torch.empty(v + 1, dtype=torch.float32, device=u.device)
+    status = _build.library().tx_head_shift(
+        u.data_ptr(),
+        x.data_ptr(),
+        None if w is None else w.data_ptr(),
+        shift.data_ptr(),
+        shift.data_ptr() + 4,
+        min(HEAD_N, u.shape[0]),
+        v,
+        int(u.dtype == torch.bfloat16),
+        u.device.index,
+        _stream_ptr(u.device),
+    )
+    _build.check(status, "tx_head_shift")
+    LAUNCHES["head_shift"] += 1
+    return shift
+
+
+def finalize_comoments_cuda(part, shift, order: int, v: int):
+    """Launch the finalize kernel on the chunk partials ``part (nchunk, nrep,
+    (v+1)(order+1))`` float32 and the shift buffer of :func:`head_shift_cuda`
+    (:func:`finalize_comoments_plain` is the plain version).  Returns the
+    epilogue's 5-tuple with batch axis ``nrep``, float32."""
+    nchunk, nrep, m = part.shape
+    if m != (v + 1) * (order + 1) or shift.shape != (v + 1,) or not part.is_contiguous():
+        msg = f"part {tuple(part.shape)} / shift {tuple(shift.shape)} do not fit order {order}, V {v}"
+        raise ValueError(msg)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=part.device)
+
+    xave, uave, wsum = empty(nrep, v), empty(nrep), empty(nrep)
+    du, dxdu = empty(order + 1, nrep), empty(order + 1, nrep, v)
+    status = _build.library().tx_finalize_comoments(
+        part.data_ptr(),
+        shift.data_ptr(),
+        shift.data_ptr() + 4,
+        xave.data_ptr(),
+        uave.data_ptr(),
+        du.data_ptr(),
+        dxdu.data_ptr(),
+        wsum.data_ptr(),
+        nchunk,
+        nrep,
+        v,
+        order,
+        part.device.index,
+        _stream_ptr(part.device),
+    )
+    _build.check(status, "tx_finalize_comoments")
+    LAUNCHES["finalize"] += 1
+    return xave, uave, du, dxdu, wsum
+
+
 def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
-    """Launch the bootstrap kernel (table counts when ``freq`` is given,
-    in-kernel Poisson counts otherwise); returns the epilogue's 5-tuple."""
+    """The K2 / K3 wrapper on CUDA tensors: checks and casts, then three
+    launches (head shift, the bootstrap kernel with table counts when ``freq``
+    is given and in-kernel Poisson counts otherwise, finalize) and no tensor
+    arithmetic in between; returns the epilogue's 5-tuple."""
     _check_cuda_inputs(uv, x2, weight, freq)
     if order > MAX_ORDER:
         msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
@@ -489,35 +593,23 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
     r, v = x.shape
     w = _weight_rows(weight, (r,), u.device)
     w = None if w is None else w.to(torch.float32).contiguous()
-    head = slice(0, HEAD_N)
-    s_u, s_x = _head_shift(
-        u[None, head].to(torch.float32), None if w is None else w[None, head], x[None, head]
-    )
-    s_u = s_u.contiguous()
-    s_x = s_x.contiguous()
     if freq is None:
         kind = _POISSON_KIND
         fptr = None
     else:
         freq, kind = _count_table(freq, nrep, r, u.device)
         fptr = freq.data_ptr()
+    shift = head_shift_cuda(u, x, w)
     m = (v + 1) * (order + 1)
-    ycount = math.ceil(nrep / _RS_REPS)
-    zcount = math.ceil(m / _RS_CB)
-    ntile = math.ceil(r / _RS_TILE)
-    nchunk = max(1, min(ntile, math.ceil(_TARGET_BLOCKS / (ycount * zcount))))
-    chunk = math.ceil(ntile / nchunk) * _RS_TILE
-    nchunk = math.ceil(r / chunk)
+    nchunk, chunk = _resample_chunks(r, nrep, m)
     part = torch.empty((nchunk, nrep, m), dtype=torch.float32, device=u.device)
-    thresholds = _thresholds()  # kept alive across the call
-    lib = _build.library()
-    status = lib.tx_resample_comoments(
+    status = _build.library().tx_resample_comoments(
         u.data_ptr(),
         x.data_ptr(),
         None if w is None else w.data_ptr(),
         fptr,
-        s_u.data_ptr(),
-        s_x.data_ptr(),
+        shift.data_ptr(),
+        shift.data_ptr() + 4,
         part.data_ptr(),
         r,
         v,
@@ -528,21 +620,29 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
         int(sdt == torch.bfloat16),
         kind,
         _signed64(seed),
-        thresholds,
+        _thresholds(),
         u.device.index,
         _stream_ptr(u.device),
     )
     _build.check(status, "tx_resample_comoments")
-    sums = part.double().sum(0)  # (nrep, m), deterministic second pass
-    sum_u = sums[:, : order + 1].T
-    sum_x = sums[:, order + 1 :].reshape(nrep, v, order + 1).permute(2, 0, 1)
-    out = _shifted_epilogue(
-        sum_u, sum_x, s_u.double().expand(nrep), s_x.double().expand(nrep, -1)
-    )
-    return tuple(t.to(torch.float32) for t in out)
+    return finalize_comoments_cuda(part, shift, order, v)
 
 
+def _resample_chunks(r: int, nrep: int, m: int):
+    """K2 / K3's split of ``r`` samples: ``(nchunk, chunk)`` with ``chunk`` a
+    multiple of the kernel's sample tile and about :data:`_TARGET_BLOCKS`
+    blocks in all."""
+    ycount = math.ceil(nrep / _RS_REPS)
+    zcount = math.ceil(m / _RS_CB)
+    ntile = math.ceil(r / _RS_TILE)
+    nchunk = max(1, min(ntile, math.ceil(_TARGET_BLOCKS / (ycount * zcount))))
+    chunk = math.ceil(ntile / nchunk) * _RS_TILE
+    return math.ceil(r / chunk), chunk
+
+
+@functools.cache
 def _thresholds():
+    """The Poisson(1) thresholds as the kernels take them (a C array)."""
     return (ctypes.c_uint * len(POISSON1_THRESHOLDS))(*POISSON1_THRESHOLDS)
 
 
@@ -756,14 +856,57 @@ def _next_pow2(n: int) -> int:
 
 
 def _u_thread_split(m: int, nrep: int):
-    """K5's block layout: ``(nr, np)`` row- and replicate-threads, the rest
-    of the 256 threads being sample lanes (at most 32).  A block holds up to
-    512 contribution rows, so a 64-macrostate grid at order 6 (448 rows)
-    draws each count once per replicate block."""
+    """Block layout of the shared contraction (K5, K7, K8): ``(nr, np)`` row-
+    and replicate-threads, the rest of the 256 threads being sample lanes (at
+    most 32).  Up to 16 rows take one row-thread (the few-rows kernel); a
+    block of the many-rows kernel holds up to 512 contribution rows, so a
+    64-macrostate grid at order 6 (448 rows) draws each count once per
+    replicate block."""
     nr = min(32, _next_pow2(math.ceil(m / _URS_CB)))
     npt = min(_URS_THREADS // nr, 32, _next_pow2(math.ceil(nrep / _URS_RB)))
-    npt = max(npt, _URS_THREADS // (nr * 32))
+    npt = max(npt, _URS_THREADS // (nr * 32))  # at most 32 sample lanes
     return nr, npt
+
+
+def _rows_launch(m: int, nrep: int, r: int, target_blocks: int):
+    """Launch shape of the shared contraction (K5, K7, K8) for ``m``
+    contribution rows, ``nrep`` replicates and ``r`` samples: ``(nr, np,
+    nchunk, chunk)``, the thread split of :func:`_u_thread_split` and ``r``
+    cut into ``nchunk`` chunks of ``chunk`` samples, a multiple of the sample
+    tile of the kernel that ``m`` selects, about ``target_blocks`` blocks in
+    all."""
+    nr, npt = _u_thread_split(m, nrep)
+    tile = _FEW_TILE if m <= _URS_CB else _URS_TILE
+    ycount = math.ceil(nrep / (npt * _URS_RB))
+    zcount = math.ceil(m / (nr * _URS_CB))
+    ntile = math.ceil(r / tile)
+    nchunk = max(1, min(ntile, math.ceil(target_blocks / (ycount * zcount))))
+    chunk = math.ceil(ntile / nchunk) * tile
+    return nr, npt, math.ceil(r / chunk), chunk
+
+
+def _rows_smem(m: int, nr: int, npt: int) -> int:
+    """Shared memory of a block of the shared contraction, in bytes
+    (csrc/resample_tile.cuh): the few-rows kernel's two row tiles of 64
+    groups x (8 or 16 slots + 1) x 16 bytes, or the many-rows kernel's sample
+    tile of ``16 nr + 1`` row floats and ``4 np + 1`` counts a sample."""
+    if m <= _URS_CB:
+        return 2 * (_FEW_TILE // 4) * ((8 if m <= 8 else _URS_CB) + 1) * 16
+    return 4 * _URS_TILE * (nr * _URS_CB + 1 + npt * _URS_RB + 1)
+
+
+def _rows_shape_ok(m: int, r: int, nrep: int, nchunk: int, chunk: int, nr: int, npt: int) -> bool:
+    """``resample_rows_shape_ok`` of csrc/resample_tile.cuh, which the kernel
+    entries hold their arguments to."""
+    pow2 = nr >= 1 and npt >= 1 and nr & (nr - 1) == 0 and npt & (npt - 1) == 0
+    if not (pow2 and 1 <= m < 2**31 and nrep >= 1 and r >= 1 and nchunk >= 1 and chunk >= 1):
+        return False
+    if nr * npt > _URS_THREADS or _URS_THREADS // (nr * npt) > 32 or nchunk * chunk < r:
+        return False
+    ycount = math.ceil(nrep / (npt * _URS_RB))
+    if m <= _URS_CB:
+        return nr == 1 and chunk % _FEW_TILE == 0 and nchunk * ycount < 2**31
+    return chunk % _URS_TILE == 0 and ycount <= 65535 and math.ceil(m / (nr * _URS_CB)) <= 65535
 
 
 def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0):
@@ -785,15 +928,8 @@ def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0)
         freq = freq.to(torch.int32).contiguous()
         fptr = freq.data_ptr()
     m = nbatch * (order + 1)
-    nr, npt = _u_thread_split(m, nrep)
-    ycount = math.ceil(nrep / (npt * _URS_RB))
-    zcount = math.ceil(m / (nr * _URS_CB))
-    ntile = math.ceil(r / _URS_TILE)
-    nchunk = max(1, min(ntile, math.ceil(_TARGET_BLOCKS / (ycount * zcount))))
-    chunk = math.ceil(ntile / nchunk) * _URS_TILE
-    nchunk = math.ceil(r / chunk)
+    nr, npt, nchunk, chunk = _rows_launch(m, nrep, r, _TARGET_BLOCKS)
     part = torch.empty((nchunk, nrep, m), dtype=torch.float32, device=u.device)
-    thresholds = _thresholds()  # kept alive across the call
     lib = _build.library()
     status = lib.tx_resample_umoments(
         u.data_ptr(),
@@ -811,7 +947,7 @@ def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0)
         npt,
         bf16,
         _signed64(seed),
-        thresholds,
+        _thresholds(),
         u.device.index,
         _stream_ptr(u.device),
     )
@@ -955,15 +1091,8 @@ def _resample_perturb_cuda(ev, xv, nrep: int, *, freq=None, seed: int = 0):
         freq, kind = _count_table(freq, nrep, r, e.device)
         fptr = freq.data_ptr()
     m = na * (v + 1)
-    nr, npt = _u_thread_split(m, nrep)
-    ycount = math.ceil(nrep / (npt * _URS_RB))
-    zcount = math.ceil(m / (nr * _URS_CB))
-    ntile = math.ceil(r / _URS_TILE)
-    nchunk = max(1, min(ntile, math.ceil(_PERTURB_TARGET_BLOCKS / (ycount * zcount))))
-    chunk = math.ceil(ntile / nchunk) * _URS_TILE
-    nchunk = math.ceil(r / chunk)
+    nr, npt, nchunk, chunk = _rows_launch(m, nrep, r, _PERTURB_TARGET_BLOCKS)
     part = torch.empty((nchunk, nrep, m), dtype=torch.float32, device=e.device)
-    thresholds = _thresholds()  # kept alive across the call
     lib = _build.library()
     status = lib.tx_resample_perturb(
         e.data_ptr(),
@@ -980,7 +1109,7 @@ def _resample_perturb_cuda(ev, xv, nrep: int, *, freq=None, seed: int = 0):
         npt,
         kind,
         _signed64(seed),
-        thresholds,
+        _thresholds(),
         e.device.index,
         _stream_ptr(e.device),
     )
