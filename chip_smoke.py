@@ -12,8 +12,10 @@ on any failure, without printing a result.  Phases, one line each:
    versions on the card;
 3. K2 at the main path's shape (R = 1e5, nrep = 100) and at R = 1e7,
    nrep = 100, with int32 and int8 count tables;
-4. K3: its counts against their plain reproduction, K3 against K2 on that
-   table, and K3 at R = 1e8, nrep = 256 against its plain version;
+4. K3: its counts against their plain reproduction, K3 equal to K2 on that
+   table bit for bit (the phase's shape, and a ragged R in float32 and
+   bfloat16 streams), and K3 at R = 1e8, nrep = 256 against its plain
+   version;
 5. the main path: ideal-gas samples made on the card, the serving pipeline
    (order 6, 256 bootstrap replicates) against the analytic answer and the
    float64 plain reduction, the README quick start, and the count-table
@@ -66,7 +68,12 @@ on any failure, without printing a result.  Phases, one line each:
     zero-weight head, fewer samples than the head), and K2 with int8, int16,
     int32, float32 and bfloat16 tables on a sample count that is no multiple
     of 4 and on a table that starts at an unaligned address, against the
-    plain reference of phase 3.
+    plain reference of phase 3;
+19. the in-kernel draw's word -> count map (the level lookup of
+    ``csrc/philox.cuh``) against the 9-compare sum on all 2^32 words, with
+    the exact sum of the counts, and the draw's integer instructions per
+    count from its SASS (``python -m thermoextrap_tpu_torch.drawcost``, run
+    beside the kernel build).
 
 Each K2 or K3 call must also launch the head-shift and the finalize kernel
 once; phases 6, 11 and 16 hold every path to that.  Each kernel's bound is the
@@ -74,12 +81,13 @@ least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
 line before the last is a JSON object with one entry per kernel (K2's carries
-its second shape, R = 1e7, under ``also``); the last line is the device JSON
-object.
+its second shape, R = 1e7, under ``also``; K3, K5 and K8 carry the draw's
+``draw_instructions_per_count``); the last line is the device JSON object.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -111,13 +119,13 @@ F32_FLOPS = 67e12
 INT32_OPS = 16.75e12
 # Integer operations one in-kernel Poisson count needs (csrc/philox.cuh): a
 # Philox4x32-10 call serves 4 counts with 10 rounds of 2 wide multiplies (low
-# and high half in one instruction) and 2 three-input XORs plus 18 key
-# additions (58), and each count takes 9 compares with the addition folded in
-# and one conversion: 58 / 4 + 10.  The SASS of the draw
-# (python -m thermoextrap_tpu_torch.drawcost) has the 2 wide multiplies per
-# round and 42.5 integer instructions per count in all, register moves and
-# separate compares and additions among them; the bound counts the fewer.
-DRAW_OPS_PER_COUNT = 58 / 4 + 10
+# and high half in one instruction) and 2 three-input XORs, each taking its
+# round key, which the host computes once per seed (40 / 4 a count); the word
+# -> count map is a leading-one count and one compare (its level comes by a
+# shared load, the base is added in float32): 10 + 2.  The SASS of the draw
+# (python -m thermoextrap_tpu_torch.drawcost, printed in the kernels line)
+# holds more, register moves among them; the bound counts the fewer.
+DRAW_OPS_PER_COUNT = 40 / 4 + 2
 
 
 def bound(nbytes: float, fmas: float = 0.0, draws: float = 0.0):
@@ -209,6 +217,15 @@ def main() -> int:
         card=card,
     )
     print(card, flush=True)
+    # the draw's SASS instruction count: one nvcc of a probe, beside the build
+    drawcost = subprocess.Popen(
+        [sys.executable, "-m", "thermoextrap_tpu_torch.drawcost"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
+        text=True,
+    )
+    atexit.register(lambda: drawcost.poll() is None and (drawcost.kill(), drawcost.wait()))
     t0 = time.perf_counter()
     _build.library()
     say(
@@ -269,10 +286,20 @@ def main() -> int:
     counts_ref = mc._poisson_counts(SEED, NREP_MAIN, r3, dev)
     if not torch.equal(counts, counts_ref):
         raise AssertionError(f"K3 counts differ from their plain reproduction at {int((counts != counts_ref).sum())} entries")
-    k3 = mc.resample_central_comoments_poisson(u[:r3], x1[:r3], NREP_MAIN, ORDER, seed=SEED)
-    k2 = mc.resample_central_comoments_fused(u[:r3], x1[:r3], counts_ref, ORDER)
-    err_k3k2 = compare("K3 vs K2", k3, k2, 1e-6, 1e-9)
-    del counts, counts_ref, k3, k2
+    # one contraction for both count sources: K3 on a seed is K2 on that
+    # seed's table, to the bit (the phase's shape; a ragged R, both streams)
+    r3o = 100_003
+    table3o = mc._poisson_counts(SEED, NREP_MAIN, r3o, dev)
+    for tag, uk, xk, tab in (
+        ("f32", u[:r3], x1[:r3], counts_ref),
+        ("f32, R = 100003", u[:r3o], x1[:r3o], table3o),
+        ("bf16, R = 100003", u[:r3o].to(torch.bfloat16), x1[:r3o].to(torch.bfloat16), table3o),
+    ):
+        k3 = mc.resample_central_comoments_poisson(uk, xk, NREP_MAIN, ORDER, seed=SEED, return_wsum=True)
+        k2 = mc.resample_central_comoments_fused(uk, xk, tab, ORDER)
+        if not all(torch.equal(a, b) for a, b in zip(k3, k2)):
+            raise AssertionError(f"K3 ({tag}) differs from K2 on its own count table")
+    del counts, counts_ref, k3, k2, table3o
     k3_main = mc.resample_central_comoments_poisson(u, x1, NREP_MAIN, ORDER, seed=SEED)
     # the plain version takes seconds: this one call is also its time
     ref3, k3_plain_ms = timed(lambda: mc.resample_poisson_plain(u.double(), x1.double(), NREP_MAIN, ORDER, seed=SEED))
@@ -281,7 +308,7 @@ def main() -> int:
     if not xstd > 0:
         raise AssertionError(f"K3 replicate means do not scatter (std {xstd})")
     del ref3, k3_main
-    say(4, card=card, counts_equal=True, K3_vs_K2_max_abs_err=err_k3k2, K3_max_abs_err=errs["K3"], replicate_xave_std=xstd)
+    say(4, card=card, counts_equal=True, K3_equals_K2_on_its_table=["f32", "f32 R=100003", "bf16 R=100003"], K3_max_abs_err=errs["K3"], replicate_xave_std=xstd)
 
     # -- phase 5: the main path, with fresh launch counts --------------------------
     run = make_extrap_pipeline(order=ORDER, beta0=BETA0, nrep=NREP_MAIN)
@@ -1002,6 +1029,32 @@ def main() -> int:
         finalize_partials=list(part_q.shape),
     )
 
+    # -- phase 19: the draw's word -> count map on every 32-bit word -------------------
+    from thermoextrap_tpu_torch.ops.resample import POISSON1_THRESHOLDS
+
+    (_, stats), map_ms = timed(lambda: mc.poisson_map_cuda(start=0, n=1 << 32, device=dev))
+    seen, wrong, total = stats.tolist()
+    # #{w : w > t} = 2^32 - 1 - t words exceed threshold t
+    want_total = sum((1 << 32) - 1 - t for t in POISSON1_THRESHOLDS)
+    if seen != 1 << 32 or wrong != 0 or total != want_total:
+        raise AssertionError(f"draw map: {seen} words seen, {wrong} differ from the 9-compare sum, count sum {total} (want {want_total})")
+    out, err = drawcost.communicate()
+    if drawcost.returncode != 0:
+        raise AssertionError(f"drawcost failed: {err}")
+    draw = json.loads(out.strip().splitlines()[-1])
+    say(
+        19,
+        card=card,
+        words=seen,
+        differ=wrong,
+        count_sum=total,
+        map_ms=map_ms,
+        draw_instructions_per_count=draw["draw_instructions_per_count"],
+        wide_multiplies=draw["wide_multiplies"],
+        shared_loads=draw["shared_loads"],
+        bound_ops_per_count=DRAW_OPS_PER_COUNT,
+    )
+
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0
     n1 = ORDER + 1
@@ -1059,6 +1112,9 @@ def main() -> int:
         }
         for name, (src, replaces, path) in meta.items()
     ]
+    for k in kernels:
+        if k["name"] in ("K3", "K5", "K8"):
+            k["draw_instructions_per_count"] = draw["draw_instructions_per_count"]
     # K2 once more at R = 1e7, where the table's bytes bound it
     next(k for k in kernels if k["name"] == "K2")["also"] = {
         "shape": extra["K2"][0],

@@ -11,8 +11,7 @@ Tolerances: the float32 kernels against the float64 plain versions at the
 bar of tests/test_parallel.py:87 (rtol 2e-3, atol 1e-5), K4 at the bar of
 tests/test_parallel.py:158-161 (uave rtol 1e-6; du rtol 5e-3, atol 1e-4);
 K3 against K2, and K5 against its own consume of the same count table,
-which share one kernel body, at float32 roundoff (exactly, on the ragged
-shapes).  The finalize kernel of the K2 / K3 wrapper against its plain version
+which share one kernel body, exactly.  The finalize kernel of the K2 / K3 wrapper against its plain version
 at 1e-6 relative (both recentre in float64, then cast), the head-shift kernel
 at 1e-6 relative (float32 sums in another order).  K7 and K8 sum positive
 float32 terms (a few hundred per thread, then float64): rtol 2e-5 / atol 1e-5,
@@ -130,8 +129,38 @@ def test_k3_kernel_counts_and_sums(rng, cuda_device):
     k3 = mc.resample_central_comoments_poisson(uc, xc, nrep, 6, seed=7, return_wsum=True)
     assert mc.LAUNCHES["K3"] == 1
     k2 = mc.resample_central_comoments_fused(uc, xc, counts, 6)
-    assert_close(k3[:4], k2, 1e-6, 1e-9)
+    assert all(torch.equal(a, b) for a, b in zip(k3, k2))
     assert_close(k3, mc.resample_central_comoments_poisson(tt(u), tt(x), nrep, 6, seed=7, return_wsum=True), RTOL32, ATOL32)
+
+
+@pytest.mark.parametrize(
+    ("v", "order", "dtype"),
+    [(1, 6, torch.float32), (1, 6, torch.bfloat16), (2, 1, torch.float32), (2, 6, torch.float32), (2, 6, torch.bfloat16)],
+)
+def test_k2_k3_shared_contraction_rows(rng, cuda_device, v, order, dtype):
+    """14 and 6 rows (few-rows kernel), 21 rows (many-rows kernel): K3 equals
+    K2 on its own table, narrow tables equal int32 ones, and K3 matches its
+    plain version."""
+    r, nrep = 100_003, 70
+    u, x = _samples(rng, r, v)
+    w = rng.uniform(0.5, 1.5, r)
+    uc, xc, wc = _f32(u, cuda_device).to(dtype), _f32(x, cuda_device).to(dtype), _f32(w, cuda_device)
+    seed = 0x7FFF00001234ABCD
+    table = mc._poisson_counts(seed, nrep, r, cuda_device)
+    k3 = mc.resample_central_comoments_poisson(uc, xc, nrep, order, wc, seed=seed)
+    assert all(torch.equal(a, b) for a, b in zip(k3, mc.resample_central_comoments_fused(uc, xc, table, order, wc)))
+    narrow = mc.resample_central_comoments_fused(uc, xc, table.to(torch.int8), order, wc)
+    assert all(torch.equal(a, b) for a, b in zip(k3, narrow))
+    ref = mc.resample_poisson_plain(uc.double(), xc.double(), nrep, order, wc.double(), seed=seed)
+    assert_close(k3, ref[:4], RTOL32, 2e-5 if dtype == torch.bfloat16 else ATOL32)
+
+
+def test_poisson_map_every_word(cuda_device):
+    """The draw's level lookup equals the 9-compare sum on all 2^32 words."""
+    from thermoextrap_tpu_torch.ops.resample import POISSON1_THRESHOLDS
+
+    _, stats = mc.poisson_map_cuda(start=0, n=1 << 32, device=cuda_device)
+    assert stats.tolist() == [1 << 32, 0, sum((1 << 32) - 1 - t for t in POISSON1_THRESHOLDS)]
 
 
 def test_kernel_rejects_grad(rng, cuda_device):
@@ -531,7 +560,7 @@ def test_finalize_kernel_on_k2_partials(rng, cuda_device, monkeypatch):
     monkeypatch.setattr(mc, "finalize_comoments_cuda", keep)
     got = mc.resample_central_comoments_fused(_f32(u, cuda_device), _f32(x, cuda_device), table, 6)
     part, shift = seen["part"], seen["shift"]
-    assert part.shape == (*mc._resample_chunks(r, nrep, 14)[:1], nrep, 14)
+    assert part.shape == (mc._rows_launch(14, nrep, r, mc._TARGET_BLOCKS)[2], nrep, 14)
     ref = mc.finalize_comoments_plain(part, shift[:1], shift[1:], 6, 1)
     assert _rel_err(got, ref[:4]) <= 1e-6
 

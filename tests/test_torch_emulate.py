@@ -10,9 +10,16 @@ pipelining to its plain torch version where there is no GPU:
   tiles (so that the double buffer and the loads that run ahead are used);
 - K8 equal to K7 on its own count table bit for bit, K5's draws equal to its
   table consume bit for bit, K8's weight sums at e = 1 equal to K3's;
-- K2 / K3 through the head-shift kernel, the bootstrap kernel and the
-  finalize kernel, and the finalize kernel alone against its plain version
-  (exact after the float32 cast), the zero-weight replicate included.
+- K2 / K3 through the head-shift kernel, the shared contraction (the
+  main path's 14 rows and the volume path's 6 in the few-rows kernel, 21 rows
+  in the many-rows kernel, float32 and bfloat16 streams) and the finalize
+  kernel; K3 equal to K2 on its own count table bit for bit, narrow tables
+  equal to int32 ones; the finalize kernel alone against its plain version
+  (exact after the float32 cast), the zero-weight replicate included;
+- the in-kernel draw: its counts equal to their plain reproduction bit for
+  bit, and its word -> count map (the level lookup of csrc/philox.cuh) equal
+  to the 9-compare sum at every threshold +-2, at every level's first and last
+  word and at 2^16 random words.
 
 Tolerances: float32 kernels against float64 plain versions at the bars of
 tests/test_torch_cuda.py (rtol 2e-3 / atol 1e-5 for the moment kernels,
@@ -26,6 +33,7 @@ from _torch_parity import assert_close, tt
 
 from thermoextrap_tpu_torch import emulate
 from thermoextrap_tpu_torch.ops import moments_cuda as mc
+from thermoextrap_tpu_torch.ops.resample import POISSON1_THRESHOLDS
 
 RTOL32, ATOL32 = 2e-3, 1e-5
 RTOL_P, ATOL_P = 2e-5, 1e-5
@@ -143,7 +151,56 @@ def test_k2_k3_emulated_three_launches_match_plain(kernels, rng, r, v, order, we
     assert_close(out, ref, RTOL32, ATOL32)
     k3 = mc._resample_cuda(u, x, w, order, 6, seed=3)
     k2 = mc._resample_cuda(u, x, w, order, 6, freq=mc._poisson_counts(3, 6, r))
-    assert_close(k3, k2, 1e-6, 1e-9)
+    assert all(torch.equal(a, b) for a, b in zip(k3, k2))
+
+
+@pytest.mark.parametrize(
+    ("r", "v", "order", "nrep", "weighted", "dtype"),
+    [
+        (1299, 1, 6, 40, False, torch.float32),  # the main path's 14 rows, several tiles a chunk
+        (1299, 1, 6, 40, True, torch.bfloat16),
+        (1030, 2, 1, 9, True, torch.float32),  # the volume path's 6 rows
+        (1030, 2, 1, 9, False, torch.bfloat16),
+        (333, 2, 6, 9, True, torch.float32),  # 21 rows: the many-rows kernel
+        (333, 2, 6, 9, False, torch.bfloat16),
+    ],
+)
+def test_k2_k3_emulated_on_the_shared_contraction(kernels, rng, few_blocks, r, v, order, nrep, weighted, dtype):
+    u = _f32(rng.normal(5.0, 1.0, r)).to(dtype)
+    x = _f32(rng.normal(2.0, 0.5, (r, v))).to(dtype)
+    w = _f32(rng.uniform(0.5, 1.5, r)) if weighted else None
+    seed = 0x7FFF00001234ABCD  # high key bits set
+    table = mc._poisson_counts(seed, nrep, r)
+    k3 = mc._resample_cuda(u, x, w, order, nrep, seed=seed)
+    k2 = mc._resample_cuda(u, x, w, order, nrep, freq=table)
+    assert all(torch.equal(a, b) for a, b in zip(k3, k2))
+    narrow = mc._resample_cuda(u, x, w, order, nrep, freq=table.to(torch.int8))
+    assert all(torch.equal(a, b) for a, b in zip(narrow, k2))
+    ref = mc.resample_poisson_plain(u.double(), x.double(), nrep, order, None if w is None else w.double(), seed=seed)
+    assert_close(k3, ref, RTOL32, 2e-5 if dtype == torch.bfloat16 else ATOL32)
+
+
+@pytest.mark.parametrize(("seed", "r"), [(0, 1003), (11 | (7 << 40), 257), (2**63 + 5, 1), (-1, 4099)])
+def test_poisson_counts_emulated_equal_plain(kernels, seed, r):
+    got = mc.poisson_counts_cuda(seed, 5, r, torch.device("cpu"))
+    assert torch.equal(got, mc._poisson_counts(seed, 5, r))
+
+
+def test_poisson_map_emulated_equals_compare_sum(kernels, rng):
+    t = torch.tensor(POISSON1_THRESHOLDS, dtype=torch.int64)
+    near = (t[:, None] + torch.arange(-2, 3)).reshape(-1)
+    firsts = torch.tensor([2**32 - 2 ** (32 - lv) for lv in range(33)])
+    lasts = torch.tensor([2**32 - 2 ** (32 - lv) + 2 ** (31 - lv) - 1 for lv in range(32)])
+    rand = torch.as_tensor(rng.integers(0, 2**32, 2**16), dtype=torch.int64)
+    words = torch.cat([near, firsts, lasts, rand])
+    got, stats = mc.poisson_map_cuda(words)
+    ref = (words[:, None] > t[None]).sum(1).to(torch.int32)
+    assert torch.equal(got, ref)
+    assert stats.tolist() == [words.numel(), 0, int(ref.sum())]
+    # a range of words that wraps past 2^32 - 1
+    _, stats = mc.poisson_map_cuda(start=2**32 - 300, n=600, device=torch.device("cpu"))
+    wrapped = torch.arange(2**32 - 300, 2**32 + 300) % 2**32
+    assert stats.tolist() == [600, 0, int((wrapped[:, None] > t[None]).sum())]
 
 
 @pytest.mark.parametrize(("v", "order", "nchunk"), [(1, 6, 196), (2, 6, 37), (40, 3, 3), (3, 15, 1), (1, 1, 5)])

@@ -180,5 +180,9 @@ def test_rows_shape_check_rejects_what_the_kernel_cannot_run():
 @settings(max_examples=200, deadline=None)
 @given(r=st.integers(1, 10**9), nrep=st.integers(1, 5000), m=st.integers(2, 700))
 def test_k2_chunks_are_whole_tiles(r, nrep, m):
-    nchunk, chunk = mc._resample_chunks(r, nrep, m)
-    assert chunk % mc._RS_TILE == 0 and (nchunk - 1) * chunk < r <= nchunk * chunk
+    """K2 / K3 take the shared contraction's launch shape: whole tiles of the
+    kernel that the row count selects, covering the samples."""
+    nr, npt, nchunk, chunk = mc._rows_launch(m, nrep, r, mc._TARGET_BLOCKS)
+    tile = mc._FEW_TILE if m <= mc._URS_CB else mc._URS_TILE
+    assert chunk % tile == 0 and (nchunk - 1) * chunk < r <= nchunk * chunk
+    assert mc._rows_shape_ok(m, r, nrep, nchunk, chunk, nr, npt)

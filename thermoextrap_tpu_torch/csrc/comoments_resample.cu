@@ -1,4 +1,5 @@
-// K2 and K3: per-replicate bootstrap comoment sums, one templated kernel.
+// K2 and K3: per-replicate bootstrap comoment sums, on the shared
+// contraction of resample_tile.cuh.
 //
 // Replaces thermoextrap_tpu/ops/moments_pallas.py
 //   K2 resample_central_comoments_fused   (kernel _resample_kernel, :548):
@@ -16,128 +17,176 @@
 // partials in float64 (deterministic second pass, no atomics) and recentres
 // exactly: the wrapper is those three launches.
 //
-// Bound on the H100: K2 streams the count table (nrep R entries, 1-4 bytes
-// each, 4 entries to a vector load where they are aligned: philox.cuh) and
-// does (order+1)(V+1) FMAs per entry; K3 reads only the samples and
-// is bound by instruction throughput: one Philox4x32-10 call per 4 counts, 9
-// compares per count, then the FMAs.  The simple design: a block owns a tile
-// of contribution rows (TX_RS_CB of them, grid.z tiles the rest) and a tile
-// of TX_RS_REPS replicates, walks its chunk of samples in shared-memory tiles
-// of TX_RS_TILE samples, builds each tile's contribution rows once (shared by
-// all its replicates), and every lane accumulates count * contrib in f32 FMAs
-// for TX_RS_RB replicates x 4 consecutive samples, reading the tile with
-// 16-byte shared loads.  No TF32 and no tensor cores: the sums must hold f32
-// accuracy (a looser TPU precision measured 2e-3 wrong).
+// This file gives the contraction of resample_tile.cuh K2's and K3's rows
+// (ComomentRows); the contraction is the one K5, K7 and K8 run.  Up to 16
+// rows (the main path: V = 1 at order 6, 14 rows; the volume path, 6 rows)
+// run in its few-rows kernel, where the counts go from the table, or the
+// draw, through registers into the FMAs and never touch shared memory; more
+// rows run in its many-rows kernel, which draws or loads each count once per
+// block for up to 512 rows.  Both count sources take the same path through
+// the sums, so K3 on a seed equals K2 on that seed's count table
+// (tx_poisson_counts) bit for bit.
 //
-// K3 draws its counts by the Philox schedule of philox.cuh (K5 and K8 share
-// it).
+// Bound on the H100: K2 streams the count table (nrep R entries, 1-4 bytes
+// each, 4 to a vector load) and does (order+1)(V+1) FMAs per entry; the
+// row-wise reads of the table are what hold it, as they hold K7 and
+// torch.matmul on the same table.  K3 reads only the samples; its least time
+// is the draw's integer work (a quarter of a Philox4x32-10 call and one level
+// lookup a count, philox.cuh), but on the card the draw and the FMAs
+// ((order+1)(V+1) a count, rounded up to a multiple of 4: 16 at the main
+// path's 14 rows) share the dispatch slots and add up, and the loop runs at
+// about half the SM's instruction rate (resample_tile.cuh; PERF.md has the
+// times and the stubbed variants behind this).  No TF32 and no tensor cores:
+// the sums must hold f32 accuracy (a looser TPU precision measured 2e-3
+// wrong).
+//
+// The stream type (float32 or bfloat16) is a runtime flag of ComomentFill:
+// the rows are built once per sample tile, away from the count loop, and one
+// kernel for both types halves the build.  Tables of int8,
+// int16 and bfloat16 run in the few-rows kernel only (the wrapper widens them
+// for more rows), which keeps the file at 15 kernels.
 
-#include "philox.cuh"
-
-#define TX_RS_THREADS 256
-#define TX_RS_WARPS (TX_RS_THREADS / 32)
-#define TX_RS_RB 4
-#define TX_RS_REPS (TX_RS_WARPS * TX_RS_RB)
-#define TX_RS_CB 16
-#define TX_RS_TILE 512
+#include "resample_tile.cuh"
 
 namespace {
 
-template <typename T, typename Counts>
-__global__ void __launch_bounds__(TX_RS_THREADS)
-resample_comoments_kernel(const T* __restrict__ u, const T* __restrict__ x,
-                          const float* __restrict__ w, const float* __restrict__ su,
-                          const float* __restrict__ sx, Counts counts,
-                          float* __restrict__ part, long long R, int V, int order,
-                          int nrep, long long chunk) {
-  __shared__ __align__(16) float tile[TX_RS_CB][TX_RS_TILE];
+// a sample stream of float32 or bfloat16 values, read as float32
+struct Stream {
+  const void* p;
+  int bf16;
+  __device__ __forceinline__ float operator[](long long i) const {
+    return bf16 ? tx_to_float(static_cast<const __nv_bfloat16*>(p)[i])
+                : static_cast<const float*>(p)[i];
+  }
+};
 
-  const int m = (V + 1) * (order + 1);
-  const int c0 = blockIdx.z * TX_RS_CB;
-  const int r0 = blockIdx.y * TX_RS_REPS;
-  const long long j_begin = (long long)blockIdx.x * chunk;
-  const long long j_end = (j_begin + chunk < R) ? j_begin + chunk : R;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float s_u = su[0];
-  // value columns whose rows fall in [c0, c0 + TX_RS_CB)
-  const int kx_lo = c0 / (order + 1) - 1;
-  const int kx_hi_raw = (c0 + TX_RS_CB - 1) / (order + 1) - 1;
-  const int kx_hi = (kx_hi_raw < V - 1) ? kx_hi_raw : V - 1;
+// rows c = (kx + 1) (order + 1) + n of the value columns behind a block's row
+// tile; the u rows count as column kx = -1 (a "source" of the few-rows
+// kernel is one column)
+struct ComomentFill {
+  // one (column, sample) item of the few-rows kernel: u, its weight and the
+  // column's value (1 for the u rows)
+  struct Raw {
+    float u, w, x;
+  };
+  Stream u;          // (R,)
+  Stream x;          // (R, V)
+  const float* w;    // (R,) or null
+  const float* su;   // (1,)
+  const float* sx;   // (V,)
+  long long R;
+  int V;
+  int n1;     // order + 1
+  int c0;     // first row of the tile
+  int ncol;   // rows of the tile
+  int k_lo;   // column of the tile's first row (-1: the u rows)
+  int nsrc;   // columns behind the tile
 
-  float acc[TX_RS_RB][TX_RS_CB];
-#pragma unroll
-  for (int rb = 0; rb < TX_RS_RB; ++rb)
-#pragma unroll
-    for (int cc = 0; cc < TX_RS_CB; ++cc) acc[rb][cc] = 0.f;
+  static __device__ __forceinline__ void keep(Raw& raw) {
+    tx_keep(raw.u);
+    tx_keep(raw.w);
+    tx_keep(raw.x);
+  }
 
-  for (long long t0 = j_begin; t0 < j_end; t0 += TX_RS_TILE) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int i = threadIdx.x; i < TX_RS_TILE; i += TX_RS_THREADS) {
-      const long long j = t0 + i;
-      const bool valid = j < j_end;
-      float p = valid ? ((w != nullptr) ? w[j] : 1.f) : 0.f;
-      const float du = valid ? tx_to_float(u[j]) - s_u : 0.f;
-      float pw[TX_MAX_ORDER + 1];
+  // at[stride (c - c0)] = w du^n dx for the rows c = (k + 1) n1 + n of the
+  // tile, p = w on entry
+  __device__ __forceinline__ void rows(float* at, int stride, int k, float p, float du,
+                                       float dx) const {
+    const int row0 = (k + 1) * n1 - c0;
 #pragma unroll
-      for (int n = 0; n <= TX_MAX_ORDER; ++n) {
-        pw[n] = p;
+    for (int n = 0; n <= TX_MAX_ORDER; ++n) {
+      if (n < n1) {
+        const int cc = row0 + n;
+        if ((unsigned)cc < (unsigned)ncol) at[stride * cc] = p * dx;
         p *= du;
-      }
-      for (int kx = kx_lo; kx <= kx_hi; ++kx) {
-        const float dx =
-            (kx < 0) ? 1.f : (valid ? tx_to_float(x[j * V + kx]) - sx[kx] : 0.f);
-        const int row0 = (kx + 1) * (order + 1) - c0;
-#pragma unroll
-        for (int n = 0; n <= TX_MAX_ORDER; ++n) {
-          const int cc = row0 + n;
-          if (n <= order && cc >= 0 && cc < TX_RS_CB) tile[cc][i] = pw[n] * dx;
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int base = 4 * lane; base < TX_RS_TILE; base += 128) {
-      const long long j = t0 + base;
-      float f[TX_RS_RB][4];
-#pragma unroll
-      for (int rb = 0; rb < TX_RS_RB; ++rb) {
-        const int r = r0 + warp * TX_RS_RB + rb;
-        if (r < nrep && j < j_end) {
-          counts.load4(r, j, f[rb]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) f[rb][q] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int cc = 0; cc < TX_RS_CB; ++cc) {
-        if (c0 + cc < m) {
-          const float4 cv = *reinterpret_cast<const float4*>(&tile[cc][base]);
-#pragma unroll
-          for (int rb = 0; rb < TX_RS_RB; ++rb) {
-            float a = acc[rb][cc];
-            a = fmaf(f[rb][0], cv.x, a);
-            a = fmaf(f[rb][1], cv.y, a);
-            a = fmaf(f[rb][2], cv.z, a);
-            a = fmaf(f[rb][3], cv.w, a);
-            acc[rb][cc] = a;
-          }
-        }
       }
     }
   }
 
-#pragma unroll
-  for (int rb = 0; rb < TX_RS_RB; ++rb) {
-    const int r = r0 + warp * TX_RS_RB + rb;
-#pragma unroll
-    for (int cc = 0; cc < TX_RS_CB; ++cc) {
-      const float v = tx_warp_sum(acc[rb][cc]);
-      if (lane == 0 && r < nrep && c0 + cc < m) {
-        part[((long long)blockIdx.x * nrep + r) * m + c0 + cc] = v;
-      }
+  __device__ __forceinline__ Raw fetch(int item, long long t0, long long j_end) const {
+    const long long j = t0 + item % TX_FEW_TILE;
+    const int k = k_lo + item / TX_FEW_TILE;
+    Raw raw = {0.f, 0.f, 0.f};
+    if (j < j_end) {
+      raw.u = u[j];
+      raw.w = (w != nullptr) ? w[j] : 1.f;
+      raw.x = (k < 0) ? 1.f : x[j * V + k];
     }
+    return raw;
+  }
+
+  __device__ __forceinline__ void store(Raw raw, int item, float* tile, int gstride,
+                                        long long t0, long long j_end) const {
+    const int i = item % TX_FEW_TILE;
+    const int k = k_lo + item / TX_FEW_TILE;
+    const bool valid = t0 + i < j_end;  // raw.w is 0 past j_end, and so is every row
+    const float du = valid ? raw.u - su[0] : 0.f;
+    const float dx = (k < 0) ? 1.f : (valid ? raw.x - sx[k] : 0.f);
+    rows(tile + (i >> 2) * gstride + (i & 3), 4, k, raw.w, du, dx);
+  }
+
+  __device__ __forceinline__ void fill(float* tile, int tstride, long long t0,
+                                       long long j_end) const {
+    // one (column, sample) pair per item
+    for (int item = threadIdx.x; item < nsrc * TX_URS_TILE; item += TX_URS_THREADS) {
+      const int k = k_lo + item / TX_URS_TILE;
+      const int i = item % TX_URS_TILE;
+      const long long j = t0 + i;
+      const bool valid = j < j_end;
+      const float p = valid ? ((w != nullptr) ? w[j] : 1.f) : 0.f;
+      const float du = valid ? u[j] - su[0] : 0.f;
+      const float dx = (k < 0) ? 1.f : (valid ? x[j * V + k] - sx[k] : 0.f);
+      rows(tile + i * tstride, 1, k, p, du, dx);
+    }
+  }
+};
+
+struct ComomentRows {
+  using Filler = ComomentFill;
+  Stream u, x;
+  const float* w;
+  const float* su;
+  const float* sx;
+  long long R;
+  int V;
+  int n1;
+
+  __device__ __forceinline__ ComomentFill block(int c0, int c_end) const {
+    const int s_lo = c0 / n1;
+    return {u, x, w, su, sx, R, V, n1, c0, c_end - c0, s_lo - 1, (c_end - 1) / n1 - s_lo + 1};
+  }
+};
+
+int launch_by_counts(const ComomentRows& rows, const void* freq, void* part, long long R, int m,
+                     int nrep, int nchunk, long long chunk, int nr, int np, int count_kind,
+                     long long seed, const unsigned int* thresholds, cudaStream_t s) {
+  const bool few = m <= TX_URS_CB;
+  switch (count_kind) {
+    case 0:
+      if (!few) return (int)cudaErrorInvalidValue;
+      return launch_fewrows(rows, TableCounts<int8_t>{(const int8_t*)freq, R}, part, R, m, nrep,
+                            nchunk, chunk, np, s);
+    case 1:
+      if (!few) return (int)cudaErrorInvalidValue;
+      return launch_fewrows(rows, TableCounts<int16_t>{(const int16_t*)freq, R}, part, R, m,
+                            nrep, nchunk, chunk, np, s);
+    case 2:
+      return launch_resample_rows(rows, TableCounts<int32_t>{(const int32_t*)freq, R}, part, R,
+                                  m, nrep, nchunk, chunk, nr, np, s);
+    case 3:
+      return launch_resample_rows(rows, TableCounts<float>{(const float*)freq, R}, part, R, m,
+                                  nrep, nchunk, chunk, nr, np, s);
+    case 4:
+      if (!few) return (int)cudaErrorInvalidValue;
+      return launch_fewrows(rows, TableCounts<__nv_bfloat16>{(const __nv_bfloat16*)freq, R},
+                            part, R, m, nrep, nchunk, chunk, np, s);
+    case 5: {
+      PoissonCounts draw;
+      if (!make_poisson(seed, thresholds, &draw)) return (int)cudaErrorInvalidValue;
+      return launch_resample_rows(rows, draw, part, R, m, nrep, nchunk, chunk, nr, np, s);
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -145,6 +194,8 @@ resample_comoments_kernel(const T* __restrict__ u, const T* __restrict__ x,
 // that holds K3's draws against their plain torch reproduction
 __global__ void poisson_counts_kernel(PoissonCounts counts, int32_t* __restrict__ out,
                                       long long R) {
+  counts.init();
+  __syncthreads();
   const long long j = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   const int r = blockIdx.y;
   if (j >= R) return;
@@ -156,52 +207,35 @@ __global__ void poisson_counts_kernel(PoissonCounts counts, int32_t* __restrict_
   }
 }
 
-template <typename T, typename Counts>
-void launch_resample(dim3 grid, cudaStream_t s, const void* u, const void* x, const void* w,
-                     const void* su, const void* sx, Counts counts, void* part, long long R,
-                     int V, int order, int nrep, long long chunk) {
-  resample_comoments_kernel<T, Counts><<<grid, TX_RS_THREADS, 0, s>>>(
-      (const T*)u, (const T*)x, (const float*)w, (const float*)su, (const float*)sx, counts,
-      (float*)part, R, V, order, nrep, chunk);
-}
+struct PoissonThresholds {
+  uint32_t t[TX_POISSON_NT];
+};
 
-template <typename T>
-int launch_by_counts(dim3 grid, cudaStream_t s, const void* u, const void* x, const void* w,
-                     const void* freq, const void* su, const void* sx, void* part,
-                     long long R, int V, int order, int nrep, long long chunk,
-                     int count_kind, long long seed, const unsigned int* thresholds) {
-  switch (count_kind) {
-    case 0:
-      launch_resample<T>(grid, s, u, x, w, su, sx, TableCounts<int8_t>{(const int8_t*)freq, R},
-                         part, R, V, order, nrep, chunk);
-      break;
-    case 1:
-      launch_resample<T>(grid, s, u, x, w, su, sx,
-                         TableCounts<int16_t>{(const int16_t*)freq, R}, part, R, V, order,
-                         nrep, chunk);
-      break;
-    case 2:
-      launch_resample<T>(grid, s, u, x, w, su, sx,
-                         TableCounts<int32_t>{(const int32_t*)freq, R}, part, R, V, order,
-                         nrep, chunk);
-      break;
-    case 3:
-      launch_resample<T>(grid, s, u, x, w, su, sx, TableCounts<float>{(const float*)freq, R},
-                         part, R, V, order, nrep, chunk);
-      break;
-    case 4:
-      launch_resample<T>(grid, s, u, x, w, su, sx,
-                         TableCounts<__nv_bfloat16>{(const __nv_bfloat16*)freq, R}, part, R,
-                         V, order, nrep, chunk);
-      break;
-    case 5:
-      launch_resample<T>(grid, s, u, x, w, su, sx, make_poisson(seed, thresholds, R), part,
-                         R, V, order, nrep, chunk);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+// the draw's word -> count map against the 9-compare sum, word by word:
+// stats += (words seen, words where the two differ, sum of the map's counts)
+__global__ void poisson_map_kernel(PoissonCounts counts, PoissonThresholds th,
+                                   const uint32_t* __restrict__ words, long long start,
+                                   long long n, int32_t* __restrict__ out,
+                                   unsigned long long* __restrict__ stats) {
+  __shared__ unsigned long long block_stats[3];
+  counts.init();
+  if (threadIdx.x < 3) block_stats[threadIdx.x] = 0;
+  __syncthreads();
+  unsigned long long seen = 0, wrong = 0, total = 0;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const uint32_t word = (words != nullptr) ? words[i] : (uint32_t)(start + i);
+    const int got = (int)poisson_level_count(word);
+    seen += 1;
+    wrong += (got != poisson_compare_count(word, th.t)) ? 1 : 0;
+    total += (unsigned long long)got;
+    if (out != nullptr) out[i] = got;
   }
-  return (int)cudaGetLastError();
+  atomicAdd(&block_stats[0], seen);
+  atomicAdd(&block_stats[1], wrong);
+  atomicAdd(&block_stats[2], total);
+  __syncthreads();
+  if (threadIdx.x < 3) atomicAdd(&stats[threadIdx.x], block_stats[threadIdx.x]);
 }
 
 }  // namespace
@@ -210,45 +244,63 @@ extern "C" {
 
 // u (R,), x (R, V) of the stream type (bf16 != 0: bfloat16, else float32);
 // w (R,) float32 or null; su (1,), sx (V,) float32.  count_kind: 0 int8,
-// 1 int16, 2 int32, 3 float32, 4 bfloat16 table freq (nrep, R); 5 Poisson
-// counts drawn from (seed, thresholds[9]) with freq unused.  Writes part
-// (nchunk, nrep, (V+1)(order+1)) float32, chunk samples per chunk (a
-// multiple of TX_RS_TILE).  Returns the launch status.
+// 1 int16, 2 int32, 3 float32, 4 bfloat16 table freq (nrep, R) (0, 1 and 4
+// for at most 16 rows); 5 Poisson counts drawn from (seed, thresholds[9])
+// with freq unused.  nr, np: row- and replicate-threads of a block
+// (resample_rows_shape_ok of resample_tile.cuh).  Writes part (nchunk, nrep,
+// (V+1)(order+1)) float32, chunk samples per chunk.  Returns the launch
+// status.
 int tx_resample_comoments(const void* u, const void* x, const void* w, const void* freq,
                           const void* su, const void* sx, void* part, long long R, int V,
-                          int order, int nrep, int nchunk, long long chunk, int bf16,
-                          int count_kind, long long seed, const unsigned int* thresholds,
-                          int device, void* stream) {
+                          int order, int nrep, int nchunk, long long chunk, int nr, int np,
+                          int bf16, int count_kind, long long seed,
+                          const unsigned int* thresholds, int device, void* stream) {
   const long long m = (long long)(V + 1) * (order + 1);
-  const long long ycount = ((long long)nrep + TX_RS_REPS - 1) / TX_RS_REPS;
-  const long long zcount = (m + TX_RS_CB - 1) / TX_RS_CB;
-  if (order < 0 || order > TX_MAX_ORDER || V < 1 || nrep < 1 || R < 1 || nchunk < 1 ||
-      nchunk > 2147483647 || chunk % TX_RS_TILE != 0 || (long long)nchunk * chunk < R ||
-      ycount > 65535 || zcount > 65535) {
+  if (order < 0 || order > TX_MAX_ORDER || V < 1 ||
+      !resample_rows_shape_ok(m, R, nrep, nchunk, chunk, nr, np) ||
+      (count_kind != 5 && freq == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)nchunk, (unsigned)ycount, (unsigned)zcount);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    return launch_by_counts<__nv_bfloat16>(grid, s, u, x, w, freq, su, sx, part, R, V, order,
-                                           nrep, chunk, count_kind, seed, thresholds);
-  }
-  return launch_by_counts<float>(grid, s, u, x, w, freq, su, sx, part, R, V, order, nrep,
-                                 chunk, count_kind, seed, thresholds);
+  const ComomentRows rows{{u, bf16}, {x, bf16}, (const float*)w, (const float*)su,
+                          (const float*)sx, R, V, order + 1};
+  return launch_by_counts(rows, freq, part, R, (int)m, nrep, nchunk, chunk, nr, np, count_kind,
+                          seed, thresholds, (cudaStream_t)stream);
 }
 
 // out (nrep, R) int32: the Poisson counts K3 draws for (seed, r, j).
 int tx_poisson_counts(void* out, long long R, int nrep, long long seed,
                       const unsigned int* thresholds, int device, void* stream) {
-  if (R < 1 || nrep < 1 || nrep > 65535) return (int)cudaErrorInvalidValue;
+  PoissonCounts draw;
+  if (R < 1 || nrep < 1 || nrep > 65535 || !make_poisson(seed, thresholds, &draw)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long groups = (R + 3) / 4;
   const dim3 grid((unsigned)((groups + 255) / 256), (unsigned)nrep, 1);
-  poisson_counts_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      make_poisson(seed, thresholds, R), (int32_t*)out, R);
+  poisson_counts_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(draw, (int32_t*)out, R);
+  return (int)cudaGetLastError();
+}
+
+// The draw's word -> count map on n words, words[i] or (start + i) mod 2^32
+// where words is null, against #{q : word > thresholds[q]}.  Adds (words
+// seen, words where the two differ, sum of the map's counts) to stats (3,)
+// uint64, and writes the map's count of word i to out[i] (int32) unless out
+// is null.  Returns the launch status.
+int tx_poisson_map(const void* words, long long start, long long n, void* out, void* stats,
+                   const unsigned int* thresholds, int device, void* stream) {
+  PoissonCounts draw;
+  if (n < 1 || !make_poisson(0, thresholds, &draw)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  PoissonThresholds th;
+  for (int q = 0; q < TX_POISSON_NT; ++q) th.t[q] = thresholds[q];
+  const long long blocks = (n + 255) / 256;
+  const dim3 grid((unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 1, 1);
+  poisson_map_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      draw, th, (const uint32_t*)words, start, n, (int32_t*)out, (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 

@@ -44,7 +44,16 @@ struct alignas(8) uint2 {
   unsigned x, y;
 };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+inline float __uint_as_float(unsigned v) {
+  float f;
+  memcpy(&f, &v, 4);
+  return f;
+}
+inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
+  return __atomic_fetch_add(a, v, __ATOMIC_RELAXED);
+}
 
 #define EMU_SMEM_BYTES 232448
 alignas(16) inline float emu_smem[EMU_SMEM_BYTES / 4];  // dynamic shared memory of the running block

@@ -31,7 +31,8 @@
 // Bound on the H100 at the serving shape (A = 5, V = 1, nrep = 128; 10 FMAs a
 // count): for K7 the count table's bytes (nrep R, 1 to 4 bytes each) beside
 // 4 (A + V) R bytes of e and x; for K8 the integer instructions of the draw
-// (a quarter Philox call and 9 compares a count).  PERF.md has the times.
+// (a quarter Philox call and a level lookup a count, philox.cuh).  PERF.md
+// has the times.
 
 #include "resample_tile.cuh"
 
@@ -161,9 +162,11 @@ int tx_resample_perturb(const void* e, const void* x, const void* freq, void* pa
       return launch_resample_rows(rows,
                                   TableCounts<__nv_bfloat16>{(const __nv_bfloat16*)freq, R},
                                   part, R, m, nrep, nchunk, chunk, nr, np, s);
-    case 5:
-      return launch_resample_rows(rows, make_poisson(seed, thresholds, R), part, R, m, nrep,
-                                  nchunk, chunk, nr, np, s);
+    case 5: {
+      PoissonCounts draw;
+      if (!make_poisson(seed, thresholds, &draw)) return (int)cudaErrorInvalidValue;
+      return launch_resample_rows(rows, draw, part, R, m, nrep, nchunk, chunk, nr, np, s);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

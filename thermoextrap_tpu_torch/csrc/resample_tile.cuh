@@ -1,17 +1,19 @@
-// The bootstrap contraction shared by K5 and K7/K8, in two kernels that the
-// launcher chooses between by the number of contribution rows:
+// The bootstrap contraction shared by K2/K3, K5 and K7/K8, in two kernels
+// that the launcher chooses between by the number of contribution rows:
 //
 //   part[chunk, r, c] = sum_{j in chunk} count(r, j) row_c(j)
 //
 // over m contribution rows c that a `Rows` functor builds per sample tile
-// (K5: w du^n per batch row; K7/K8: e_a [x | 1] per target) and a `Counts`
-// source of philox.cuh (the in-kernel Poisson draw or a materialized table).
+// (K2/K3: w du^n dx per value column; K5: w du^n per batch row; K7/K8:
+// e_a [x | 1] per target) and a `Counts` source of philox.cuh (the
+// in-kernel Poisson draw or a materialized table).
 // The caller sums the chunk partials in float64 (deterministic, no atomics).
 // Within either kernel both count sources take the same path through the
 // sums, so a draw and its materialized table give the same bits.
 //
-// Few rows (m <= 16: K7 and K8 at the serving shape, K5 on one row):
-// resample_fewrows_kernel.  Every thread can hold all m rows of its 4
+// Few rows (m <= 16: K3 on the main path's 14 rows and the volume path's 6,
+// K2 at the quick start's 14, K7 and K8 at the serving shape, K5 on one
+// row): resample_fewrows_kernel.  Every thread can hold all m rows of its 4
 // replicates, so the counts never touch shared memory: a thread fetches the
 // counts of its replicates for 4 consecutive samples (the table's entries by
 // one 16 / 8 / 4-byte load), expands them to float32 in registers (for the
@@ -21,10 +23,17 @@
 // only the row tile (256 samples, two buffers, filled one tile ahead) needs a
 // barrier: one per 256 samples.  The 256 threads are sl sample lanes (fastest,
 // so that a warp's loads cover whole 32-byte sectors of each table row) x np
-// replicate-threads; the lanes are summed with shuffles at the end.  Bound on
-// the H100: the count source, i.e. the table's bytes for K7 and the draw's
-// integer instructions for K8 and K5 (a quarter of a Philox4x32-10 call and
-// 9 compares a count); the f32 FMAs, m per count, stay under both.
+// replicate-threads; the lanes are summed with shuffles at the end.  Each
+// thread expands all 4 replicates' counts without a branch, so that the
+// compiler interleaves the 4 draws (a branch per replicate serialised them
+// and K3 ran at half the speed).  What holds it on the H100: for a table (K2,
+// K7) its row-wise reads, which run at ~1 TB/s as torch.matmul's do; for the
+// draw (K3, K5, K8) the instruction rate, shared between the draw (a quarter of
+// a Philox4x32-10 call and one level lookup a count, ~13 integer
+// instructions, its wide multiplies on the FMA pipe) and the FMAs (m rounded
+// up to a multiple of 4 a count, 16 at K3's 14 rows): the two add up rather
+// than overlap, and the loop runs at about half the SM's instruction rate
+// (PERF.md).
 //
 // Many rows (K5 on a macrostate grid, K7/K8 with many targets or value
 // columns): resample_rows_kernel.  A kernel that tiles rows across blocks
@@ -84,6 +93,7 @@ resample_rows_kernel(Rows rows, Counts counts, float* __restrict__ part, long lo
   const long long j_end = (j_begin + chunk < R) ? j_begin + chunk : R;
   const int c_end = (c0 + rows_block < m) ? c0 + rows_block : m;
   const auto filler = rows.block(c0, c_end);
+  counts.init();  // the loop's first barrier comes before any count
 
   const int s = threadIdx.x % sl;
   const int rt = (threadIdx.x / sl) % nr;
@@ -156,17 +166,13 @@ __device__ __forceinline__ void fewrows_step(const Counts& counts,
                                              const int (&r)[TX_URS_RB], int nrep, int m,
                                              long long j, long long j_ahead, long long j_end) {
   // this step's counts, then the loads of a later step into the registers
-  // they leave
+  // they leave.  Every replicate expands, unmasked and unbranched, so that
+  // the compiler can interleave the 4 draws: a replicate from nrep on is
+  // never stored, and a sample from j_end on meets a zero row (a count there
+  // may be anything finite: the stale registers of a table, or a draw)
   float f[TX_URS_RB][4];
 #pragma unroll
-  for (int a = 0; a < TX_URS_RB; ++a) {
-    if (r[a] < nrep && j < j_end) {
-      counts.expand(raw[a], r[a], j, f[a]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) f[a][q] = 0.f;
-    }
-  }
+  for (int a = 0; a < TX_URS_RB; ++a) counts.expand(raw[a], r[a], j, f[a]);
 #pragma unroll
   for (int a = 0; a < TX_URS_RB; ++a) {
     if (r[a] < nrep && j_ahead < j_end) raw[a] = counts.fetch(r[a], j_ahead);
@@ -216,6 +222,7 @@ resample_fewrows_kernel(Rows rows, Counts counts, float* __restrict__ part, long
   const long long j_end = (j_begin + chunk < R) ? j_begin + chunk : R;
   const Filler filler = rows.block(0, m);
   const int nri = filler.nsrc * TX_FEW_TILE;     // row items of a tile
+  counts.init();  // the barrier after the first tile comes before any count
 
   const int tid = threadIdx.x;
   const int s = tid % sl;
@@ -317,24 +324,31 @@ inline bool resample_rows_shape_ok(long long m, long long R, int nrep, int nchun
   return chunk % TX_URS_TILE == 0 && ycount <= 65535 && (m + rows_block - 1) / rows_block <= 65535;
 }
 
-// Launch on `stream`; writes part (nchunk, nrep, m) float32.  Returns the
-// launch status.
+// Launch on `stream`; write part (nchunk, nrep, m) float32 and return the
+// launch status.  launch_fewrows takes m <= TX_URS_CB rows, launch_manyrows
+// more; launch_resample_rows picks between them (a caller that never sends
+// a source past 16 rows calls launch_fewrows alone and builds fewer kernels).
 template <typename Rows, typename Counts>
-int launch_resample_rows(Rows rows, Counts counts, void* part, long long R, int m, int nrep,
-                         int nchunk, long long chunk, int nr, int np, cudaStream_t stream) {
+int launch_fewrows(Rows rows, Counts counts, void* part, long long R, int m, int nrep, int nchunk,
+                   long long chunk, int np, cudaStream_t stream) {
   const int reps_block = np * TX_URS_RB;
   const int ycount = (nrep + reps_block - 1) / reps_block;
-  if (m <= TX_URS_CB) {
-    const dim3 grid((unsigned)((long long)nchunk * ycount), 1, 1);
-    if (m <= 8) {
-      resample_fewrows_kernel<8, Rows, Counts><<<grid, TX_URS_THREADS, 0, stream>>>(
-          rows, counts, (float*)part, R, m, nrep, chunk, np);
-    } else {
-      resample_fewrows_kernel<TX_URS_CB, Rows, Counts><<<grid, TX_URS_THREADS, 0, stream>>>(
-          rows, counts, (float*)part, R, m, nrep, chunk, np);
-    }
-    return (int)cudaGetLastError();
+  const dim3 grid((unsigned)((long long)nchunk * ycount), 1, 1);
+  if (m <= 8) {
+    resample_fewrows_kernel<8, Rows, Counts><<<grid, TX_URS_THREADS, 0, stream>>>(
+        rows, counts, (float*)part, R, m, nrep, chunk, np);
+  } else {
+    resample_fewrows_kernel<TX_URS_CB, Rows, Counts><<<grid, TX_URS_THREADS, 0, stream>>>(
+        rows, counts, (float*)part, R, m, nrep, chunk, np);
   }
+  return (int)cudaGetLastError();
+}
+
+template <typename Rows, typename Counts>
+int launch_manyrows(Rows rows, Counts counts, void* part, long long R, int m, int nrep,
+                    int nchunk, long long chunk, int nr, int np, cudaStream_t stream) {
+  const int reps_block = np * TX_URS_RB;
+  const int ycount = (nrep + reps_block - 1) / reps_block;
   const int rows_block = nr * TX_URS_CB;
   const size_t smem = sizeof(float) * TX_URS_TILE * (rows_block + 1 + reps_block + 1);
   const dim3 grid((unsigned)nchunk, (unsigned)ycount,
@@ -346,6 +360,13 @@ int launch_resample_rows(Rows rows, Counts counts, void* part, long long R, int 
   kernel<<<grid, TX_URS_THREADS, smem, stream>>>(rows, counts, (float*)part, R, m, nrep, chunk,
                                                  nr, np);
   return (int)cudaGetLastError();
+}
+
+template <typename Rows, typename Counts>
+int launch_resample_rows(Rows rows, Counts counts, void* part, long long R, int m, int nrep,
+                         int nchunk, long long chunk, int nr, int np, cudaStream_t stream) {
+  if (m <= TX_URS_CB) return launch_fewrows(rows, counts, part, R, m, nrep, nchunk, chunk, np, stream);
+  return launch_manyrows(rows, counts, part, R, m, nrep, nchunk, chunk, nr, np, stream);
 }
 
 }  // namespace

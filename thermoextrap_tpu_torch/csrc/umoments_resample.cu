@@ -127,8 +127,9 @@ int launch_by_counts(const void* u, const void* w, const void* freq, const void*
     return launch_resample_rows(rows, TableCounts<int32_t>{(const int32_t*)freq, R}, part, R, m,
                                 nrep, nchunk, chunk, nr, np, s);
   }
-  return launch_resample_rows(rows, make_poisson(seed, thresholds, R), part, R, m, nrep, nchunk,
-                              chunk, nr, np, s);
+  PoissonCounts draw;
+  if (!make_poisson(seed, thresholds, &draw)) return (int)cudaErrorInvalidValue;
+  return launch_resample_rows(rows, draw, part, R, m, nrep, nchunk, chunk, nr, np, s);
 }
 
 }  // namespace

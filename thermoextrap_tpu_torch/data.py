@@ -497,8 +497,13 @@ class DataCentralMoments:
             xave = torch.movedim(xave, 1, 0)
             dxdu = torch.movedim(dxdu, 2, 1)
             val_shape = val_shape[1:]
-        w = torch.ones_like(uv) if weight is None else torch.broadcast_to(weight.to(uv.dtype), uv.shape)
-        wsum = freq.to(uv.dtype) @ w
+        # the reference's promotion: the counts take the stream type, the
+        # weights keep their own, and the product runs in the promoted type
+        # (bfloat16 streams with a float32 weight give float32 sums)
+        f = freq.to(uv.dtype)
+        w = torch.ones_like(uv) if weight is None else torch.broadcast_to(weight, uv.shape)
+        dtype = torch.promote_types(f.dtype, w.dtype)
+        wsum = f.to(dtype) @ w.to(dtype)
         obj = cls(
             xave=xave,
             uave=uave,
@@ -685,14 +690,16 @@ class DataCentralMoments:
             out = (self.u, self.xu)
         return self.meta.derivs_args(self, out)
 
-    def _merge_along(self, wsum, axis: int):
-        """The exact shifted-moment merge; an xalpha deriv axis rides as a
+    def _merge_along(self, wsum, axis: int, fields=None):
+        """The exact shifted-moment merge of ``fields`` (``(xave, uave, du,
+        dxdu)``, this state's by default); an xalpha deriv axis rides as a
         trailing value axis."""
+        xave, uave, du, dxdu = (self.xave, self.uave, self.du, self.dxdu) if fields is None else fields
         if not self.xalpha:
-            return merge_central_comoments(self.xave, self.uave, self.du, self.dxdu, wsum, axis=axis)
-        x2 = torch.movedim(self.xave, 0, -1)
-        dxdu2 = torch.movedim(self.dxdu, 1, -1)
-        x_p, u_p, du_m, dxdu_m, w = merge_central_comoments(x2, self.uave, self.du, dxdu2, wsum, axis=axis)
+            return merge_central_comoments(xave, uave, du, dxdu, wsum, axis=axis)
+        x2 = torch.movedim(xave, 0, -1)
+        dxdu2 = torch.movedim(dxdu, 1, -1)
+        x_p, u_p, du_m, dxdu_m, w = merge_central_comoments(x2, uave, du, dxdu2, wsum, axis=axis)
         return torch.movedim(x_p, -1, 0), u_p, du_m[..., 0], torch.movedim(dxdu_m, -1, 1), w
 
     def reduce(self, axis: int = 0):
@@ -719,14 +726,20 @@ class DataCentralMoments:
         nblock = self.wsum.shape[axis]
         indices, freq = _normalize_sampler(sampler, nblock, self.wsum.device, rng=rng)
         freq = freq.to(self.wsum.dtype)
-        bshape = [1] * nb
-        bshape[axis] = nblock
-        reps = [self._merge_along(self.wsum * f.reshape(bshape), axis) for f in freq]
+        nrep = freq.shape[0]
+        bshape = [nrep] + [1] * nb
+        bshape[axis + 1] = nblock
+        # one merge over a leading replicate axis (the reference vmaps one
+        # merge): every state field gets the replicate axis where its batch
+        # axes begin, the replicate weights lead wsum, and the merge runs
+        # along the block axis, now axis + 1
         xa = self.xalpha
-        out_axes = (1 if xa else 0, 0, 1, 2 if xa else 1, 0)
-        xave, uave, du, dxdu, wsum = (
-            torch.stack([rep[i] for rep in reps], dim=ax) for i, ax in enumerate(out_axes)
+        rep_axes = (1 if xa else 0, 0, 1, 2 if xa else 1)
+        fields = tuple(
+            t.unsqueeze(ax).expand(*t.shape[:ax], nrep, *t.shape[ax:])
+            for t, ax in zip((self.xave, self.uave, self.du, self.dxdu), rep_axes)
         )
+        xave, uave, du, dxdu, wsum = self._merge_along(self.wsum * freq.reshape(bshape), axis + 1, fields)
         meta = self.meta.resample(self, indices=indices, freq=freq, **kws)
         return dataclasses.replace(self, xave=xave, uave=uave, du=du, dxdu=dxdu, wsum=wsum, meta=meta)
 

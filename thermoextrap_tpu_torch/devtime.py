@@ -2,15 +2,18 @@
 
 Run from the repository root on a CUDA machine::
 
-    python -m thermoextrap_tpu_torch.devtime
+    python -m thermoextrap_tpu_torch.devtime [CALL ...]
 
 It builds ``chip_smoke.py``'s inputs (R = 1e8 ideal-gas configurations of 8
 particles, the 64 x 1e6 lnΠ grid; same seed) and prints one JSON line per
-call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, K2 at the quick
-start's shape (R = 1e5) and at R = 1e7 (100 replicates, int32 table), K4 and
-K5 alone (K5 at the grid and at one row of R = 1e8), the perturbation call at R = 1e7 (counts drawn in the kernel, then
+call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, K3 alone at
+the main path's shape (R = 1e8, 256 replicates), K2 at the quick start's
+shape (R = 1e5) and at R = 1e7 (100 replicates, int32 table), K6 at the quick
+start's shape (100 x 1e5), K4 and K5 alone (K5 at the grid and at one row of
+R = 1e8), the perturbation call at R = 1e7 (counts drawn in the kernel, then
 from a table) and at R = 1e8, its weight build alone, K7 and K8 alone, and
-one streaming update of a 1e7-sample chunk.  Each line holds
+one streaming update of a 1e7-sample chunk; with names, only those calls.
+Each line holds
 
 - ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
 - ``device_ms``: device time per call from ``torch.profiler`` over 5 more
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 
 __all__ = ["device_time", "main"]
 
@@ -121,13 +125,16 @@ def main() -> int:
     x1 = x[:, None]
     table2 = torch.poisson(torch.ones((100, rp), device=dev), generator=gen).to(torch.int32)
     table2q = table2[:, :100_000].contiguous()
+    u6, x6 = u[:10_000_000].reshape(100, 100_000), x1[:10_000_000].reshape(100, 100_000, 1)
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
         "lnpi_pipeline": lambda: run_lnpi(grid, -0.01 * ncoord**2, 0.3 * ncoord, betas, seed=SEED),
         "volume_pipeline": lambda: run_vol(wv, x, x, volumes, seed=SEED),
+        "K3_1e8": lambda: mc.resample_central_comoments_poisson(u, x1, NREP, ORDER, seed=SEED),
         "K2_int32_1e5": lambda: mc.resample_central_comoments_fused(u[:100_000], x1[:100_000], table2q, ORDER),
         "K2_int32_1e7": lambda: mc.resample_central_comoments_fused(up, x1[:rp], table2, ORDER),
+        "K6_100x1e5": lambda: mc.reduce_central_comoments_batched(u6, x6, ORDER),
         "K4_grid_order6": lambda: mc.reduce_central_umoments_batched(grid, ORDER),
         "K4_flat_order7": lambda: mc.reduce_central_umoments_batched(u, ORDER + 1),
         "K5_grid_order6": lambda: mc.resample_central_umoments_batched_poisson(grid, NREP, ORDER, seed=SEED),
@@ -140,8 +147,9 @@ def main() -> int:
         "K8_1e7": lambda: mc.resample_perturb_poisson(ep, xp[:, None], nrep_p, seed=SEED),
         "streaming_update_1e7": lambda: update(state0, up, xp),
     }
-    for name, fn in calls.items():
-        wall, device, top = device_time(fn)
+    wanted = sys.argv[1:] or list(calls)
+    for name in wanted:
+        wall, device, top = device_time(calls[name])
         line = {"call": name, "card": card, "wall_ms": wall, "device_ms": device, "idle": 1.0 - device / wall}
         print(json.dumps({**line, "top": top}), flush=True)
     return 0

@@ -6,23 +6,26 @@ needed)::
     python -m thermoextrap_tpu_torch.drawcost [SASS_FILE]
 
 It compiles two probe kernels against ``csrc/philox.cuh`` with the package's
-own ``nvcc`` flags: ``draw_probe`` makes one ``PoissonCounts::load4`` call
-(a Philox4x32-10 call, 9 threshold compares per count, 4 counts) and stores
-the four counts; ``base_probe`` stores the four counter words through the
-same tail mask and conversion, without Philox and without the thresholds.
-Both are straight-line code, so the static instruction count is what a
-thread executes.  ``cuobjdump -sass`` lists them, and the script prints one
+own ``nvcc`` flags.  Both fill the block's level table (``init``) and pass a
+barrier; then ``draw_probe`` makes one ``PoissonCounts::load4`` call (a
+Philox4x32-10 call and the word -> count map of 4 counts) and stores the four
+counts, and ``base_probe`` stores the four counter words through a
+conversion, without Philox and without the map.  Past the
+barrier both are straight-line code, so the static instruction count is what
+a thread executes.  ``cuobjdump -sass`` lists them, and the script prints one
 JSON line with each kernel's instruction histogram and
 
 - ``draw_instructions_per_count``: a quarter of (``draw_probe`` minus
-  ``base_probe``) over the integer, logic, compare, select and conversion
-  opcodes, plus the one conversion per count that both probes hold;
+  ``base_probe``) over the integer, logic, compare, select, bit-count and
+  conversion opcodes, plus the one conversion per count that ``base_probe``
+  holds (the draw turns words into counts by other means: the difference
+  would otherwise take it away);
 - ``wide_multiplies``, the ``IMAD.WIDE`` count of the draw (2 per Philox
-  round when the compiler fuses the low and high halves of a product).
+  round when the compiler fuses the low and high halves of a product);
+- ``shared_loads``, the draw's ``LDS`` count (one level lookup per count).
 
-With a file name the SASS listing is written there.  ``chip_smoke.py`` works
-K3's, K5's and K8's operation bound out from this
-count.
+With a file name the SASS listing is written there.  ``chip_smoke.py`` puts
+the per-count figure beside K3, K5 and K8 in its ``kernels`` line.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ _PROBE = r"""
 #include "philox.cuh"
 
 extern "C" __global__ void draw_probe(PoissonCounts pc, float4* out) {
+  pc.init();
+  __syncthreads();
   const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   float f[4];
   pc.load4((int)blockIdx.y, 4 * t, f);
@@ -47,18 +52,23 @@ extern "C" __global__ void draw_probe(PoissonCounts pc, float4* out) {
 }
 
 extern "C" __global__ void base_probe(PoissonCounts pc, float4* out) {
+  pc.init();
+  __syncthreads();
   const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long j = 4 * t;
-  const uint32_t c[4] = {(uint32_t)(j >> 2), (uint32_t)blockIdx.y, (uint32_t)(j >> 34), pc.k0};
+  const uint32_t c[4] = {(uint32_t)(j >> 2), (uint32_t)blockIdx.y, (uint32_t)(j >> 34), pc.key.k0[0]};
   float f[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) f[q] = (j + q < pc.R) ? (float)(int)c[q] : 0.f;
+  for (int q = 0; q < 4; ++q) f[q] = (float)(int)c[q];
   out[blockIdx.y * (long long)gridDim.x * blockDim.x + t] = make_float4(f[0], f[1], f[2], f[3]);
 }
 """
 
-# opcodes of the integer pipes and the conversion that ends a count
-_INTEGER = ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "ISETP", "SEL", "SHF", "LEA", "I2F", "I2FP", "VIADD", "IABS", "PLOP3")
+# opcodes of the integer pipes, bit counts, and the conversion that ends a count
+_INTEGER = (
+    "IMAD", "IADD3", "IADD", "LOP3", "LOP", "ISETP", "SEL", "SHF", "LEA", "I2F", "I2FP", "VIADD", "IABS",
+    "PLOP3", "FLO", "POPC", "BREV", "PRMT", "IMNMX", "BMSK",
+)
 _LINE = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)")
 
 
@@ -107,6 +117,7 @@ def draw_cost() -> dict:
         "base_integer_instructions": integer(base),
         "draw_instructions_per_count": (integer(draw) - integer(base)) / 4 + 1,
         "wide_multiplies": draw.get("IMAD.WIDE", 0),
+        "shared_loads": draw.get("LDS", 0) - base.get("LDS", 0),
         "sass": sass,
     }
 

@@ -33,10 +33,12 @@ first :data:`HEAD_N` samples (:func:`_head_shift`), the kernel sums shifted
 powers, and one epilogue (:func:`_shifted_epilogue`, or :func:`_u_epilogue`
 for the u-moment kernels K4 and K5) recentres the sums exactly.  Each
 wrapper adds one to ``LAUNCHES[name]`` when it launches its kernel.  K7 and
-K8 take no shift: they sum the streamed reweighting factors as they are.  K5,
-K7 and K8 share the contraction of ``csrc/resample_tile.cuh``, which runs up
-to 16 contribution rows in its few-rows kernel and more in its many-rows
-kernel (:func:`_rows_launch` gives the launch shape of either).  The
+K8 take no shift: they sum the streamed reweighting factors as they are.  K2,
+K3, K5, K7 and K8 share the contraction of ``csrc/resample_tile.cuh``, which
+runs up to 16 contribution rows in its few-rows kernel and more in its
+many-rows kernel (:func:`_rows_launch` gives the launch shape of either), and
+the in-kernel Poisson draw of ``csrc/philox.cuh`` (:func:`poisson_map_cuda`
+holds its word → count map against the 9-compare sum).  The
 kernels are forward only: a CUDA input that requires grad raises, and the
 CPU path differentiates by autograd.
 """
@@ -60,6 +62,7 @@ __all__ = [
     "finalize_comoments_plain",
     "head_shift_cuda",
     "poisson_counts_cuda",
+    "poisson_map_cuda",
     "reduce_central_comoments_batched",
     "reduce_central_comoments_fused",
     "reduce_central_umoments_batched",
@@ -96,10 +99,7 @@ LAUNCHES = {
 }
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu
-_RS_REPS = 32  # TX_RS_REPS of comoments_resample.cu
-_RS_CB = 16  # TX_RS_CB
-_RS_TILE = 512  # TX_RS_TILE
-_URS_THREADS = 256  # TX_URS_THREADS of resample_tile.cuh (K5, K7, K8)
+_URS_THREADS = 256  # TX_URS_THREADS of resample_tile.cuh (K2, K3, K5, K7, K8)
 _URS_RB = 4  # TX_URS_RB
 _URS_CB = 16  # TX_URS_CB
 _URS_TILE = 32  # TX_URS_TILE: sample tile of the many-rows kernel
@@ -119,6 +119,9 @@ _COUNT_KIND = {
     torch.bfloat16: 4,
 }
 _POISSON_KIND = 5
+# the table types K2 takes past the few-rows kernel's 16 rows; the rest are
+# widened to these first (the same counts, so the same sums)
+_WIDE_TABLE = {torch.int8: torch.int32, torch.int16: torch.int32, torch.bfloat16: torch.float32}
 
 _MASK32 = 0xFFFFFFFF
 
@@ -260,8 +263,9 @@ def _weight_rows(weight, shape, device):
     return torch.broadcast_to(w, shape)
 
 
-def _count_table(freq, nrep: int, r: int, device):
-    """A count table as the kernels stream it: ``(table, kind code)``."""
+def _count_table(freq, nrep: int, r: int, device, *, wide: bool = False):
+    """A count table as the kernels stream it: ``(table, kind code)``;
+    ``wide`` widens the narrow types to :data:`_WIDE_TABLE`'s."""
     freq = torch.as_tensor(freq, device=device)
     if freq.shape != (nrep, r):
         msg = f"freq must have shape {(nrep, r)}, got {tuple(freq.shape)}"
@@ -270,6 +274,8 @@ def _count_table(freq, nrep: int, r: int, device):
         # wide or unsigned integer tables stream as int32; other float
         # tables as float32 (fractional counts must stay fractional)
         freq = freq.to(torch.float32 if freq.is_floating_point() else torch.int32)
+    if wide:
+        freq = freq.to(_WIDE_TABLE.get(freq.dtype, freq.dtype))
     freq = freq.contiguous()
     return freq, _COUNT_KIND[freq.dtype]
 
@@ -423,7 +429,7 @@ def _poisson_counts(seed: int, nrep: int, nrec: int, device=None, *, start: int 
     count of replicate r at sample j is word ``j & 3`` of Philox4x32-10 with
     counter ``((j >> 2) mod 2^32, r, (j >> 34) mod 2^32, 0)`` and key
     ``(seed mod 2^32, (seed >> 32) mod 2^32)``, mapped by the truncated
-    Poisson(1) thresholds (csrc/comoments_resample.cu)."""
+    Poisson(1) thresholds (csrc/philox.cuh)."""
     if start % 4:
         msg = f"start must be a multiple of 4, got {start}"
         raise ValueError(msg)
@@ -552,11 +558,12 @@ def finalize_comoments_cuda(part, shift, order: int, v: int):
         msg = f"part {tuple(part.shape)} / shift {tuple(shift.shape)} do not fit order {order}, V {v}"
         raise ValueError(msg)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=part.device)
-
-    xave, uave, wsum = empty(nrep, v), empty(nrep), empty(nrep)
-    du, dxdu = empty(order + 1, nrep), empty(order + 1, nrep, v)
+    # the five outputs are views of one allocation (one call of the caching
+    # allocator instead of five: the wrapper is host bound at small R)
+    shapes = ((nrep, v), (nrep,), (order + 1, nrep), (order + 1, nrep, v), (nrep,))
+    sizes = [math.prod(shape) for shape in shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=part.device)
+    xave, uave, du, dxdu, wsum = (t.view(shape) for t, shape in zip(flat.split(sizes), shapes))
     status = _build.library().tx_finalize_comoments(
         part.data_ptr(),
         shift.data_ptr(),
@@ -580,9 +587,10 @@ def finalize_comoments_cuda(part, shift, order: int, v: int):
 
 def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
     """The K2 / K3 wrapper on CUDA tensors: checks and casts, then three
-    launches (head shift, the bootstrap kernel with table counts when ``freq``
-    is given and in-kernel Poisson counts otherwise, finalize) and no tensor
-    arithmetic in between; returns the epilogue's 5-tuple."""
+    launches (head shift, the bootstrap contraction of
+    ``csrc/resample_tile.cuh`` with table counts when ``freq`` is given and
+    in-kernel Poisson counts otherwise, finalize) and no tensor arithmetic
+    in between; returns the epilogue's 5-tuple."""
     _check_cuda_inputs(uv, x2, weight, freq)
     if order > MAX_ORDER:
         msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
@@ -593,15 +601,15 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
     r, v = x.shape
     w = _weight_rows(weight, (r,), u.device)
     w = None if w is None else w.to(torch.float32).contiguous()
+    m = (v + 1) * (order + 1)
     if freq is None:
         kind = _POISSON_KIND
         fptr = None
     else:
-        freq, kind = _count_table(freq, nrep, r, u.device)
+        freq, kind = _count_table(freq, nrep, r, u.device, wide=m > _URS_CB)
         fptr = freq.data_ptr()
     shift = head_shift_cuda(u, x, w)
-    m = (v + 1) * (order + 1)
-    nchunk, chunk = _resample_chunks(r, nrep, m)
+    nr, npt, nchunk, chunk = _rows_launch(m, nrep, r, _TARGET_BLOCKS)
     part = torch.empty((nchunk, nrep, m), dtype=torch.float32, device=u.device)
     status = _build.library().tx_resample_comoments(
         u.data_ptr(),
@@ -617,6 +625,8 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
         nrep,
         nchunk,
         chunk,
+        nr,
+        npt,
         int(sdt == torch.bfloat16),
         kind,
         _signed64(seed),
@@ -626,18 +636,6 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
     )
     _build.check(status, "tx_resample_comoments")
     return finalize_comoments_cuda(part, shift, order, v)
-
-
-def _resample_chunks(r: int, nrep: int, m: int):
-    """K2 / K3's split of ``r`` samples: ``(nchunk, chunk)`` with ``chunk`` a
-    multiple of the kernel's sample tile and about :data:`_TARGET_BLOCKS`
-    blocks in all."""
-    ycount = math.ceil(nrep / _RS_REPS)
-    zcount = math.ceil(m / _RS_CB)
-    ntile = math.ceil(r / _RS_TILE)
-    nchunk = max(1, min(ntile, math.ceil(_TARGET_BLOCKS / (ycount * zcount))))
-    chunk = math.ceil(ntile / nchunk) * _RS_TILE
-    return math.ceil(r / chunk), chunk
 
 
 @functools.cache
@@ -711,6 +709,37 @@ def poisson_counts_cuda(seed: int, nrep: int, nrec: int, device):
     )
     _build.check(status, "tx_poisson_counts")
     return out
+
+
+def poisson_map_cuda(words=None, *, start: int = 0, n: int = 0, device=None):
+    """The in-kernel draw's word → count map (the level lookup of
+    ``csrc/philox.cuh``) held against the 9-compare sum by the card: the
+    parity hook of the map.  On the uint32 words ``words`` (an int64 tensor
+    of values below 2^32), or on the ``n`` words ``start .. start + n - 1``
+    (mod 2^32) when ``words`` is None.  Returns ``(counts, stats)``:
+    ``counts`` the map's count of each given word (int32; None for a range)
+    and ``stats`` the int64 triple (words seen, words where the map and the
+    compare sum differ, sum of the map's counts)."""
+    if words is not None:
+        device = words.device
+        n = words.numel()
+        words = words.to(torch.int64).reshape(-1).to(torch.int32).contiguous()  # the uint32 bits
+        out = torch.empty(n, dtype=torch.int32, device=device)
+    else:
+        out = None
+    stats = torch.zeros(3, dtype=torch.int64, device=device)
+    status = _build.library().tx_poisson_map(
+        None if words is None else words.data_ptr(),
+        start,
+        n,
+        None if out is None else out.data_ptr(),
+        stats.data_ptr(),
+        _thresholds(),
+        stats.device.index,
+        _stream_ptr(stats.device),
+    )
+    _build.check(status, "tx_poisson_map")
+    return out, stats
 
 
 # ---------------------------------------------------------------------------
@@ -856,7 +885,7 @@ def _next_pow2(n: int) -> int:
 
 
 def _u_thread_split(m: int, nrep: int):
-    """Block layout of the shared contraction (K5, K7, K8): ``(nr, np)`` row-
+    """Block layout of the shared contraction (K2, K3, K5, K7, K8): ``(nr, np)`` row-
     and replicate-threads, the rest of the 256 threads being sample lanes (at
     most 32).  Up to 16 rows take one row-thread (the few-rows kernel); a
     block of the many-rows kernel holds up to 512 contribution rows, so a
@@ -868,8 +897,9 @@ def _u_thread_split(m: int, nrep: int):
     return nr, npt
 
 
+@functools.lru_cache(maxsize=256)
 def _rows_launch(m: int, nrep: int, r: int, target_blocks: int):
-    """Launch shape of the shared contraction (K5, K7, K8) for ``m``
+    """Launch shape of the shared contraction (K2, K3, K5, K7, K8) for ``m``
     contribution rows, ``nrep`` replicates and ``r`` samples: ``(nr, np,
     nchunk, chunk)``, the thread split of :func:`_u_thread_split` and ``r``
     cut into ``nchunk`` chunks of ``chunk`` samples, a multiple of the sample
