@@ -8,8 +8,8 @@ It needs one CUDA card and the CUDA toolkit (the kernels in
 on any failure, without printing a result.  Phases, one line each:
 
 1. environment and the kernel build;
-2. K1 (f32 and bf16) at R = 1e8 and K6 at (100, 1e5) against their plain
-   versions on the card;
+2. K1 (f32 and bf16, and at V = 2) at R = 1e8 and K6 at (100, 1e5) against
+   their float64 plain versions on the card;
 3. K2 at the main path's shape (R = 1e5, nrep = 100) and at R = 1e7,
    nrep = 100, with int32 and int8 count tables;
 4. K3: its counts against their plain reproduction, K3 equal to K2 on that
@@ -29,8 +29,9 @@ on any failure, without printing a result.  Phases, one line each:
    flat R = 1e8 stream at order 7 (the x_is_u route) and weighted;
 9. K5: its draws against its consume of the ``_poisson_counts`` table, that
    consume against the plain table version, identical batch rows, the grid
-   shape and the ⟨u⟩ path's shape (one row of R = 1e8, order 7) against its
-   plain version, and its weight sums against K3's;
+   shape (on the tensor cores) and the ⟨u⟩ path's shape (one row of R = 1e8,
+   order 7) against its plain version, and its weight sums against K3's; its
+   finalize kernel against its plain version on the grid's partials;
 10. the ensembles, each path with its own fresh launch counts: ⟨u⟩(β) from
     the R = 1e8 main samples (float32 and bfloat16 streams), the
     64-macrostate lnΠ grid and the volume pipeline, each against its
@@ -58,8 +59,8 @@ on any failure, without printing a result.  Phases, one line each:
     chunks and the lnΠ grid in 4 chunks against their one-shot calls, and
     the streaming perturbation against the one-shot R = 1e8 call;
 17. CUDA-event times of K7, K8, their plain versions, the library matrix
-    products that compute K2's and K7's sums, the perturbation calls and one
-    streaming update;
+    products that compute K2's, K5's and K7's sums, the perturbation calls
+    and one streaming update;
 18. the helper kernels of the K2 / K3 wrapper and the count table's vector
     loads: the finalize kernel against its plain version on the partials of a
     real K2 call and on synthetic partials with an all-zero replicate (which
@@ -75,8 +76,9 @@ on any failure, without printing a result.  Phases, one line each:
     count from its SASS (``python -m thermoextrap_tpu_torch.drawcost``, run
     beside the kernel build).
 
-Each K2 or K3 call must also launch the head-shift and the finalize kernel
-once; phases 6, 11 and 16 hold every path to that.  Each kernel's bound is the
+Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
+kernel once, and each K5 call its finalize kernel once; phases 6, 11 and 16
+hold every path to that.  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
@@ -116,6 +118,9 @@ GRID_CHUNKS = 4
 # INT32 lanes beside its 128 FP32 lanes, so half the FMA instruction rate.
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
+# K5's rows go to the tensor cores as three bf16 terms (csrc/common.cuh)
+ROW_TERMS = 3
 INT32_OPS = 16.75e12
 # Integer operations one in-kernel Poisson count needs (csrc/philox.cuh): a
 # Philox4x32-10 call serves 4 counts with 10 rounds of 2 wide multiplies (low
@@ -128,12 +133,13 @@ INT32_OPS = 16.75e12
 DRAW_OPS_PER_COUNT = 40 / 4 + 2
 
 
-def bound(nbytes: float, fmas: float = 0.0, draws: float = 0.0):
+def bound(nbytes: float, fmas: float = 0.0, draws: float = 0.0, tc_fmas: float = 0.0):
     """``(bound_ms, bound_by)``: the larger of the bytes over the memory rate
-    and the operations over their peak rate (float32 FMAs, and the integer
-    operations of the in-kernel Poisson draws)."""
+    and the operations over their peak rate (float32 FMAs on the CUDA cores,
+    bf16 products on the tensor cores, and the integer operations of the
+    in-kernel Poisson draws)."""
     bytes_ms = nbytes / HBM_BPS * 1e3
-    ops_ms = max(2.0 * fmas / F32_FLOPS, draws * DRAW_OPS_PER_COUNT / INT32_OPS) * 1e3
+    ops_ms = max(2.0 * fmas / F32_FLOPS, 2.0 * tc_fmas / BF16_TC_FLOPS, draws * DRAW_OPS_PER_COUNT / INT32_OPS) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -249,11 +255,17 @@ def main() -> int:
     got16 = mc.reduce_central_comoments_fused(ub, xb, ORDER)
     err16 = compare("K1 bf16", got16, ref16, 2e-3, 2e-5)
     del ub, xb, ref16, got16
+    # the volume path's shape: two value columns read in one pass over u
+    x2c = torch.stack([x, x * x], dim=1)
+    ref2c = lead(mc.reduce_comoments_plain(u.double()[None], x2c.double()[None], None, 1))
+    err_v2 = compare("K1 V=2", mc.reduce_central_comoments_fused(u, x2c, 1), ref2c, 2e-3, 1e-5)
+    del ref2c
     u6 = u[:10_000_000].reshape(100, 100_000)
     x6 = x1[:10_000_000].reshape(100, 100_000, 1)
     ref6 = mc.reduce_comoments_plain(u6.double(), x6.double(), None, ORDER)[:4]
     errs["K6"] = compare("K6", mc.reduce_central_comoments_batched(u6, x6, ORDER), ref6, 2e-3, 1e-5)
-    say(2, card=card, K1_f32_max_abs_err=errs["K1"], K1_bf16_max_abs_err=err16, K6_max_abs_err=errs["K6"], rtol=2e-3, atol_f32=1e-5, atol_bf16=2e-5)
+    say(2, card=card, K1_f32_max_abs_err=errs["K1"], K1_bf16_max_abs_err=err16, K1_V2_max_abs_err=err_v2, K6_max_abs_err=errs["K6"], rtol=2e-3, atol_f32=1e-5, atol_bf16=2e-5)
+    errs["K1"] = max(errs["K1"], err_v2)
 
     # -- phase 3: K2, at the main path's shape (the count table of a
     # 100-replicate index bootstrap of 1e5 samples), then at R = 1e7 ------------
@@ -358,8 +370,10 @@ def main() -> int:
     say(6, launches=launches)
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
-    if not launches["head_shift"] == launches["finalize"] == launches["K2"] + launches["K3"]:
-        raise AssertionError(f"the main path's K2 / K3 calls did not each launch the head shift and the finalize kernel once: {launches}")
+    if not launches["head_shift"] == launches["finalize"] == launches["K1"] + launches["K2"] + launches["K3"] + launches["K6"]:
+        raise AssertionError(f"the main path's K1 / K2 / K3 / K6 calls did not each launch the head shift and the finalize kernel once: {launches}")
+    if launches["finalize_u"] != launches["K5"]:
+        raise AssertionError(f"the main path launched K5's finalize kernel without K5: {launches}")
 
     # -- phase 7: times ----------------------------------------------------------------
     def time_ms(fn, reps):
@@ -404,6 +418,11 @@ def main() -> int:
     ub, xb = u.to(torch.bfloat16), x1.to(torch.bfloat16)
     extra = {
         "K1": ("R=1e8 V=1 bf16", time_ms(lambda: mc.reduce_central_comoments_fused(ub, xb, ORDER), 10), None),
+        "K1_V2": (
+            "R=1e8 V=2 order 1 f32 (the volume path)",
+            time_ms(lambda: mc.reduce_central_comoments_fused(u, x2c, 1), 10),
+            time_ms(lambda: mc.reduce_comoments_plain(ux, x2c[None], None, 1), 5),
+        ),
         "K2": (
             "R=1e7 nrep=100 int32",
             time_ms(lambda: mc.resample_central_comoments_fused(u2, x2, table, ORDER), 5),
@@ -460,10 +479,33 @@ def main() -> int:
     rows = mc.resample_central_umoments_batched_poisson(same, NREP_MAIN, ORDER, seed=SEED)
     if not all(torch.equal(t[..., 1:], t[..., :1].expand_as(t[..., 1:])) for t in rows):
         raise AssertionError("K5 gave different replicates to identical batch rows")
-    k5_grid = mc.resample_central_umoments_batched_poisson(grid, NREP_MAIN, ORDER, seed=SEED)
+    # the grid on the tensor cores, and its finalize kernel on the grid's partials
+    seen_u = {}
+    finalize_u_cuda = mc.finalize_umoments_cuda
+
+    def keep_u(part, s_u, order, nbatch):
+        seen_u.update(part=part, s_u=s_u)
+        return finalize_u_cuda(part, s_u, order, nbatch)
+
+    mc.finalize_umoments_cuda = keep_u
+    try:
+        k5_grid = mc.resample_central_umoments_batched_poisson(grid, NREP_MAIN, ORDER, seed=SEED)
+    finally:
+        mc.finalize_umoments_cuda = finalize_u_cuda
     ref5 = mc.resample_umoments_poisson_plain(grid.double(), None, NREP_MAIN, ORDER, seed=SEED)[:2]
     err_grid = compare("K5 grid", k5_grid, ref5, 2e-3, 1e-5)
     del ref5, k5_grid
+    part_u, s_u5 = seen_u["part"], seen_u["s_u"]
+    fin_u_got = mc.finalize_umoments_cuda(part_u, s_u5, ORDER, GRID_B)
+    fin_u_ref = mc.finalize_umoments_plain(part_u, s_u5, ORDER, GRID_B)
+    fin_u_rel = max(
+        float(torch.where((a.double() - b.double()) == 0, 0.0, (a.double() - b.double()).abs() / b.double().abs()).max())
+        for a, b in zip(fin_u_got, fin_u_ref)
+    )
+    if not fin_u_rel <= 1e-6:
+        raise AssertionError(f"K5's finalize kernel differs from its plain version by {fin_u_rel} (relative)")
+    errs["finalize_u"] = max(float((a.double() - b.double()).abs().max()) for a, b in zip(fin_u_got, fin_u_ref))
+    del fin_u_got, fin_u_ref
     # the ⟨u⟩ path's shape: one row of R = 1e8 at order 7 (its own layout);
     # its weight sums (~1e8, beyond float32's exact integers) are held
     # against K3's below
@@ -479,9 +521,12 @@ def main() -> int:
     if not torch.equal(wsum5[:, 0], wsum3):
         raise AssertionError(f"K5 weight sums differ from K3's: max diff {float((wsum5[:, 0] - wsum3).abs().max())}")
     draws = {}
-    for shape_name, m in (("grid (64, 1e6) order 6", GRID_B * (ORDER + 1)), ("flat 1e8 order 7", ORDER + 2)):
-        nr, npt = mc._u_thread_split(m, NREP_MAIN)
-        draws[shape_name] = {"row_threads": nr, "rep_threads": npt, "draws_per_count": math.ceil(m / (nr * mc._URS_CB))}
+    for shape_name, m, order_m in (("grid (64, 1e6) order 6", GRID_B * (ORDER + 1), ORDER), ("flat 1e8 order 7", ORDER + 2, ORDER + 1)):
+        if mc._k5_on_tensor_cores(m, order_m):
+            draws[shape_name] = {"kernel": "tensor cores", "draws_per_count": math.ceil(m / mc._MMA_ROWS), "rows_built": math.ceil(NREP_MAIN / mc._MMA_REPS)}
+        else:
+            nr, npt = mc._u_thread_split(m, NREP_MAIN)
+            draws[shape_name] = {"kernel": "few rows" if m <= mc._URS_CB else "many rows", "row_threads": nr, "rep_threads": npt, "draws_per_count": math.ceil(m / (nr * mc._URS_CB))}
     say(
         9,
         card=card,
@@ -490,6 +535,7 @@ def main() -> int:
         identical_rows_equal=True,
         K5_grid_max_abs_err=err_grid,
         K5_flat_order7_max_abs_err=err_flat,
+        finalize_u_max_rel_err=fin_u_rel,
         wsum_equal_to_K3=True,
         layout=draws,
         rtol_table=1e-5,
@@ -519,10 +565,12 @@ def main() -> int:
         return out
 
     def full_counts(want):
-        """Every counter's expected value: each K2 / K3 call also launches
-        the head-shift and the finalize kernel once."""
+        """Every counter's expected value: each K1 / K2 / K3 / K6 call also
+        launches the head-shift and the finalize kernel once, each K5 call its
+        finalize kernel once."""
         full = {k: want.get(k, 0) for k in mc.LAUNCHES}
-        full["head_shift"] = full["finalize"] = full["K2"] + full["K3"]
+        full["head_shift"] = full["finalize"] = full["K1"] + full["K2"] + full["K3"] + full["K6"]
+        full["finalize_u"] = full["K5"]
         return full
 
     upred, ustd = counted("u_f32", lambda: run_u(u, betas, seed=SEED))
@@ -869,6 +917,14 @@ def main() -> int:
     table_f = table.float()
     k2_big_library_ms = time_ms(lambda: torch.matmul(table_f, rows2_big), 3)
     del rows2_big, table_f
+    # K5 at the grid: the product of the float32 count table (256 x 1e6) and
+    # the grid's 448 contribution rows w du^n, built beforehand
+    du5 = grid - grid[:, : mc.HEAD_N].mean(dim=1, keepdim=True)
+    rows5 = torch.stack([du5**n for n in range(ORDER + 1)], dim=1).reshape(GRID_B * (ORDER + 1), GRID_R).T.contiguous()
+    table5_f = mc._poisson_counts(SEED, NREP_MAIN, GRID_R, dev).float()
+    library["K5"] = time_ms(lambda: torch.matmul(table5_f, rows5), 3)
+    del du5, rows5, table5_f
+    say(17, card=card, kernel="K5", shape="(64, 1e6) order 6 nrep=256, float32 matmul of the table against 448 prebuilt rows", library_ms=library["K5"])
     times["K7"] = (time_ms(lambda: mc.resample_perturb_freq(ep, xp, table7), 5), k7_plain_ms)
     times["K8"] = (time_ms(lambda: mc.resample_perturb_poisson(ep, xp, NREP_PERTURB, seed=SEED), 5), k8_plain_ms)
     for name in ("K7", "K8"):
@@ -1011,6 +1067,10 @@ def main() -> int:
         time_ms(lambda: mc.finalize_comoments_cuda(part_q, shift_q, ORDER, 1), 10),
         time_ms(lambda: mc.finalize_comoments_plain(part_q, shift_q[:1], shift_q[1:], ORDER, 1), 10),
     )
+    times["finalize_u"] = (
+        time_ms(lambda: mc.finalize_umoments_cuda(part_u, s_u5, ORDER, GRID_B), 10),
+        time_ms(lambda: mc.finalize_umoments_plain(part_u, s_u5, ORDER, GRID_B), 10),
+    )
     say(
         18,
         card=card,
@@ -1026,6 +1086,8 @@ def main() -> int:
         atol_K2=1e-5,
         head_shift_ms=times["head_shift"],
         finalize_ms=times["finalize"],
+        finalize_u_ms=times["finalize_u"],
+        finalize_u_partials=list(part_u.shape),
         finalize_partials=list(part_q.shape),
     )
 
@@ -1063,7 +1125,8 @@ def main() -> int:
         "K2": bound(f4 * nrep2 * r2q + f4 * r2q * 2, fmas=nrep2 * r2q * 2 * n1),
         "K3": bound(f4 * R_MAIN * 2, fmas=NREP_MAIN * R_MAIN * 2 * n1, draws=NREP_MAIN * R_MAIN),
         "K4": bound(f4 * GRID_B * GRID_R, fmas=GRID_B * GRID_R * n1),
-        "K5": bound(f4 * GRID_B * GRID_R, fmas=NREP_MAIN * GRID_B * GRID_R * n1, draws=NREP_MAIN * GRID_R),
+        # on the tensor cores: each count times three bf16 terms of each row
+        "K5": bound(f4 * GRID_B * GRID_R, tc_fmas=ROW_TERMS * NREP_MAIN * GRID_B * GRID_R * n1, draws=NREP_MAIN * GRID_R),
         "K6": bound(f4 * 10_000_000 * 2, fmas=10_000_000 * 2 * n1),
         "K7": bound(
             1.0 * NREP_PERTURB * R_PERTURB + f4 * R_PERTURB * (na + vp) + f4 * na * NREP_PERTURB * (vp + 1),
@@ -1078,7 +1141,11 @@ def main() -> int:
         "head_shift": bound(f4 * min(mc.HEAD_N, r2q) * 2 + f4 * 2),
         # the chunk partials in, the five outputs out
         "finalize": bound(f4 * part_q.numel() + f4 * nrep2 * (3 + 2 * n1)),
+        # K5's chunk partials in, uave, du and wsum out
+        "finalize_u": bound(f4 * part_u.numel() + f4 * NREP_MAIN * GRID_B * (n1 + 2)),
     }
+    k5_fma_bound = bound(f4 * GRID_B * GRID_R, fmas=NREP_MAIN * GRID_B * GRID_R * n1, draws=NREP_MAIN * GRID_R)
+    k1_v2_bound = bound(f4 * R_MAIN * 3, fmas=R_MAIN * 3 * 2)
     k2_big_bound = bound(f4 * nrep2 * r2 + f4 * r2 * 2, fmas=nrep2 * r2 * 2 * n1)
 
     # kernel: (source, TPU kernel it replaces, the path whose count is its `launches`)
@@ -1094,6 +1161,8 @@ def main() -> int:
         # helpers of the K2 / K3 wrapper; the reference leaves these two steps to XLA
         "head_shift": ("finalize.cu", "thermoextrap_tpu/ops/moments_pallas.py:112", "main"),
         "finalize": ("finalize.cu", "thermoextrap_tpu/ops/moments_pallas.py:810", "main"),
+        # helper of the K5 wrapper: the epilogue of :1292, left to XLA by the reference
+        "finalize_u": ("finalize.cu", "thermoextrap_tpu/ops/moments_pallas.py:1292", "u_f32"),
     }
     kernels = [
         {
@@ -1115,6 +1184,18 @@ def main() -> int:
     for k in kernels:
         if k["name"] in ("K3", "K5", "K8"):
             k["draw_instructions_per_count"] = draw["draw_instructions_per_count"]
+    k5 = next(k for k in kernels if k["name"] == "K5")
+    k5["shape"] = "(64, 1e6) order 6 nrep=256, tensor cores"
+    k5["bound_f32_fma_ms"] = k5_fma_bound[0]  # the same sums as float32 FMAs on the CUDA cores
+    # K1 once more at V = 2 (the volume path): one pass over u for both columns
+    next(k for k in kernels if k["name"] == "K1")["also"] = {
+        "shape": extra["K1_V2"][0],
+        "ms": extra["K1_V2"][1],
+        "plain_ms": extra["K1_V2"][2],
+        "bound_ms": k1_v2_bound[0],
+        "bound_by": k1_v2_bound[1],
+        "library_ms": None,
+    }
     # K2 once more at R = 1e7, where the table's bytes bound it
     next(k for k in kernels if k["name"] == "K2")["also"] = {
         "shape": extra["K2"][0],

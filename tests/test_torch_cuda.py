@@ -653,3 +653,119 @@ def test_k5_ragged_shapes(rng, cuda_device, nbatch, r, nrep, order):
     consume = mc.resample_umoments_table_cuda(uc, table.to(cuda_device), order, return_wsum=True)
     assert all(torch.equal(a, b) for a, b in zip(k5, consume))
     assert_close(consume, mc.resample_umoments_plain(tt(u), None, table, order), RTOL32, ATOL32)
+
+
+# -- K1 / K6: one 16-byte pass over all value columns, three launches; K5 on tensor cores --------
+
+
+@pytest.mark.parametrize(
+    ("v", "dtype", "offset", "r"),
+    [
+        (1, torch.float32, 0, 1_000_003),
+        (2, torch.float32, 1, 200_001),  # unaligned view: rows start off a 16-byte boundary
+        (5, torch.float32, 0, 100_003),  # past the 4 columns kept in registers
+        (1, torch.bfloat16, 3, 300_007),
+        (2, torch.bfloat16, 0, 1_000_000),
+    ],
+)
+def test_k1_single_pass_columns_and_alignment(rng, cuda_device, v, dtype, offset, r):
+    """K1 on V = 1, 2, 5 columns, float32 and bfloat16 streams, aligned and
+    unaligned views, weighted, against its float64 plain version on the same
+    (quantized) values."""
+    u, x = _samples(rng, r + offset, v)
+    uc = tt(u).to(dtype).to(cuda_device)[offset:]
+    xc = tt(x).to(dtype).to(cuda_device)[offset:]
+    wc = _f32(rng.uniform(0.5, 1.5, r), cuda_device)
+    ref = mc.reduce_central_comoments_fused(uc.double().cpu(), xc.double().cpu(), 6, wc.double().cpu())
+    mc.reset_launches()
+    got = mc.reduce_central_comoments_fused(uc, xc, 6, wc)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["K1"] == mc.LAUNCHES["head_shift"] == mc.LAUNCHES["finalize"] == 1
+    assert_close(got, ref, RTOL32, 2e-5 if dtype == torch.bfloat16 else ATOL32)
+
+
+def test_k1_k6_wrapper_is_three_launches(rng, cuda_device, monkeypatch):
+    """Each K1 / K6 call launches the head shift, the reduction and the
+    finalize kernel once, and reaches no plain version on CUDA tensors."""
+    u, x = _samples(rng, 40_000, 1, (3,))
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version was called on a CUDA tensor")
+
+    for name in ("_head_shift", "_shifted_epilogue", "finalize_comoments_plain", "reduce_comoments_plain"):
+        monkeypatch.setattr(mc, name, refuse)
+    mc.reset_launches()
+    mc.reduce_central_comoments_fused(uc[0], xc[0], 6)
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 1, "head_shift": 1, "finalize": 1}
+    out = mc.reduce_central_comoments_batched(uc, xc, 6)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 1, "K6": 1, "head_shift": 2, "finalize": 2}
+    assert [tuple(t.shape) for t in out] == [(3, 1), (3,), (7, 3), (7, 3, 1)]
+
+
+def test_mma_probe_matches_float64(cuda_device):
+    """The tensor cores' mma.sync through tx_mma_bf16_16816's fragment
+    layout: products of bf16 values are exact, so a float64 matmul of the
+    same values agrees to float32 roundoff of the sums."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    a = torch.randn((16, 16), generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn((16, 8), generator=gen, device=cuda_device).bfloat16()
+    c = torch.randn((16, 8), generator=gen, device=cuda_device)
+    assert_close(mc.mma_probe_cuda(a, b, c), a.double() @ b.double() + c.double(), 1e-6, 1e-6)
+    small = torch.randint(0, 9, (16, 16), generator=gen, device=cuda_device).bfloat16()
+    ident = torch.eye(16, device=cuda_device)[:, :8].bfloat16()
+    assert torch.equal(mc.mma_probe_cuda(small, ident, torch.zeros(16, 8, device=cuda_device)), small[:, :8].float())
+
+
+@pytest.mark.parametrize(("nbatch", "order"), [(4, 6), (64, 6), (64, 7)])  # 28, 448 and 512 rows
+def test_k5_tensor_cores_draws_tables_and_large_counts(rng, cuda_device, nbatch, order):
+    """K5 past 16 rows runs on the tensor cores: its draws equal its consume
+    of the same table bit for bit, both match the float64 plain version, and
+    a table with counts past 256 (a bf16 digit) and a negative one does too."""
+    r, nrep = 50_003, 40
+    assert mc._k5_on_tensor_cores(nbatch * (order + 1), order)
+    u = _grid_samples(rng, nbatch, r)
+    uc = _f32(u, cuda_device)
+    table = mc._poisson_counts(17, nrep, r)
+    k5 = mc.resample_central_umoments_batched_poisson(uc, nrep, order, seed=17, return_wsum=True)
+    consume = mc.resample_umoments_table_cuda(uc, table.to(cuda_device), order, return_wsum=True)
+    assert all(torch.equal(a, b) for a, b in zip(k5, consume))
+    assert_close(consume, mc.resample_umoments_plain(tt(u), None, table, order), RTOL32, ATOL32)
+    big = table.clone()
+    big[0] += 300
+    big[1] *= 70_001
+    big[2] += 1
+    big[2, 5] = -1
+    got = mc.resample_umoments_table_cuda(uc, big.to(cuda_device), order, return_wsum=True)
+    assert_close(got, mc.resample_umoments_plain(tt(u), None, big, order), RTOL32, ATOL32)
+
+
+def test_k5_wrapper_is_two_launches(rng, cuda_device, monkeypatch):
+    """A K5 call launches the bootstrap kernel and its finalize kernel once,
+    and reaches no plain epilogue on CUDA tensors."""
+    uc = _f32(_grid_samples(rng, 8, 30_000), cuda_device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version was called on a CUDA tensor")
+
+    for name in ("_u_epilogue", "finalize_umoments_plain"):
+        monkeypatch.setattr(mc, name, refuse)
+    mc.reset_launches()
+    out = mc.resample_central_umoments_batched_poisson(uc, 64, 6, seed=2, return_wsum=True)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K5": 1, "finalize_u": 1}
+    assert [tuple(t.shape) for t in out] == [(64, 8), (7, 64, 8), (64, 8)]
+
+
+def test_finalize_umoments_kernel_matches_plain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    nchunk, nrep, nbatch, order = 66, 9, 64, 6
+    part = torch.rand((nchunk, nrep, nbatch * (order + 1)), generator=gen, device=cuda_device) - 0.3
+    part.view(nchunk, nrep, nbatch, order + 1)[..., 0] += 0.8
+    part[:, 3] = 0.0
+    s_u = torch.rand(nbatch, generator=gen, device=cuda_device) + 4.0
+    got = mc.finalize_umoments_cuda(part, s_u, order, nbatch)
+    ref = mc.finalize_umoments_plain(part, s_u, order, nbatch)
+    assert _rel_err(got, ref) <= 1e-6
+    assert torch.equal(got[0][3], s_u) and float(got[2][3].abs().max()) == 0.0

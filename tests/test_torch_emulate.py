@@ -19,7 +19,16 @@ pipelining to its plain torch version where there is no GPU:
 - the in-kernel draw: its counts equal to their plain reproduction bit for
   bit, and its word -> count map (the level lookup of csrc/philox.cuh) equal
   to the 9-compare sum at every threshold +-2, at every level's first and last
-  word and at 2^16 random words.
+  word and at 2^16 random words;
+- K1 / K6 through the batched head shift, the 16-byte reduction kernel and the
+  finalize kernel with a shift row per batch row: R no multiple of 4 or 8, an
+  unaligned view, V = 1, 2, 5, bfloat16, weights and a zero-weight head,
+  against the plain version and against the JAX package; the head shift and
+  the strided finalize alone;
+- K5 past 16 rows on the tensor cores (28 and 448 rows), draws equal to the
+  table consume bit for bit, counts past one bf16 digit, against the plain
+  version and the JAX table bootstrap; its finalize kernel; the mma.sync
+  stand-in of the emulator against a float64 matmul.
 
 Tolerances: float32 kernels against float64 plain versions at the bars of
 tests/test_torch_cuda.py (rtol 2e-3 / atol 1e-5 for the moment kernels,
@@ -220,3 +229,169 @@ def test_finalize_and_head_shift_emulated_match_plain(kernels, rng, v, order, nc
     assert_close(mc.head_shift_cuda(u, x, w), torch.cat([s_u, s_x[0]]), 1e-6)
     w[: mc.HEAD_N] = 0.0
     assert torch.equal(mc.head_shift_cuda(u, x, w), torch.zeros(v + 1))
+
+
+# -- K1 / K6: the 16-byte reduction between the batched head shift and the strided finalize --
+
+
+@pytest.mark.parametrize(
+    ("nbatch", "r", "v", "weighted", "dtype", "offset"),
+    [
+        (1, 4099, 1, False, torch.float32, 0),  # R no multiple of 4: a scalar tail
+        (2, 3001, 2, True, torch.float32, 1),  # an unaligned view: scalar heads, rows of mixed alignment
+        (3, 1003, 5, True, torch.float32, 0),  # V past the register tile: tiles of 4 columns
+        (1, 2051, 1, False, torch.bfloat16, 3),  # bf16: 8 samples a load, unaligned, ragged
+        (2, 9001, 2, True, torch.bfloat16, 0),  # batch row 1 has a zero-weight head
+    ],
+)
+def test_k1_k6_emulated_three_launches_match_plain(kernels, rng, nbatch, r, v, weighted, dtype, offset):
+    # a zero-weight head gives shift 0, so that row's mean is kept near 0:
+    # float32 power sums about a shift far from the mean (u ~ 5, order 6)
+    # lose the digits the bar asks for, in any float32 reduction
+    mean = 0.3 if weighted and nbatch > 1 else 5.0
+    u = _f32(rng.normal(mean, 1.0, nbatch * r + offset))[offset:].view(nbatch, r).to(dtype)
+    x = _f32(rng.normal(2.0, 0.5, nbatch * r * v + offset))[offset:].view(nbatch, r, v).to(dtype)
+    w = _f32(rng.uniform(0.5, 1.5, (nbatch, r))) if weighted else None
+    if weighted and nbatch > 1:
+        w[1, : mc.HEAD_N] = 0.0
+    mc.reset_launches()
+    out = mc._reduce_cuda(u, x, w, 6)
+    assert {k: c for k, c in mc.LAUNCHES.items() if c} == {"head_shift": 1, "finalize": 1}
+    assert [tuple(t.shape) for t in out] == [(nbatch, v), (nbatch,), (7, nbatch), (7, nbatch, v), (nbatch,)]
+    ref = mc.reduce_comoments_plain(u.double(), x.double(), None if w is None else w.double(), 6)
+    assert all(t.dtype == torch.float32 for t in out)
+    assert_close(out, ref, RTOL32, 2e-5 if dtype == torch.bfloat16 else ATOL32)
+
+
+@pytest.mark.parametrize(("r", "v", "weighted"), [(5003, 1, False), (2001, 3, True)])
+def test_k1_emulated_matches_jax(kernels, rng, r, v, weighted):
+    """The K1 kernel on the CPU against the JAX package's float64 reduction,
+    at the float32 bar."""
+    from thermoextrap_tpu.ops import moments as jm
+
+    u, x = rng.normal(5.0, 1.0, r), rng.normal(2.0, 0.5, (r, v))
+    w = rng.uniform(0.5, 1.5, r) if weighted else None
+    u32, x32 = _f32(u), _f32(x)
+    w32 = None if w is None else _f32(w)
+    xave, uave, du, dxdu, _ = mc._reduce_cuda(u32[None], x32[None], None if w is None else w32[None], 6)
+    ref = jm.reduce_central_comoments(np.asarray(u32.double()), np.asarray(x32.double()), 6, weight=None if w is None else np.asarray(w32.double()))
+    assert_close((xave[0], uave[0], du[:, 0], dxdu[:, 0]), ref, RTOL32, ATOL32)
+
+
+def test_batched_head_shift_and_strided_finalize_emulated(kernels, rng):
+    """The head shift of each batch row against _head_shift (a zero-weight
+    head gives 0); the finalize kernel with a shift row per batch row against
+    its plain version and _shifted_epilogue; one shared shift (stride 0, K2 /
+    K3) gives the bits of the same shift repeated on every row."""
+    nbatch, r, v, order, nchunk = 3, 9000, 2, 6, 7
+    u = _f32(rng.normal(5.0, 1.0, (nbatch, r)))
+    x = _f32(rng.normal(2.0, 0.5, (nbatch, r, v)))
+    w = _f32(rng.uniform(0.5, 1.5, (nbatch, r)))
+    w[2, : mc.HEAD_N] = 0.0
+    shift = mc.head_shift_cuda(u, x, w)
+    s_u, s_x = mc._head_shift(u, w, x)
+    assert shift.shape == (nbatch, v + 1)
+    assert_close(shift, torch.cat([s_u[:, None], s_x], 1), 1e-6)
+    assert torch.equal(shift[2], torch.zeros(v + 1))
+    part = _f32(rng.uniform(-0.3, 0.7, (nchunk, nbatch, (v + 1) * (order + 1))))
+    part[:, :, 0] = part[:, :, 0].abs() + 0.5
+    part[:, 1] = 0.0  # a row of zero weight
+    got = mc.finalize_comoments_cuda(part, shift, order, v)
+    ref = mc.finalize_comoments_plain(part, shift[:, 0], shift[:, 1:], order, v)
+    assert_close(got, ref, 1e-6, 1e-30)
+    sums = part.double().sum(0)
+    composed = mc._shifted_epilogue(
+        sums[:, : order + 1].T, sums[:, order + 1 :].reshape(nbatch, v, order + 1).permute(2, 0, 1), shift[:, 0].double(), shift[:, 1:].double()
+    )
+    assert_close(got, composed, 1e-6, 1e-30)
+    one = shift[0].clone()
+    shared = mc.finalize_comoments_cuda(part, one, order, v)
+    rows = mc.finalize_comoments_cuda(part, one.expand(nbatch, v + 1).contiguous(), order, v)
+    assert all(torch.equal(a, b) for a, b in zip(shared, rows))
+
+
+# -- K5 on the tensor cores: counts as exact bf16, rows as three bf16 terms ------------------
+
+
+def test_mma_stand_in_matches_float64_matmul(kernels):
+    """The warp-collective stand-in of mma.sync m16n8k16 (csrc/emulate) and
+    the fragment layout of tx_mma_bf16_16816 against a float64 matmul of the
+    same bf16 values."""
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn((16, 16), generator=gen).bfloat16()
+    b = torch.randn((16, 8), generator=gen).bfloat16()
+    c = torch.randn((16, 8), generator=gen)
+    d = mc.mma_probe_cuda(a, b, c)
+    assert d.shape == (16, 8) and d.dtype == torch.float32
+    assert_close(d, a.double() @ b.double() + c.double(), 1e-6, 1e-6)
+    ident = torch.eye(16)[:, :8].bfloat16()
+    assert torch.equal(mc.mma_probe_cuda(a, ident, torch.zeros(16, 8)), a[:, :8].float())
+
+
+@pytest.mark.parametrize(
+    ("nbatch", "r", "order", "nrep", "weighted", "dtype"),
+    [
+        (4, 70, 6, 9, True, torch.float32),  # 28 rows: part of one block's 224
+        (64, 40, 6, 5, False, torch.float32),  # the lnPi grid's 448 rows: two row blocks
+        (64, 33, 6, 130, True, torch.bfloat16),  # two replicate blocks, a ragged tile
+    ],
+)
+def test_k5_tensor_core_path_draws_equal_table_and_match_plain(kernels, rng, nbatch, r, order, nrep, weighted, dtype):
+    assert mc._k5_on_tensor_cores(nbatch * (order + 1), order)
+    u = _f32(rng.normal(5.0, 1.0, (nbatch, r))).to(dtype)
+    w = _f32(rng.uniform(0.5, 1.5, (nbatch, r))) if weighted else None
+    wd = None if w is None else w.double()
+    table = mc._poisson_counts(21, nrep, r)
+    mc.reset_launches()
+    k5 = mc._resample_u_cuda(u, w, nrep, order, seed=21)
+    assert {k: c for k, c in mc.LAUNCHES.items() if c} == {"finalize_u": 1}
+    consume = mc._resample_u_cuda(u, w, nrep, order, freq=table)
+    assert all(torch.equal(a, b) for a, b in zip(k5, consume))
+    atol = 2e-5 if dtype == torch.bfloat16 else ATOL32
+    assert_close(k5, mc.resample_umoments_plain(u.double(), wd, table, order), RTOL32, atol)
+    # counts past one bf16 digit (and a negative one) take the digit passes;
+    # each replicate's weights stay spread over its samples
+    big = table.clone()
+    big[0] += 300
+    big[1 % nrep] *= 70_001
+    big[2 % nrep] += 1
+    big[2 % nrep, 5] = -1
+    got = mc._resample_u_cuda(u, w, nrep, order, freq=big)
+    assert_close(got, mc.resample_umoments_plain(u.double(), wd, big, order), RTOL32, atol)
+
+
+def test_k5_tensor_core_path_matches_jax_table_bootstrap(kernels, rng):
+    """K5's kernel consuming an index bootstrap's count table against the JAX
+    package's table bootstrap of the same float32 values."""
+    from thermoextrap_tpu.ops import resample as jresample
+
+    order, nbatch, r, nrep = 5, 5, 300, 7
+    u = _f32(np.linspace(-1.0, 1.0, nbatch)[:, None] + rng.normal(5.0, 1.0, (nbatch, r)))
+    freq = np.asarray(jresample.freq_from_indices(rng.integers(0, r, (nrep, r)), r))
+    uave, du, _ = mc._resample_u_cuda(u, None, nrep, order, freq=tt(freq))
+    ju, jdu = jresample.resample_central_umoments_batched(np.asarray(u.double()), freq, order)
+    assert_close((uave, du), (ju, jdu), RTOL32, ATOL32)
+
+
+@pytest.mark.parametrize(
+    ("nchunk", "nrep", "nbatch", "order"),
+    [(5, 6, 3, 6), (1, 2, 64, 7), (40, 3, 2, 15), (3, 64, 257, 2)],  # the last: 2 lanes a pair, not 32
+)
+def test_finalize_umoments_emulated_matches_plain(kernels, rng, nchunk, nrep, nbatch, order):
+    """K5's finalize kernel against the composition it replaced (float64
+    chunk sum, _u_epilogue, float32 cast); a replicate of zero weight takes
+    the finite convention (uave = the shift, central moments 0)."""
+    part = _f32(rng.uniform(-0.3, 0.7, (nchunk, nrep, nbatch * (order + 1))))
+    part.view(nchunk, nrep, nbatch, order + 1)[..., 0] = part.view(nchunk, nrep, nbatch, order + 1)[..., 0].abs() + 0.5
+    part[:, 1] = 0.0
+    s_u = _f32(rng.normal(size=nbatch))
+    mc.reset_launches()
+    got = mc.finalize_umoments_cuda(part, s_u, order, nbatch)
+    assert mc.LAUNCHES["finalize_u"] == 1
+    sums = part.double().sum(0).reshape(nrep, nbatch, order + 1).permute(2, 0, 1)
+    composed = tuple(t.float() for t in mc._u_epilogue(sums, s_u.double()))
+    assert all(a.shape == b.shape and a.dtype == torch.float32 for a, b in zip(got, composed))
+    assert_close(got, composed, 1e-6, 1e-30)
+    assert_close(got, mc.finalize_umoments_plain(part, s_u, order, nbatch), 1e-6, 1e-30)
+    assert torch.equal(got[0][1], s_u) and float(got[2][1].abs().max()) == 0.0
+    assert bool((got[1][2:, 1] == 0).all()) and bool((got[1][0] == 1).all()) and bool((got[1][1] == 0).all())

@@ -147,7 +147,7 @@ def test_rows_launch_shape_is_one_the_kernel_takes(m, nrep, r, target):
     [
         (10, 128, 10_000_000, (1, 32, 256)),  # the perturbation call: few rows, 128 replicates a block
         (8, 256, 100_000_000, (1, 32, 256)),  # <u>: one row at order 7
-        (448, 256, 1_000_000, (32, 8, 32)),  # the lnPi grid: all 448 rows in one block
+        (448, 256, 1_000_000, (32, 8, 32)),  # 448 rows on the CUDA cores (K5 takes the tensor cores)
         (513, 37, 100_003, (32, 8, 32)),  # two row tiles
         (17, 5, 90, (2, 4, 32)),
         (1, 1, 1, (1, 8, 256)),
@@ -186,3 +186,37 @@ def test_k2_chunks_are_whole_tiles(r, nrep, m):
     tile = mc._FEW_TILE if m <= mc._URS_CB else mc._URS_TILE
     assert chunk % tile == 0 and (nchunk - 1) * chunk < r <= nchunk * chunk
     assert mc._rows_shape_ok(m, r, nrep, nchunk, chunk, nr, npt)
+
+
+def test_bf16_three_term_split_carries_float32():
+    """The rows of K5's tensor-core kernel as three bf16 terms (split_bf16x3,
+    the plain version of tx_split_bf16x3): b0 + b1 + b2 gives every float32
+    value to 2^-24 relative over exponents -90 .. 90, the terms shrink by
+    2^8 each, and small integers (the counts) are exact in b0 alone."""
+    gen = torch.Generator().manual_seed(11)
+    v = torch.randn(200_000, generator=gen) * torch.exp2(torch.randint(-90, 91, (200_000,), generator=gen).float())
+    v = v[v != 0]
+    b0, b1, b2 = mc.split_bf16x3(v)
+    assert all(b.dtype == torch.bfloat16 for b in (b0, b1, b2))
+    total = b0.double() + b1.double() + b2.double()
+    assert float(((total - v.double()).abs() / v.double().abs()).max()) <= 2.0**-24
+    big = b1 != 0
+    assert bool((b1[big].double().abs() <= b0[big].double().abs() * 2.0**-8).all())
+    counts = torch.arange(0, 257, dtype=torch.float32)
+    c0, c1, c2 = mc.split_bf16x3(counts)
+    assert torch.equal(c0.float(), counts) and not bool(c1.any()) and not bool(c2.any())
+
+
+@settings(max_examples=200, deadline=None)
+@given(nbatch=st.integers(1, 300), order=st.integers(1, 15), nrep=st.integers(1, 5000), r=st.integers(1, 10**9))
+def test_mma_launch_covers_the_samples_in_whole_tiles(nbatch, order, nrep, r):
+    """K5 past 16 rows takes the tensor-core kernel's launch shape: chunks of
+    whole 32-sample tiles that cover the samples, none empty, about the
+    target number of blocks of 128 replicates x 224 rows."""
+    m = nbatch * (order + 1)
+    nchunk, chunk = mc._mma_launch(m, nrep, r, mc._TARGET_BLOCKS // 4)
+    assert chunk % mc._MMA_S == 0 and (nchunk - 1) * chunk < r <= nchunk * chunk
+    blocks = nchunk * math.ceil(nrep / mc._MMA_REPS) * math.ceil(m / mc._MMA_ROWS)
+    assert blocks < 2**31
+    assert mc._k5_on_tensor_cores(m, order) == (m > mc._URS_CB)
+    assert not mc._k5_on_tensor_cores(40, 0)  # order 0 stays on the CUDA cores

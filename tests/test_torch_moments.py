@@ -173,6 +173,7 @@ def test_cpu_path_launches_no_kernel(rng):
         **{f"K{i}": 0 for i in range(1, 9)},
         "head_shift": 0,
         "finalize": 0,
+        "finalize_u": 0,
     }
 
 

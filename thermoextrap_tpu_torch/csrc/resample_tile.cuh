@@ -1,5 +1,6 @@
-// The bootstrap contraction shared by K2/K3, K5 and K7/K8, in two kernels
-// that the launcher chooses between by the number of contribution rows:
+// The bootstrap contraction shared by K2/K3, K5 and K7/K8, in three kernels
+// that the launchers choose between by the number of contribution rows and
+// the count source:
 //
 //   part[chunk, r, c] = sum_{j in chunk} count(r, j) row_c(j)
 //
@@ -8,8 +9,25 @@
 // e_a [x | 1] per target) and a `Counts` source of philox.cuh (the
 // in-kernel Poisson draw or a materialized table).
 // The caller sums the chunk partials in float64 (deterministic, no atomics).
-// Within either kernel both count sources take the same path through the
+// Within each kernel both count sources take the same path through the
 // sums, so a draw and its materialized table give the same bits.
+//
+// Which kernel takes which call (the launchers of the three .cu files route
+// by it, and the C entry points check the launch shape of the route taken):
+//
+//   caller   rows m             count sources                 kernel
+//   K2/K3    m <= 16            draw; int8/16/32, f32, bf16   few rows
+//   K2/K3    m > 16             draw; int32, f32 tables       many rows (FFMA);
+//                                                             the wrapper widens
+//                                                             int8/16 and bf16
+//   K5       m <= 16            draw; int32 table             few rows
+//   K5       m > 16, order >= 1 draw; int32 table             tensor cores
+//   K5       m > 16, order 0    draw; int32 table             many rows (FFMA)
+//   K7/K8    m <= 16            draw; every table type        few rows
+//   K7/K8    m > 16             draw; every table type        many rows (FFMA)
+//
+// The tensor-core kernel takes only integer counts (MmaCounts below has no
+// other source); fractional float32 tables stay on the FFMA kernels.
 //
 // Few rows (m <= 16: K3 on the main path's 14 rows and the volume path's 6,
 // K2 at the quick start's 14, K7 and K8 at the serving shape, K5 on one
@@ -35,20 +53,22 @@
 // than overlap, and the loop runs at about half the SM's instruction rate
 // (PERF.md).
 //
-// Many rows (K5 on a macrostate grid, K7/K8 with many targets or value
-// columns): resample_rows_kernel.  A kernel that tiles rows across blocks
+// Many rows on the CUDA cores (K2/K3 past 16 rows, K5 at order 0, K7/K8 with
+// many targets or value columns): resample_rows_kernel.  A kernel that tiles rows across blocks
 // would redraw every count once per row tile (K3's 16-row tiles would draw
 // each count 28 times on a 448-row grid).  Here a block owns a tile of up to
 // 512 contribution rows and up to 128 replicates; for each tile of
 // TX_URS_TILE samples it draws every count of its replicates ONCE into shared
 // memory and builds every contribution row once, then each thread accumulates
-// a 4-replicate x 16-row outer product in f32 FMAs (no tensor cores, no TF32:
-// the sums must hold f32 accuracy).  The 256 threads split as nr row-threads
-// x np replicate-threads x sl sample lanes (sl divides 32; the lanes are
-// summed with shuffles at the end), so a 448-row grid takes one row tile
-// (each count drawn once per replicate block).  Bound on the H100: the f32
-// FMAs, one per count and row; on the card the kernel is held back by the
-// instructions around them (building the rows, shared loads), see PERF.md.
+// a 4-replicate x 16-row outer product in f32 FMAs (no TF32: the sums must
+// hold f32 accuracy; fractional table counts are not exact in bf16).  The
+// 256 threads split as nr row-threads x np replicate-threads x sl sample lanes
+// (sl divides 32; the lanes are summed with shuffles at the end), so a
+// 448-row tile is one block (each count drawn once per replicate block).
+// Bound on the H100: the f32 FMAs, one per count and row; on the card the
+// kernel is held back by the instructions around them (building the rows,
+// shared loads): K5 at the lnPi grid took 12.4 ms here against 3.42 ms of
+// FMAs, which is why K5 past 16 rows moved to the tensor cores (PERF.md).
 #pragma once
 
 #include "philox.cuh"
@@ -301,6 +321,330 @@ resample_fewrows_kernel(Rows rows, Counts counts, float* __restrict__ part, long
       if (s == 0 && r[a] < nrep && k < m) part[(bx * nrep + r[a]) * m + k] = v;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernel: many rows, integer counts (K5 on a macrostate grid)
+// ---------------------------------------------------------------------------
+//
+// part[chunk, r, c] = sum_j count(r, j) row_c(j) as bf16 products on the
+// tensor cores (mma.sync m16n8k16, float32 sums; tx_mma_bf16_16816):
+//   - A = counts (replicates x samples).  A count below 256 is exact in bf16.
+//     A table's count is its sign times the digits d_k of 8 bits of its
+//     magnitude, A_k = bf16(+-d_k 256^k), each exact and all of one sign (no
+//     two digit products cancel); the digits past the first are multiplied in only for a
+//     tile where some count has them (__syncthreads_or), so a draw and its
+//     table take the same path whenever the table holds draws.  No count is
+//     ever rounded.
+//   - B = rows (samples x rows) as three bf16 terms, b0 + b1 + b2 = the
+//     float32 row to ~24 bits (tx_split_bf16x3): every product count x term
+//     is exact in float32, and the three terms of a sample tile (6 mma.sync)
+//     add into a float32 temporary that joins the thread's float32 sum by one
+//     FADD, so the tensor cores' own rounding of a running sum never acts on
+//     more than one tile.
+//   - The K order of a 16-sample step is permuted so that lane (g, t) holds
+//     samples 4t .. 4t+3 (slots 2t, 2t+1, 2t+8, 2t+9): one Philox call (or
+//     one 16-byte table load) fills a replicate's half of its A fragment,
+//     and its B fragment is 8 contiguous bytes of a row in shared memory.
+// A block is 8 warps over TX_MMA_REPS = 128 replicates x TX_MMA_ROWS = 224
+// rows, a warp 64 x 56 (4 x 7 tiles of 16 x 8: 112 float32 sums a thread).
+// For each sample tile of TX_MMA_S = 32 samples it draws (or loads) each of
+// its counts once into shared memory, already in fragment order, and builds
+// each of its rows once, as three bf16 planes; N tiles from the block's last
+// row on are skipped by a warp-uniform guard (448 rows are 28 of them, no
+// padding).  At the lnPi grid (448 rows, 256 replicates) a count is drawn
+// twice and a row built twice.  The pipeline: the sample values of tile t + 2
+// go into shared memory by cp.async while tile t is consumed; in the same
+// pass the rows and the counts of tile t + 1 are built into the other
+// buffer; one barrier a tile.
+//
+// Rows::MmaFiller (built by rows.mma_block(c0, c_end)) gives the rows:
+// stage(raw, t0, j_end) issues the copies of the sample values of
+// [t0, t0 + TX_MMA_S) into `raw` (zeros from j_end on), build(raw, planes,
+// t0, j_end) writes planes[k][(c - c0) TX_MMA_RS + i] = term k of
+// row_c(t0 + i), zero from j_end on, every thread of the block taking part.
+
+#define TX_MMA_REPS 128
+#define TX_MMA_ROWS 224
+#define TX_MMA_S 32                      // samples of a tile: two k-steps of 16
+#define TX_MMA_RS 48                     // bf16 between two rows of a plane (spreads the banks)
+#define TX_MMA_PLANE (TX_MMA_ROWS * TX_MMA_RS)
+#define TX_MMA_ROW_BYTES (3 * TX_MMA_PLANE * 2)
+#define TX_MMA_CNT_BYTES ((TX_MMA_REPS / 16) * (TX_MMA_S / 16) * 32 * 16)
+#define TX_MMA_MT 4                      // 16-replicate tiles of a warp
+#define TX_MMA_NT 7                      // 8-row tiles of a warp
+
+// the counts of replicate r for samples j .. j+3 as float32 values below 256
+// (a table's first digit); true where a table's count has more digits
+template <typename Counts>
+struct MmaCounts;
+template <>
+struct MmaCounts<PoissonCounts> {
+  static constexpr bool kDigits = false;
+  static __device__ __forceinline__ bool low4(const PoissonCounts& c, int r, int, long long j,
+                                              float (&f)[4]) {
+    c.load4(r, j, f);  // at most 9
+    return false;
+  }
+};
+template <>
+struct MmaCounts<TableCounts<int32_t>> {
+  static constexpr bool kDigits = true;
+  static __device__ __forceinline__ uint4 raw(const TableCounts<int32_t>& c, int r, int nrep,
+                                              long long j) {
+    return (r < nrep) ? c.fetch(r, j) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  // |count| and its sign: the digits of a count all carry its sign, so
+  // that no two digit products cancel in the float32 sums
+  static __device__ __forceinline__ uint32_t magnitude(uint32_t w) {
+    return ((int32_t)w < 0) ? 0u - w : w;
+  }
+  static __device__ __forceinline__ float sign(uint32_t w) { return ((int32_t)w < 0) ? -1.f : 1.f; }
+  static __device__ __forceinline__ bool low4(const TableCounts<int32_t>& c, int r, int nrep,
+                                              long long j, float (&f)[4]) {
+    const uint4 v = raw(c, r, nrep, j);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    bool hi = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t mag = magnitude(w[q]);
+      f[q] = sign(w[q]) * (float)(mag & 255u);
+      hi |= (mag >> 8) != 0u;
+    }
+    return hi;
+  }
+  // digit k (1..3) of each count's magnitude times 256^k, with the count's
+  // sign: exact in bf16
+  static __device__ __forceinline__ void digit4(const uint4& v, int k, float (&f)[4]) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      f[q] = sign(w[q]) * (float)((magnitude(w[q]) >> (8 * k)) & 255u) * (float)(1u << (8 * k));
+    }
+  }
+};
+
+// the A fragment of replicates (g, g + 8) at samples 4t .. 4t+3 (permuted
+// k order): fa the counts of replicate g, fb those of g + 8
+__device__ __forceinline__ uint4 mma_a_frag(const float (&fa)[4], const float (&fb)[4]) {
+  return make_uint4(tx_pack_bf16x2(fa[0], fa[1]), tx_pack_bf16x2(fb[0], fb[1]),
+                    tx_pack_bf16x2(fa[2], fa[3]), tx_pack_bf16x2(fb[2], fb[3]));
+}
+
+// acc[mt][nt] += A[ks][mt] x (the three terms of N tile nt), one temporary
+// per 16 x 8 tile over the k-steps given; N tiles from c_live on are skipped
+template <int KS>
+__device__ __forceinline__ void mma_tiles(float (&acc)[TX_MMA_MT][TX_MMA_NT][4],
+                                          const uint4 (&af)[KS][TX_MMA_MT],
+                                          const uint16_t* planes, int nl0, int c_live, int ks0,
+                                          int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < TX_MMA_NT; ++nt) {
+    const int nl = nl0 + 8 * nt;
+    if (nl < c_live) {  // the same for every lane of the warp
+      float tmp[TX_MMA_MT][4];
+#pragma unroll
+      for (int mt = 0; mt < TX_MMA_MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[mt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t bt[3][2];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const uint2 v = *reinterpret_cast<const uint2*>(
+              planes + k * TX_MMA_PLANE + (nl + g) * TX_MMA_RS + 16 * (ks0 + ks) + 4 * t);
+          bt[k][0] = v.x;
+          bt[k][1] = v.y;
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int mt = 0; mt < TX_MMA_MT; ++mt) {
+            const uint32_t a[4] = {af[ks][mt].x, af[ks][mt].y, af[ks][mt].z, af[ks][mt].w};
+            tx_mma_bf16_16816(tmp[mt], a, bt[k], tmp[mt]);
+          }
+      }
+#pragma unroll
+      for (int mt = 0; mt < TX_MMA_MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += tmp[mt][e];
+    }
+  }
+}
+
+template <typename Rows, typename Counts>
+__global__ void __launch_bounds__(TX_URS_THREADS, 1)
+resample_mma_kernel(Rows rows, Counts counts, float* __restrict__ part, long long R, int m,
+                    int nrep, long long chunk, int raw_bytes) {
+  extern __shared__ __align__(16) float smem[];
+  using Filler = typename Rows::MmaFiller;
+  using MC = MmaCounts<Counts>;
+  const int ycount = (nrep + TX_MMA_REPS - 1) / TX_MMA_REPS;
+  const int zcount = (m + TX_MMA_ROWS - 1) / TX_MMA_ROWS;
+  // grid.x = chunk (replicate block, row block): the blocks that read the
+  // same samples run together and share them through the L2 cache
+  const long long bx = blockIdx.x / (ycount * zcount);
+  const int yz = blockIdx.x % (ycount * zcount);
+  const int r0 = (yz % ycount) * TX_MMA_REPS;
+  const int c0 = (yz / ycount) * TX_MMA_ROWS;
+  const int c_end = (c0 + TX_MMA_ROWS < m) ? c0 + TX_MMA_ROWS : m;
+  const int ncol = c_end - c0;
+  const long long j_begin = bx * chunk;
+  const long long j_end = (j_begin + chunk < R) ? j_begin + chunk : R;
+  const Filler filler = rows.mma_block(c0, c_end);
+  counts.init();  // the first barrier comes before any count
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 1;   // replicates 64 wm .. 64 wm + 63 of the block
+  const int wn = warp >> 1;  // rows 56 wn .. 56 wn + 55 of the block
+  const int buf_bytes = TX_MMA_ROW_BYTES + TX_MMA_CNT_BYTES + raw_bytes;
+  char* const base = reinterpret_cast<char*>(smem);
+  auto planes = [&](int b) { return reinterpret_cast<uint16_t*>(base + b * buf_bytes); };
+  auto cnt = [&](int b) { return reinterpret_cast<uint4*>(base + b * buf_bytes + TX_MMA_ROW_BYTES); };
+  auto raw = [&](int b) { return base + b * buf_bytes + TX_MMA_ROW_BYTES + TX_MMA_CNT_BYTES; };
+
+  // the counts of tile t0 into buffer b, in fragment order: slot (mt, ks,
+  // lane) holds replicates r0 + 16 mt + (g, g + 8) at samples t0 + 16 ks +
+  // 4t .. +3; true where a count has digits past the first
+  auto make_counts = [&](int b, long long t0) {
+    bool hi = false;
+#pragma unroll
+    for (int n = 0; n < (TX_MMA_REPS / 16) * (TX_MMA_S / 16) * 32 / TX_URS_THREADS; ++n) {
+      const int slot = tid + n * TX_URS_THREADS;
+      const int ln = slot & 31;
+      const int ks = (slot >> 5) % (TX_MMA_S / 16);
+      const int mt = (slot >> 5) / (TX_MMA_S / 16);
+      const int ra = r0 + 16 * mt + (ln >> 2);
+      const long long j = t0 + 16 * ks + 4 * (ln & 3);
+      float fa[4], fb[4];
+      hi |= MC::low4(counts, ra, nrep, j, fa);
+      hi |= MC::low4(counts, ra + 8, nrep, j, fb);
+      cnt(b)[slot] = mma_a_frag(fa, fb);
+    }
+    return hi;
+  };
+
+  // rows from the block's last one up to a whole N tile read as zeros
+  const int ncol8 = (ncol + 7) & ~7;
+  for (int i = tid; i < 2 * 3 * (ncol8 - ncol) * TX_MMA_S; i += TX_URS_THREADS) {
+    const int b = i / (3 * (ncol8 - ncol) * TX_MMA_S);
+    const int rest = i % (3 * (ncol8 - ncol) * TX_MMA_S);
+    const int k = rest / ((ncol8 - ncol) * TX_MMA_S);
+    const int cc = ncol + (rest / TX_MMA_S) % (ncol8 - ncol);
+    planes(b)[k * TX_MMA_PLANE + cc * TX_MMA_RS + rest % TX_MMA_S] = 0;
+  }
+  float acc[TX_MMA_MT][TX_MMA_NT][4];
+#pragma unroll
+  for (int mt = 0; mt < TX_MMA_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < TX_MMA_NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  // prologue: the values of tiles 0 and 1, then tile 0's rows and counts
+  filler.stage(raw(0), j_begin, j_end);
+  if (j_begin + TX_MMA_S < j_end) filler.stage(raw(1), j_begin + TX_MMA_S, j_end);
+  tx_cp_commit();
+  tx_cp_wait_all();
+  __syncthreads();
+  filler.build(raw(0), planes(0), j_begin, j_end);
+  bool hi_cur = __syncthreads_or(make_counts(0, j_begin)) != 0;
+
+  int cur = 0;
+  for (long long t0 = j_begin; t0 < j_end; t0 += TX_MMA_S) {
+    const long long t1 = t0 + TX_MMA_S;
+    // the values of tile t + 2 into the raw buffer that tile t's rows came from
+    if (t1 + TX_MMA_S < j_end) filler.stage(raw(cur), t1 + TX_MMA_S, j_end);
+    tx_cp_commit();
+    bool hi_next = false;
+    if (t1 < j_end) {  // the same for every thread of the block
+      filler.build(raw(cur ^ 1), planes(cur ^ 1), t1, j_end);
+      hi_next = make_counts(cur ^ 1, t1);
+    }
+    // tile t on the tensor cores
+    {
+      uint4 af[TX_MMA_S / 16][TX_MMA_MT];
+#pragma unroll
+      for (int ks = 0; ks < TX_MMA_S / 16; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < TX_MMA_MT; ++mt)
+          af[ks][mt] = cnt(cur)[((TX_MMA_MT * wm + mt) * (TX_MMA_S / 16) + ks) * 32 + lane];
+      mma_tiles<TX_MMA_S / 16>(acc, af, planes(cur), TX_MMA_NT * 8 * wn, ncol, 0, lane);
+    }
+    if constexpr (MC::kDigits) {
+      if (hi_cur) {  // block-uniform: a table count of this tile has more digits
+        for (int k = 1; k <= 3; ++k) {
+#pragma unroll
+          for (int ks = 0; ks < TX_MMA_S / 16; ++ks) {
+            uint4 af[1][TX_MMA_MT];
+#pragma unroll
+            for (int mt = 0; mt < TX_MMA_MT; ++mt) {
+              const int ra = r0 + 16 * (TX_MMA_MT * wm + mt) + (lane >> 2);
+              const long long j = t0 + 16 * ks + 4 * (lane & 3);
+              float fa[4], fb[4];
+              MC::digit4(MC::raw(counts, ra, nrep, j), k, fa);
+              MC::digit4(MC::raw(counts, ra + 8, nrep, j), k, fb);
+              af[0][mt] = mma_a_frag(fa, fb);
+            }
+            mma_tiles<1>(acc, af, planes(cur), TX_MMA_NT * 8 * wn, ncol, ks, lane);
+          }
+        }
+      }
+    }
+    tx_cp_wait_all();  // tile t + 2's values have landed
+    hi_cur = __syncthreads_or(hi_next) != 0;  // the one barrier of a tile
+    cur ^= 1;
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < TX_MMA_MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < TX_MMA_NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 16 * (TX_MMA_MT * wm + mt) + g + 8 * (e >> 1);
+        const int c = c0 + TX_MMA_NT * 8 * wn + 8 * nt + 2 * t + (e & 1);
+        if (r < nrep && c < c_end) part[(bx * nrep + r) * m + c] = acc[mt][nt][e];
+      }
+    }
+  }
+}
+
+inline bool resample_mma_shape_ok(long long m, long long R, int nrep, int nchunk, long long chunk,
+                                  int raw_bytes) {
+  if (m < 1 || m > 2147483647LL || nrep < 1 || R < 1 || nchunk < 1 || chunk < 1 ||
+      chunk % TX_MMA_S != 0 || (long long)nchunk * chunk < R || raw_bytes < 0 ||
+      raw_bytes % 16 != 0) {
+    return false;
+  }
+  const long long blocks = (long long)nchunk * ((nrep + TX_MMA_REPS - 1) / TX_MMA_REPS) *
+                           ((m + TX_MMA_ROWS - 1) / TX_MMA_ROWS);
+  const long long smem = 2LL * (TX_MMA_ROW_BYTES + TX_MMA_CNT_BYTES + raw_bytes);
+  return blocks <= 2147483647LL && smem <= 232448;
+}
+
+template <typename Rows, typename Counts>
+int launch_mma(Rows rows, Counts counts, void* part, long long R, int m, int nrep, int nchunk,
+               long long chunk, int raw_bytes, cudaStream_t stream) {
+  // MmaCounts<Counts> is defined for the draw and int32 tables only: any
+  // other source does not compile here
+  const long long blocks = (long long)nchunk * ((nrep + TX_MMA_REPS - 1) / TX_MMA_REPS) *
+                           ((m + TX_MMA_ROWS - 1) / TX_MMA_ROWS);
+  const size_t smem = 2 * (size_t)(TX_MMA_ROW_BYTES + TX_MMA_CNT_BYTES + raw_bytes);
+  auto kernel = resample_mma_kernel<Rows, Counts>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)blocks, 1, 1), TX_URS_THREADS, smem, stream>>>(rows, counts, (float*)part,
+                                                                         R, m, nrep, chunk, raw_bytes);
+  return (int)cudaGetLastError();
 }
 
 // nr, np: row- and replicate-threads of a block (powers of two, nr np divides

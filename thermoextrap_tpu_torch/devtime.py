@@ -6,7 +6,8 @@ Run from the repository root on a CUDA machine::
 
 It builds ``chip_smoke.py``'s inputs (R = 1e8 ideal-gas configurations of 8
 particles, the 64 x 1e6 lnΠ grid; same seed) and prints one JSON line per
-call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, K3 alone at
+call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, K1 alone at
+R = 1e8 (one value column at order 6, and the volume path's two at order 1), K3 alone at
 the main path's shape (R = 1e8, 256 replicates), K2 at the quick start's
 shape (R = 1e5) and at R = 1e7 (100 replicates, int32 table), K6 at the quick
 start's shape (100 x 1e5), K4 and K5 alone (K5 at the grid and at one row of
@@ -23,15 +24,27 @@ Each line holds
   times its launches per call, so a lost record does not read as idle time);
 - ``idle``: ``1 - device_ms / wall_ms``;
 - ``top``: the kernels with the most device time per call, in ms.
+
+``python -m thermoextrap_tpu_torch.devtime --stubs [NAME ...]`` times K5's
+tensor-core kernel at the lnΠ grid (64 x 1e6, order 6, 256 replicates) and
+at one streaming chunk (64 x 250k, order 7) against stubbed copies of it
+(:data:`STUBS`: without its ``mma.sync``, without the draw and the rows of the
+next tile, without the draw, without the rows), each built from a copy of
+the package under ``_build/stubs/`` and timed in turns, three rounds: one
+JSON line per variant and round with the kernel's device ms (three
+``device_time`` runs each).  The stubs compute wrong sums; they show what
+each part of the kernel costs.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+from pathlib import Path
 
-__all__ = ["device_time", "main"]
+__all__ = ["STUBS", "device_time", "main"]
 
 ORDER = 6
 BETA0 = 5.6
@@ -41,6 +54,23 @@ SEED = 20240607
 CALLS = 5
 # the profiler's own buffer allocation, reported as a device activity
 _OVERHEAD = ("Activity Buffer Request",)
+# stubbed variants of K5's tensor-core kernel: edits of csrc/resample_tile.cuh
+STUBS = {
+    "no_mma": [
+        (
+            "tx_mma_bf16_16816(tmp[mt], a, bt[k], tmp[mt]);",
+            "tmp[mt][0] += __uint_as_float(a[0] ^ bt[k][0] ^ a[3]);",  # keeps the loads
+        )
+    ],
+    "no_production": [
+        ("    if (t1 < j_end) {  // the same for every thread of the block", "    if (t1 < j_end && t0 < 0) {")
+    ],
+    "no_draw": [
+        ("hi |= MC::low4(counts, ra, nrep, j, fa);", "fa[0] = fa[1] = fa[2] = fa[3] = (float)(ra & 3);"),
+        ("hi |= MC::low4(counts, ra + 8, nrep, j, fb);", "fb[0] = fb[1] = fb[2] = fb[3] = (float)(j & 3);"),
+    ],
+    "no_rows": [("      filler.build(raw(cur ^ 1), planes(cur ^ 1), t1, j_end);\n", "")],
+}
 
 
 def device_time(fn, calls: int = CALLS):
@@ -76,6 +106,63 @@ def device_time(fn, calls: int = CALLS):
     return sum(walls) / calls, sum(per_kernel.values()), top
 
 
+def _k5_times() -> int:
+    """One JSON line: K5's tensor-core kernel, device ms at the grid and at
+    one streaming chunk (three ``device_time`` runs each)."""
+    import torch
+
+    from . import idealgas
+    from .ops import moments_cuda as mc
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    grid = torch.stack([idealgas.u_sample((1_000_000, n), BETA0, rng=gen, dtype=torch.float32) for n in range(1, 65)])
+    chunk = grid[:, :250_000].contiguous()
+    out = {}
+    for name, fn in (
+        ("K5_grid_order6", lambda: mc.resample_central_umoments_batched_poisson(grid, NREP, ORDER, seed=1)),
+        ("K5_chunk_64x250k_order7", lambda: mc.resample_central_umoments_batched_poisson(chunk, NREP, ORDER + 1, seed=1)),
+    ):
+        out[name] = [max(v for k, v in device_time(fn)[2].items() if "resample_mma" in k) for _ in range(3)]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _stubs(names) -> int:
+    """Build the kernel and its stubbed copies (all at once), then time them
+    in turns; see the module docstring."""
+    pkg = Path(__file__).resolve().parent
+    dirs = {}
+    for name in ["kernel", *names]:
+        root = pkg / "_build" / "stubs" / name
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(pkg, root / pkg.name, ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        tile = root / pkg.name / "csrc" / "resample_tile.cuh"
+        text = tile.read_text()
+        for old, new in STUBS.get(name, []):
+            if old not in text:
+                msg = f"stub {name}: the kernel source no longer holds {old!r}"
+                raise RuntimeError(msg)
+            text = text.replace(old, new)
+        tile.write_text(text)
+        dirs[name] = root
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip()
+    build = f"from {pkg.name}.ops import _build; _build.library()"
+    procs = [subprocess.Popen([sys.executable, "-c", build], cwd=root) for root in dirs.values()]
+    if any(proc.wait() != 0 for proc in procs):
+        return 1
+    for rnd in range(3):
+        for name, root in dirs.items():
+            out = subprocess.run(
+                [sys.executable, "-m", f"{pkg.name}.devtime", "--k5"], cwd=root, capture_output=True, text=True, check=True
+            ).stdout
+            line = json.loads(out.strip().splitlines()[-1])
+            print(json.dumps({"variant": name, "round": rnd, "card": card, **line}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -94,6 +181,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("devtime: no CUDA device")
         return 1
+    if sys.argv[1:2] == ["--k5"]:
+        return _k5_times()
+    if sys.argv[1:2] == ["--stubs"]:
+        return _stubs(sys.argv[2:] or list(STUBS))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True,
@@ -125,12 +216,15 @@ def main() -> int:
     x1 = x[:, None]
     table2 = torch.poisson(torch.ones((100, rp), device=dev), generator=gen).to(torch.int32)
     table2q = table2[:, :100_000].contiguous()
+    x2 = torch.stack([x, x * x], dim=1)  # the volume path's two value columns
     u6, x6 = u[:10_000_000].reshape(100, 100_000), x1[:10_000_000].reshape(100, 100_000, 1)
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
         "lnpi_pipeline": lambda: run_lnpi(grid, -0.01 * ncoord**2, 0.3 * ncoord, betas, seed=SEED),
         "volume_pipeline": lambda: run_vol(wv, x, x, volumes, seed=SEED),
+        "K1_1e8": lambda: mc.reduce_central_comoments_fused(u, x1, ORDER),
+        "K1_1e8_V2": lambda: mc.reduce_central_comoments_fused(u, x2, 1),
         "K3_1e8": lambda: mc.resample_central_comoments_poisson(u, x1, NREP, ORDER, seed=SEED),
         "K2_int32_1e5": lambda: mc.resample_central_comoments_fused(u[:100_000], x1[:100_000], table2q, ORDER),
         "K2_int32_1e7": lambda: mc.resample_central_comoments_fused(up, x1[:rp], table2, ORDER),

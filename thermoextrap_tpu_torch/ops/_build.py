@@ -49,15 +49,17 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tx_error_string": ([_I], ctypes.c_char_p),
-    "tx_reduce_comoments": ([_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P], _I),
+    "tx_reduce_comoments": ([_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P], _I),
     "tx_resample_comoments": (
         [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _I, _I, _I, _I, _LL, _P, _I, _P],
         _I,
     ),
     "tx_poisson_counts": ([_P, _LL, _I, _LL, _P, _I, _P], _I),
     "tx_poisson_map": ([_P, _LL, _LL, _P, _P, _P, _I, _P], _I),
-    "tx_head_shift": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "tx_finalize_comoments": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "tx_head_shift": ([_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _P], _I),
+    "tx_finalize_comoments": ([_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "tx_finalize_umoments": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "tx_mma_probe": ([_P, _P, _P, _P, _I, _P], _I),
     "tx_reduce_umoments": ([_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P], _I),
     "tx_resample_umoments": (
         [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I, _I, _I, _LL, _P, _I, _P],

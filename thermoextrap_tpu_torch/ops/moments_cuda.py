@@ -18,11 +18,15 @@ K7      :func:`resample_perturb_freq`                       ``csrc/perturb_resam
 K8      :func:`resample_perturb_poisson`                    ``csrc/perturb_resample.cu``
 ======  =================================================  ===============================
 
-K2 and K3 run between two helper kernels of ``csrc/finalize.cu``: the head
-shift (:func:`head_shift_cuda`; plain version :func:`_head_shift`) and the
-finalize pass over the chunk partials (:func:`finalize_comoments_cuda`; plain
-version :func:`finalize_comoments_plain`), so their wrapper is three launches
-and issues no tensor arithmetic from Python.
+K1, K2, K3 and K6 run between two helper kernels of ``csrc/finalize.cu``:
+the head shift (:func:`head_shift_cuda`, one shift row per batch row for
+K1 / K6; plain version :func:`_head_shift`) and the finalize pass over the
+chunk or block partials (:func:`finalize_comoments_cuda`, with one shared
+shift for K2 / K3 and a shift row per batch row for K1 / K6; plain version
+:func:`finalize_comoments_plain`), so their wrapper is three launches and
+issues no tensor arithmetic from Python.  K5 is two launches: its kernel and
+its finalize kernel (:func:`finalize_umoments_cuda`; plain version
+:func:`finalize_umoments_plain`), after the head shift of :func:`_u_stream`.
 
 Every wrapper runs its kernel on a CUDA tensor and its plain torch version on
 a CPU tensor; any other device raises.  On the card the sample streams are
@@ -36,7 +40,11 @@ wrapper adds one to ``LAUNCHES[name]`` when it launches its kernel.  K7 and
 K8 take no shift: they sum the streamed reweighting factors as they are.  K2,
 K3, K5, K7 and K8 share the contraction of ``csrc/resample_tile.cuh``, which
 runs up to 16 contribution rows in its few-rows kernel and more in its
-many-rows kernel (:func:`_rows_launch` gives the launch shape of either), and
+many-rows kernel (:func:`_rows_launch` gives the launch shape of either);
+K5 past 16 rows runs on the tensor cores instead (:func:`_k5_on_tensor_cores`,
+:func:`_mma_launch`; counts as exact bf16, rows as the three bf16 terms of
+:func:`split_bf16x3`, the ``mma.sync`` helper held by
+:func:`mma_probe_cuda`), and
 the in-kernel Poisson draw of ``csrc/philox.cuh`` (:func:`poisson_map_cuda`
 holds its word → count map against the 9-compare sum).  The
 kernels are forward only: a CUDA input that requires grad raises, and the
@@ -60,7 +68,10 @@ __all__ = [
     "LAUNCHES",
     "finalize_comoments_cuda",
     "finalize_comoments_plain",
+    "finalize_umoments_cuda",
+    "finalize_umoments_plain",
     "head_shift_cuda",
+    "mma_probe_cuda",
     "poisson_counts_cuda",
     "poisson_map_cuda",
     "reduce_central_comoments_batched",
@@ -81,6 +92,7 @@ __all__ = [
     "resample_umoments_poisson_plain",
     "resample_umoments_table_cuda",
     "reset_launches",
+    "split_bf16x3",
 ]
 
 HEAD_N = 8192  # samples behind the shift estimate
@@ -94,8 +106,9 @@ LAUNCHES = {
     "K6": 0,
     "K7": 0,
     "K8": 0,
-    "head_shift": 0,  # helper kernels of the K2 / K3 wrapper (csrc/finalize.cu)
+    "head_shift": 0,  # helper kernels of the K1 / K2 / K3 / K6 wrappers (csrc/finalize.cu)
     "finalize": 0,
+    "finalize_u": 0,  # helper kernel of the K5 wrapper (csrc/finalize.cu)
 }
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu
@@ -104,6 +117,9 @@ _URS_RB = 4  # TX_URS_RB
 _URS_CB = 16  # TX_URS_CB
 _URS_TILE = 32  # TX_URS_TILE: sample tile of the many-rows kernel
 _FEW_TILE = 256  # TX_FEW_TILE: sample tile of the few-rows kernel (up to _URS_CB rows)
+_MMA_REPS = 128  # TX_MMA_REPS: replicates of a block of the tensor-core kernel
+_MMA_ROWS = 224  # TX_MMA_ROWS: rows of such a block
+_MMA_S = 32  # TX_MMA_S: its sample tile
 _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
 # K7/K8 cut the samples four times finer: a thread's serial float32 sum of
 # positive terms then runs over a few hundred samples at R = 1e7, which holds
@@ -305,8 +321,17 @@ def reduce_comoments_plain(u2, x3, w2, order: int):
     return _shifted_epilogue(torch.stack(rows_u), torch.stack(rows_x), s_u, s_x)
 
 
+def _reduce_blocks(nbatch: int, r: int) -> int:
+    """Sample blocks of the K1/K6 kernel per batch row: ~4096 samples a
+    block, at most 1024 (the finalize kernel sums them per row)."""
+    return max(1, min(1024, math.ceil(r / (_REDUCE_THREADS * 16))))
+
+
 def _reduce_cuda(u2, x3, w2, order: int):
-    """Launch the reduction kernel; returns the epilogue's 5-tuple (float32)."""
+    """The K1 / K6 wrapper on CUDA tensors: checks and casts, then three
+    launches (the head shift of each batch row, the reduction kernel, the
+    finalize kernel with a shift row per batch row) and no tensor arithmetic
+    in between; returns the epilogue's 5-tuple (float32)."""
     _check_cuda_inputs(u2, x3, w2)
     if order > MAX_ORDER:
         msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
@@ -317,23 +342,15 @@ def _reduce_cuda(u2, x3, w2, order: int):
     w = None if w2 is None else w2.to(torch.float32).contiguous()
     nbatch, r = u.shape
     v = x.shape[2]
-    # the shift reads only the head: convert that, not the whole stream
-    head = slice(0, HEAD_N)
-    s_u, s_x = _head_shift(u[:, head].to(torch.float32), None if w is None else w[:, head], x[:, head])
-    s_u = s_u.contiguous()
-    s_x = s_x.contiguous()
-    nblk = max(1, min(1024, math.ceil(r / (_REDUCE_THREADS * 16))))
-    part_u = torch.empty((nbatch, nblk, order + 1), dtype=torch.float32, device=u.device)
-    part_x = torch.empty((nbatch, v, nblk, order + 1), dtype=torch.float32, device=u.device)
-    lib = _build.library()
-    status = lib.tx_reduce_comoments(
+    shift = head_shift_cuda(u, x, w)
+    nblk = _reduce_blocks(nbatch, r)
+    part = torch.empty((nblk, nbatch, (v + 1) * (order + 1)), dtype=torch.float32, device=u.device)
+    status = _build.library().tx_reduce_comoments(
         u.data_ptr(),
         x.data_ptr(),
         None if w is None else w.data_ptr(),
-        s_u.data_ptr(),
-        s_x.data_ptr(),
-        part_u.data_ptr(),
-        part_x.data_ptr(),
+        shift.data_ptr(),
+        part.data_ptr(),
         nbatch,
         r,
         v,
@@ -344,11 +361,7 @@ def _reduce_cuda(u2, x3, w2, order: int):
         _stream_ptr(u.device),
     )
     _build.check(status, "tx_reduce_comoments")
-    # deterministic second pass over the block partials, in float64
-    sum_u = part_u.double().sum(1).T
-    sum_x = part_x.double().sum(2).permute(2, 0, 1)
-    out = _shifted_epilogue(sum_u, sum_x, s_u.double(), s_x.double())
-    return tuple(t.to(torch.float32) for t in out)
+    return finalize_comoments_cuda(part, shift, order, v)
 
 
 def _reduce(u2, x3, w2, order: int, name: str):
@@ -509,16 +522,18 @@ def resample_poisson_plain(uv, x2, nrep: int, order: int, weight=None, *, seed: 
 
 def finalize_comoments_plain(part, s_u, s_x, order: int, v: int):
     """Plain torch version of the finalize kernel: the chunk partials
-    ``part (nchunk, nrep, (v+1)(order+1))`` of K2 / K3 summed in float64 and
-    recentred exactly about the shift ``s_u (1,)``, ``s_x (v,)``.  Returns
-    the epilogue's 5-tuple with batch axis ``nrep``, in float32 (float64
+    ``part (nchunk, nrep, (v+1)(order+1))`` of K2 / K3 (or the block partials
+    of K1 / K6, a batch row in the place of a replicate) summed in float64
+    and recentred exactly about the shift ``s_u (1,)``, ``s_x (v,)`` (or a
+    shift per row, ``s_u (nrep,)``, ``s_x (nrep, v)``).  Returns the
+    epilogue's 5-tuple with batch axis ``nrep``, in float32 (float64
     partials keep float64)."""
     nrep = part.shape[1]
     sums = part.double().sum(0)  # (nrep, m), deterministic second pass
     sum_u = sums[:, : order + 1].T
     sum_x = sums[:, order + 1 :].reshape(nrep, v, order + 1).permute(2, 0, 1)
     out = _shifted_epilogue(
-        sum_u, sum_x, s_u.double().expand(nrep), s_x.double().expand(nrep, -1)
+        sum_u, sum_x, s_u.double().expand(nrep), s_x.double().expand(nrep, v)
     )
     dtype = torch.float64 if part.dtype == torch.float64 else torch.float32
     return tuple(t.to(dtype) for t in out)
@@ -526,19 +541,25 @@ def finalize_comoments_plain(part, s_u, s_x, order: int, v: int):
 
 def head_shift_cuda(u, x, w=None):
     """Launch the head-shift kernel on the kernel operands ``u (R,)``,
-    ``x (R, V)`` (both float32 or both bfloat16, contiguous) and ``w (R,)``
-    float32 or None.  Returns one float32 buffer ``(V+1,)``: ``s_u`` then
-    ``s_x`` (:func:`_head_shift` on one row is the plain version)."""
-    v = x.shape[1]
-    shift = torch.empty(v + 1, dtype=torch.float32, device=u.device)
+    ``x (R, V)`` and ``w (R,)`` float32 or None, or on batch rows ``u
+    (nbatch, R)``, ``x (nbatch, R, V)``, ``w (nbatch, R)`` (streams both
+    float32 or both bfloat16, contiguous).  Returns the float32 shift ``(V+1,)``
+    (``(nbatch, V+1)`` for batch rows): ``s_u`` then ``s_x`` of each row
+    (:func:`_head_shift` is the plain version)."""
+    # shapes only, no views: the K2 / K3 wrapper is host bound at small R
+    batched = u.ndim == 2
+    nbatch, r = u.shape if batched else (1, u.shape[0])
+    v = x.shape[-1]
+    shift = torch.empty((nbatch, v + 1) if batched else (v + 1,), dtype=torch.float32, device=u.device)
     status = _build.library().tx_head_shift(
         u.data_ptr(),
         x.data_ptr(),
         None if w is None else w.data_ptr(),
         shift.data_ptr(),
-        shift.data_ptr() + 4,
-        min(HEAD_N, u.shape[0]),
+        min(HEAD_N, r),
         v,
+        nbatch,
+        r,
         int(u.dtype == torch.bfloat16),
         u.device.index,
         _stream_ptr(u.device),
@@ -550,11 +571,14 @@ def head_shift_cuda(u, x, w=None):
 
 def finalize_comoments_cuda(part, shift, order: int, v: int):
     """Launch the finalize kernel on the chunk partials ``part (nchunk, nrep,
-    (v+1)(order+1))`` float32 and the shift buffer of :func:`head_shift_cuda`
-    (:func:`finalize_comoments_plain` is the plain version).  Returns the
-    epilogue's 5-tuple with batch axis ``nrep``, float32."""
+    (v+1)(order+1))`` float32 and the shift of :func:`head_shift_cuda`: one
+    ``(v+1,)`` shift for every replicate (K2 / K3), or a row ``(nrep, v+1)``
+    per batch row (K1 / K6).  :func:`finalize_comoments_plain` is the plain
+    version.  Returns the epilogue's 5-tuple with batch axis ``nrep``,
+    float32."""
     nchunk, nrep, m = part.shape
-    if m != (v + 1) * (order + 1) or shift.shape != (v + 1,) or not part.is_contiguous():
+    rows = shift.shape == (nrep, v + 1)
+    if m != (v + 1) * (order + 1) or not (rows or shift.shape == (v + 1,)) or not part.is_contiguous():
         msg = f"part {tuple(part.shape)} / shift {tuple(shift.shape)} do not fit order {order}, V {v}"
         raise ValueError(msg)
 
@@ -567,7 +591,7 @@ def finalize_comoments_cuda(part, shift, order: int, v: int):
     status = _build.library().tx_finalize_comoments(
         part.data_ptr(),
         shift.data_ptr(),
-        shift.data_ptr() + 4,
+        v + 1 if rows else 0,
         xave.data_ptr(),
         uave.data_ptr(),
         du.data_ptr(),
@@ -636,6 +660,41 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
     )
     _build.check(status, "tx_resample_comoments")
     return finalize_comoments_cuda(part, shift, order, v)
+
+
+def split_bf16x3(v):
+    """A float32 tensor as three bfloat16 terms ``(b0, b1, b2)``: ``b0 =
+    bf16(v)``, ``b1 = bf16(v - b0)``, ``b2 = bf16(v - b0 - b1)`` (round to
+    nearest even, each difference exact in float32), the rows of K5's
+    tensor-core kernel (``tx_split_bf16x3`` of csrc/common.cuh); ``b0 + b1 +
+    b2`` carries ``v`` to ~24 bits."""
+    v = v.to(torch.float32)
+    terms = []
+    for _ in range(3):
+        b = v.to(torch.bfloat16)
+        terms.append(b)
+        v = v - b.to(torch.float32)
+    return tuple(terms)
+
+
+def mma_probe_cuda(a, b, c):
+    """``a (16, 16) @ b (16, 8) + c`` on the tensor cores by one warp's
+    ``mma.sync.m16n8k16`` through the fragment layout of
+    ``tx_mma_bf16_16816`` (csrc/common.cuh): ``a``, ``b`` bfloat16, ``c``
+    float32, contiguous, on one device.  Returns ``(16, 8)`` float32: the
+    parity hook of the helper that K5's tensor-core kernel uses."""
+    if a.shape != (16, 16) or b.shape != (16, 8) or c.shape != (16, 8):
+        msg = f"need a (16, 16), b (16, 8), c (16, 8); got {tuple(a.shape)}, {tuple(b.shape)}, {tuple(c.shape)}"
+        raise ValueError(msg)
+    a = a.to(torch.bfloat16).contiguous()
+    b = b.to(torch.bfloat16).contiguous()
+    c = c.to(torch.float32).contiguous()
+    d = torch.empty((16, 8), dtype=torch.float32, device=c.device)
+    status = _build.library().tx_mma_probe(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), c.device.index, _stream_ptr(c.device)
+    )
+    _build.check(status, "tx_mma_probe")
+    return d
 
 
 @functools.cache
@@ -939,10 +998,77 @@ def _rows_shape_ok(m: int, r: int, nrep: int, nchunk: int, chunk: int, nr: int, 
     return chunk % _URS_TILE == 0 and ycount <= 65535 and math.ceil(m / (nr * _URS_CB)) <= 65535
 
 
+def _k5_on_tensor_cores(m: int, order: int) -> bool:
+    """``umoment_on_tensor_cores`` of csrc/umoments_resample.cu: K5 past the
+    few-rows kernel's 16 rows runs on the tensor cores, order 0 excepted."""
+    return m > _URS_CB and order >= 1
+
+
+@functools.lru_cache(maxsize=256)
+def _mma_launch(m: int, nrep: int, r: int, target_blocks: int):
+    """Launch shape of the tensor-core kernel (csrc/resample_tile.cuh) for
+    ``m`` rows, ``nrep`` replicates and ``r`` samples: ``(nchunk, chunk)``,
+    ``r`` cut into chunks of whole 32-sample tiles, about ``target_blocks``
+    blocks of 128 replicates x 224 rows in all."""
+    ycount = math.ceil(nrep / _MMA_REPS)
+    zcount = math.ceil(m / _MMA_ROWS)
+    ntile = math.ceil(r / _MMA_S)
+    nchunk = max(1, min(ntile, math.ceil(target_blocks / (ycount * zcount))))
+    chunk = math.ceil(ntile / nchunk) * _MMA_S
+    return math.ceil(r / chunk), chunk
+
+
+def finalize_umoments_plain(part, s_u, order: int, nbatch: int):
+    """Plain torch version of the K5 finalize kernel: the chunk partials
+    ``part (nchunk, nrep, nbatch (order+1))`` summed in float64 and
+    recentred exactly about the shift ``s_u (nbatch,)`` (:func:`_u_epilogue`).
+    Returns ``(uave (nrep, nbatch), du (order+1, nrep, nbatch), wsum (nrep,
+    nbatch))``, float32 (float64 partials keep float64)."""
+    nrep = part.shape[1]
+    sums = part.double().sum(0).reshape(nrep, nbatch, order + 1).permute(2, 0, 1)
+    out = _u_epilogue(sums, s_u.double())
+    dtype = torch.float64 if part.dtype == torch.float64 else torch.float32
+    return tuple(t.to(dtype) for t in out)
+
+
+def finalize_umoments_cuda(part, s_u, order: int, nbatch: int):
+    """Launch the K5 finalize kernel (csrc/finalize.cu) on the chunk partials
+    ``part (nchunk, nrep, nbatch (order+1))`` float32 and the float32 shift
+    ``s_u (nbatch,)``; :func:`finalize_umoments_plain` is the plain version.
+    Returns ``(uave (nrep, nbatch), du (order+1, nrep, nbatch), wsum (nrep,
+    nbatch))``, float32."""
+    nchunk, nrep, m = part.shape
+    if m != nbatch * (order + 1) or s_u.shape != (nbatch,) or not part.is_contiguous():
+        msg = f"part {tuple(part.shape)} / shift {tuple(s_u.shape)} do not fit order {order}, {nbatch} rows"
+        raise ValueError(msg)
+    shapes = ((nrep, nbatch), (order + 1, nrep, nbatch), (nrep, nbatch))
+    sizes = [math.prod(shape) for shape in shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=part.device)
+    uave, du, wsum = (t.view(shape) for t, shape in zip(flat.split(sizes), shapes))
+    status = _build.library().tx_finalize_umoments(
+        part.data_ptr(),
+        s_u.data_ptr(),
+        uave.data_ptr(),
+        du.data_ptr(),
+        wsum.data_ptr(),
+        nchunk,
+        nrep,
+        nbatch,
+        order,
+        part.device.index,
+        _stream_ptr(part.device),
+    )
+    _build.check(status, "tx_finalize_umoments")
+    LAUNCHES["finalize_u"] += 1
+    return uave, du, wsum
+
+
 def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0):
     """Launch K5 (Poisson counts drawn in the kernel, or the rows of the
-    int32 table ``freq (nrep, R)``); returns ``(uave, du, wsum)`` with batch
-    axes ``(nrep, nbatch)``, float32."""
+    int32 table ``freq (nrep, R)``) and its finalize kernel; returns ``(uave,
+    du, wsum)`` with batch axes ``(nrep, nbatch)``, float32.  Up to 16 rows
+    run in the few-rows kernel, more on the tensor cores
+    (:func:`_k5_on_tensor_cores`)."""
     _check_cuda_inputs(u2, w2)
     if order > MAX_ORDER:
         msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
@@ -958,10 +1084,13 @@ def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0)
         freq = freq.to(torch.int32).contiguous()
         fptr = freq.data_ptr()
     m = nbatch * (order + 1)
-    nr, npt, nchunk, chunk = _rows_launch(m, nrep, r, _TARGET_BLOCKS)
+    if _k5_on_tensor_cores(m, order):
+        nr = npt = 1  # not read by the tensor-core kernel
+        nchunk, chunk = _mma_launch(m, nrep, r, _TARGET_BLOCKS // 4)
+    else:
+        nr, npt, nchunk, chunk = _rows_launch(m, nrep, r, _TARGET_BLOCKS)
     part = torch.empty((nchunk, nrep, m), dtype=torch.float32, device=u.device)
-    lib = _build.library()
-    status = lib.tx_resample_umoments(
+    status = _build.library().tx_resample_umoments(
         u.data_ptr(),
         None if w is None else w.data_ptr(),
         fptr,
@@ -982,10 +1111,7 @@ def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0)
         _stream_ptr(u.device),
     )
     _build.check(status, "tx_resample_umoments")
-    # deterministic second pass: (nrep, nbatch (order+1)) -> (order+1, nrep, nbatch)
-    sums = part.double().sum(0).reshape(nrep, nbatch, order + 1).permute(2, 0, 1)
-    out = _u_epilogue(sums, s_u.double())
-    return tuple(t.to(torch.float32) for t in out)
+    return finalize_umoments_cuda(part, s_u, order, nbatch)
 
 
 def _resample_u_outputs(out, batch, return_wsum):
