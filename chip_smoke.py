@@ -26,7 +26,8 @@ on any failure, without printing a result.  Phases, one line each:
    pipeline call;
 8. K4 against its plain version (float64 on the card) on the lnΠ grid shape
    (64 macrostates x 1e6 samples, order 6, float32 and bfloat16), on the
-   flat R = 1e8 stream at order 7 (the x_is_u route) and weighted;
+   flat R = 1e8 stream at order 7 (the x_is_u route), weighted, and on an
+   unaligned view of a sample count that is no multiple of 4;
 9. K5: its draws against its consume of the ``_poisson_counts`` table, that
    consume against the plain table version, identical batch rows, the grid
    shape (on the tensor cores) and the ⟨u⟩ path's shape (one row of R = 1e8,
@@ -66,7 +67,8 @@ on any failure, without printing a result.  Phases, one line each:
     real K2 call and on synthetic partials with an all-zero replicate (which
     must come out equal exactly) at V = 2 and V = 40, the head-shift kernel
     against its plain version (float32 and bfloat16 streams, weighted, a
-    zero-weight head, fewer samples than the head), and K2 with int8, int16,
+    zero-weight head, fewer samples than the head, u alone on the lnΠ grid's
+    rows as K4 and K5 take it), and K2 with int8, int16,
     int32, float32 and bfloat16 tables on a sample count that is no multiple
     of 4 and on a table that starts at an unaligned address, against the
     plain reference of phase 3;
@@ -77,13 +79,14 @@ on any failure, without printing a result.  Phases, one line each:
     beside the kernel build).
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
-kernel once, and each K5 call its finalize kernel once; phases 6, 11 and 16
-hold every path to that.  Each kernel's bound is the
+kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
+kernel once; phases 6, 11 and 16 hold every path to that.  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
-line before the last is a JSON object with one entry per kernel (K2's carries
-its second shape, R = 1e7, under ``also``; K3, K5 and K8 carry the draw's
+line before the last is a JSON object with one entry per kernel (K1, K2 and
+K4 carry a second shape under ``also``: V = 2, R = 1e7, and one row of R = 1e8
+at order 7; K3, K5 and K8 carry the draw's
 ``draw_instructions_per_count``); the last line is the device JSON object.
 """
 
@@ -370,10 +373,10 @@ def main() -> int:
     say(6, launches=launches)
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
-    if not launches["head_shift"] == launches["finalize"] == launches["K1"] + launches["K2"] + launches["K3"] + launches["K6"]:
-        raise AssertionError(f"the main path's K1 / K2 / K3 / K6 calls did not each launch the head shift and the finalize kernel once: {launches}")
-    if launches["finalize_u"] != launches["K5"]:
-        raise AssertionError(f"the main path launched K5's finalize kernel without K5: {launches}")
+    co_calls = launches["K1"] + launches["K2"] + launches["K3"] + launches["K6"]
+    u_calls = launches["K4"] + launches["K5"]
+    if not (launches["finalize"] == co_calls and launches["finalize_u"] == u_calls and launches["head_shift"] == co_calls + u_calls):
+        raise AssertionError(f"the main path's kernel calls did not each launch one head shift and one finalize kernel: {launches}")
 
     # -- phase 7: times ----------------------------------------------------------------
     def time_ms(fn, reps):
@@ -459,6 +462,8 @@ def main() -> int:
         "grid_bf16": check_k4("K4 grid bf16", gridb, ORDER),
         "flat_1e8_order7": check_k4("K4 flat", u[None], ORDER + 1),
         "grid_weighted": check_k4("K4 grid weighted", grid, ORDER, wgrid),
+        # a scalar head (the view starts 4 bytes past an aligned address) and tail
+        "flat_unaligned_1e7+5_order7": check_k4("K4 flat unaligned", u[1 : 10_000_006][None], ORDER + 1),
     }
     errs["K4"] = max(k4_errs.values())
     del gridb, wgrid
@@ -566,11 +571,12 @@ def main() -> int:
 
     def full_counts(want):
         """Every counter's expected value: each K1 / K2 / K3 / K6 call also
-        launches the head-shift and the finalize kernel once, each K5 call its
-        finalize kernel once."""
+        launches the head-shift and the finalize kernel once, each K4 / K5
+        call the head-shift and the u-moment finalize kernel once."""
         full = {k: want.get(k, 0) for k in mc.LAUNCHES}
-        full["head_shift"] = full["finalize"] = full["K1"] + full["K2"] + full["K3"] + full["K6"]
-        full["finalize_u"] = full["K5"]
+        full["finalize"] = full["K1"] + full["K2"] + full["K3"] + full["K6"]
+        full["finalize_u"] = full["K4"] + full["K5"]
+        full["head_shift"] = full["finalize"] + full["finalize_u"]
         return full
 
     upred, ustd = counted("u_f32", lambda: run_u(u, betas, seed=SEED))
@@ -1018,6 +1024,8 @@ def main() -> int:
         "f32_weighted_V3": head_pair(u2q, x_head, w_head),
         "bf16": head_pair(u2q.to(torch.bfloat16), x_head.to(torch.bfloat16)),
         "short_R_1000": head_pair(u2q[:1000].contiguous(), x_head[:1000].contiguous(), w_head[:1000].contiguous()),
+        # no value stream (V = 0): the u shift of each grid row, as K4 and K5 take it
+        "u_alone_grid": ((mc.head_shift_cuda(grid, None),), (mc._head_shift(grid, None),)),
     }
     head_rel = {}
     errs["head_shift"] = 0.0
@@ -1147,21 +1155,22 @@ def main() -> int:
     k5_fma_bound = bound(f4 * GRID_B * GRID_R, fmas=NREP_MAIN * GRID_B * GRID_R * n1, draws=NREP_MAIN * GRID_R)
     k1_v2_bound = bound(f4 * R_MAIN * 3, fmas=R_MAIN * 3 * 2)
     k2_big_bound = bound(f4 * nrep2 * r2 + f4 * r2 * 2, fmas=nrep2 * r2 * 2 * n1)
+    k4_flat_bound = bound(f4 * R_MAIN, fmas=R_MAIN * (n1 + 1))
 
     # kernel: (source, TPU kernel it replaces, the path whose count is its `launches`)
     meta = {
         "K1": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:192", "main"),
         "K2": ("comoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:548", "main"),
         "K3": ("comoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:914", "main"),
-        "K4": ("umoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1656", "u_f32"),
+        "K4": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1656", "u_f32"),
         "K5": ("umoments_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1092", "u_f32"),
         "K6": ("comoments_reduce.cu", "thermoextrap_tpu/ops/moments_pallas.py:1875", "main"),
         "K7": ("perturb_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1404", "perturb_table"),
         "K8": ("perturb_resample.cu", "thermoextrap_tpu/ops/moments_pallas.py:1357", "perturb_device"),
-        # helpers of the K2 / K3 wrapper; the reference leaves these two steps to XLA
+        # helpers of every wrapper but K7 / K8; the reference leaves these steps to XLA
         "head_shift": ("finalize.cu", "thermoextrap_tpu/ops/moments_pallas.py:112", "main"),
         "finalize": ("finalize.cu", "thermoextrap_tpu/ops/moments_pallas.py:810", "main"),
-        # helper of the K5 wrapper: the epilogue of :1292, left to XLA by the reference
+        # helper of the K4 / K5 wrappers: the epilogue of :1292 (and of K4's :1796)
         "finalize_u": ("finalize.cu", "thermoextrap_tpu/ops/moments_pallas.py:1292", "u_f32"),
     }
     kernels = [
@@ -1194,6 +1203,15 @@ def main() -> int:
         "plain_ms": extra["K1_V2"][2],
         "bound_ms": k1_v2_bound[0],
         "bound_by": k1_v2_bound[1],
+        "library_ms": None,
+    }
+    # K4 once more on the x_is_u route's one row (R = 1e8, order 7)
+    next(k for k in kernels if k["name"] == "K4")["also"] = {
+        "shape": "R=1e8 order 7 f32",
+        "ms": k4_flat[0],
+        "plain_ms": k4_flat[1],
+        "bound_ms": k4_flat_bound[0],
+        "bound_by": k4_flat_bound[1],
         "library_ms": None,
     }
     # K2 once more at R = 1e7, where the table's bytes bound it

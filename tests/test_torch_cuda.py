@@ -10,6 +10,8 @@ machine without them (``tests/conftest.py`` does import jax):
 Tolerances: the float32 kernels against the float64 plain versions at the
 bar of tests/test_parallel.py:87 (rtol 2e-3, atol 1e-5), K4 at the bar of
 tests/test_parallel.py:158-161 (uave rtol 1e-6; du rtol 5e-3, atol 1e-4);
+K1 / K6, K2 / K3, K4 and K5 each make three launches (head shift, kernel,
+finalize) and reach no plain version on a CUDA tensor;
 K3 against K2, and K5 against its own consume of the same count table,
 which share one kernel body, exactly.  The finalize kernel of the K2 / K3 wrapper against its plain version
 at 1e-6 relative (both recentre in float64, then cast), the head-shift kernel
@@ -275,7 +277,8 @@ def test_k5_kernel_matches_plain_one_row(rng, cuda_device):
 
 
 def test_u_pipeline_bf16_streams(rng, cuda_device, monkeypatch):
-    """bf16=True on the x_is_u path hands K4 and K5 a bfloat16 stream."""
+    """bf16=True on the x_is_u path hands K4 (the u-only case, V = 0, of the
+    reduction kernel), K5 and their head shifts a bfloat16 stream."""
     u = rng.normal(3.0, 0.5, 100_000)
     lib = _build.library()
     flags = {}
@@ -289,12 +292,13 @@ def test_u_pipeline_bf16_streams(rng, cuda_device, monkeypatch):
 
         monkeypatch.setattr(lib, name, call)
 
-    spy("tx_reduce_umoments", 8)
+    spy("tx_reduce_comoments", 10)
     spy("tx_resample_umoments", 13)
+    spy("tx_head_shift", 8)
     run = tpipe.make_extrap_pipeline(4, 1.0, x_is_u=True, nrep=32, bf16=True)
     pred, std = run(tt(u).to(cuda_device), tt(BETAS))
     torch.cuda.synchronize()
-    assert flags == {"tx_reduce_umoments": [1], "tx_resample_umoments": [1]}
+    assert flags == {"tx_reduce_comoments": [1], "tx_resample_umoments": [1], "tx_head_shift": [1, 1]}
     ref = tpipe.make_extrap_pipeline(4, 1.0, x_is_u=True)(tt(u).to(torch.bfloat16).double(), tt(BETAS))
     assert np.all(np.abs(npy(pred) - npy(ref)) <= 0.1 * npy(std) + 1e-6)
 
@@ -743,19 +747,79 @@ def test_k5_tensor_cores_draws_tables_and_large_counts(rng, cuda_device, nbatch,
 
 def test_k5_wrapper_is_two_launches(rng, cuda_device, monkeypatch):
     """A K5 call launches the bootstrap kernel and its finalize kernel once,
-    and reaches no plain epilogue on CUDA tensors."""
+    after one head-shift launch (three launches in all), and reaches no plain
+    head shift or epilogue on CUDA tensors."""
     uc = _f32(_grid_samples(rng, 8, 30_000), cuda_device)
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version was called on a CUDA tensor")
 
-    for name in ("_u_epilogue", "finalize_umoments_plain"):
+    for name in ("_head_shift", "_u_epilogue", "finalize_umoments_plain"):
         monkeypatch.setattr(mc, name, refuse)
     mc.reset_launches()
     out = mc.resample_central_umoments_batched_poisson(uc, 64, 6, seed=2, return_wsum=True)
     torch.cuda.synchronize()
-    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K5": 1, "finalize_u": 1}
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K5": 1, "head_shift": 1, "finalize_u": 1}
     assert [tuple(t.shape) for t in out] == [(64, 8), (7, 64, 8), (64, 8)]
+
+
+# -- K4: the u-only case of the 16-byte reduction, three launches ---------------------------
+
+
+def test_k4_wrapper_is_three_launches(rng, cuda_device, monkeypatch):
+    """Each K4 call launches the head shift, the reduction kernel and the
+    u-moment finalize kernel once, and reaches no plain version on CUDA
+    tensors, flat or batched."""
+    uc = _f32(_grid_samples(rng, 3, 40_000), cuda_device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version was called on a CUDA tensor")
+
+    for name in ("_head_shift", "_u_epilogue", "finalize_umoments_plain", "reduce_umoments_plain"):
+        monkeypatch.setattr(mc, name, refuse)
+    mc.reset_launches()
+    flat = mc.reduce_central_umoments_batched(uc[0], 7)
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K4": 1, "head_shift": 1, "finalize_u": 1}
+    out = mc.reduce_central_umoments_batched(uc.view(3, 1, -1), 6)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K4": 2, "head_shift": 2, "finalize_u": 2}
+    assert [tuple(t.shape) for t in flat] == [(), (8,)]
+    assert [tuple(t.shape) for t in out] == [(3, 1), (7, 3, 1)]
+
+
+@pytest.mark.parametrize(
+    ("nbatch", "r", "order", "dtype", "offset", "weighted"),
+    [
+        (1, 1_000_003, 7, torch.float32, 0, False),  # a scalar tail
+        (5, 200_001, 6, torch.float32, 1, False),  # unaligned view: rows of mixed alignment
+        (3, 200_001, 6, torch.float32, 1, True),  # u and w of different alignment: scalar loads
+        (2, 300_007, 7, torch.bfloat16, 3, False),
+        (64, 20_000, 6, torch.bfloat16, 0, True),  # the grid's rows, weighted
+    ],
+)
+def test_k4_alignment_and_streams(rng, cuda_device, nbatch, r, order, dtype, offset, weighted):
+    """K4 on float32 and bfloat16 streams, aligned and unaligned views, with
+    and without weights, against its float64 plain version on the same
+    (quantized) values at K4's bar (tests/test_parallel.py:158-161).  The
+    last row of a weighted case has a zero-weight head, so shift 0, and a
+    mean near 0: float32 sums about a shift far from the mean lose digits in
+    any float32 reduction."""
+    u = _grid_samples(rng, nbatch, r)
+    if weighted:
+        u[-1] = rng.normal(0.3, 1.0, r)
+    flat = tt(np.concatenate([np.zeros(offset), u.reshape(-1)])).to(dtype).to(cuda_device)
+    uc = flat[offset:].view(nbatch, r)
+    wc = _f32(rng.uniform(0.5, 1.5, (nbatch, r)), cuda_device) if weighted else None
+    if weighted:
+        wc[-1, : mc.HEAD_N] = 0.0
+    ref = mc.reduce_central_umoments_batched(uc.double().cpu(), order, None if wc is None else wc.double().cpu())
+    mc.reset_launches()
+    got = mc.reduce_central_umoments_batched(uc, order, wc)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["K4"] == mc.LAUNCHES["head_shift"] == mc.LAUNCHES["finalize_u"] == 1
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in got)
+    assert_close(got[0], ref[0], 1e-6)
+    assert_close(got[1], ref[1], 5e-3, 1e-4)
 
 
 def test_finalize_umoments_kernel_matches_plain(cuda_device):

@@ -25,6 +25,13 @@ pipelining to its plain torch version where there is no GPU:
   unaligned view, V = 1, 2, 5, bfloat16, weights and a zero-weight head,
   against the plain version and against the JAX package; the head shift and
   the strided finalize alone;
+- K4 through the head shift with no value stream, the same reduction kernel
+  with no value column and the u-moment finalize kernel: R no multiple of 4
+  or 8, unaligned views (rows of mixed alignment; u and w of different
+  alignment), bfloat16, weights and a zero-weight head, one row and several,
+  orders 5, 6, 7 (8 unguarded power slots) and 9 (every slot guarded),
+  against the plain version and against the JAX package; the
+  head shift with no value stream alone;
 - K5 past 16 rows on the tensor cores (28 and 448 rows), draws equal to the
   table consume bit for bit, counts past one bf16 digit, against the plain
   version and the JAX table bootstrap; its finalize kernel; the mma.sync
@@ -310,6 +317,84 @@ def test_batched_head_shift_and_strided_finalize_emulated(kernels, rng):
     assert all(torch.equal(a, b) for a, b in zip(shared, rows))
 
 
+# -- K4: the u-only case of the same reduction, between the head shift and the u finalize -----
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a plain version was called on the kernel path")
+
+
+@pytest.mark.parametrize(
+    ("nbatch", "r", "order", "weighted", "dtype", "offset"),
+    [
+        (1, 4099, 7, False, torch.float32, 0),  # the x_is_u route's one row at order 7; a scalar tail
+        (3, 3001, 6, False, torch.float32, 1),  # an unaligned view: scalar heads, rows of mixed alignment
+        (2, 3001, 6, True, torch.float32, 1),  # u and w of different alignment: scalar loads
+        (2, 2051, 7, False, torch.bfloat16, 3),  # bf16: 8 samples a load, unaligned, ragged
+        (3, 9001, 6, True, torch.bfloat16, 0),  # batch row 1 has a zero-weight head
+        (4, 8200, 6, True, torch.float32, 0),  # aligned rows, weighted, several blocks a row
+        (2, 4103, 9, True, torch.float32, 0),  # past order 7: the kernel with every power slot guarded
+    ],
+)
+def test_k4_emulated_three_launches_match_plain(kernels, rng, monkeypatch, nbatch, r, order, weighted, dtype, offset):
+    # a zero-weight head gives shift 0, so that row's mean is kept near 0 (as
+    # in the K1 / K6 cases: float32 sums about a far shift lose digits)
+    mean = 0.3 if weighted and dtype == torch.bfloat16 else 5.0
+    u = _f32(rng.normal(mean, 1.0, nbatch * r + offset))[offset:].view(nbatch, r).to(dtype)
+    w = _f32(rng.uniform(0.5, 1.5, (nbatch, r))) if weighted else None
+    if weighted and dtype == torch.bfloat16:
+        w[1, : mc.HEAD_N] = 0.0
+    mc.reset_launches()
+    with monkeypatch.context() as m:
+        for name in ("_head_shift", "_u_epilogue", "finalize_umoments_plain", "reduce_umoments_plain"):
+            m.setattr(mc, name, _refuse)
+        out = mc._reduce_u_cuda(u, w, order)
+    assert {k: c for k, c in mc.LAUNCHES.items() if c} == {"head_shift": 1, "finalize_u": 1}
+    assert [tuple(t.shape) for t in out] == [(nbatch,), (order + 1, nbatch), (nbatch,)]
+    assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all()) for t in out)
+    ref = mc.reduce_umoments_plain(u.double(), None if w is None else w.double(), order)
+    assert_close(out, ref, RTOL32, 2e-5 if dtype == torch.bfloat16 else ATOL32)
+    assert bool((out[1][0] == 1).all()) and bool((out[1][1] == 0).all())
+
+
+@pytest.mark.parametrize(("nbatch", "r", "order", "weighted"), [(3, 2500, 5, True), (1, 5003, 7, False)])
+def test_k4_emulated_matches_jax(kernels, rng, nbatch, r, order, weighted):
+    """The K4 kernel on the CPU against the JAX package's Pallas kernel in
+    interpret mode (tests/test_parallel.py:138's shapes and data), at the
+    float32 bar and at K4's own (uave rtol 1e-6)."""
+    from thermoextrap_tpu.ops import moments_pallas as jpallas
+
+    u = rng.normal(-50.0, 2.0, (nbatch, r)).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, (nbatch, r)).astype(np.float32) if weighted else None
+    juave, jdu = jpallas.reduce_central_umoments_batched(u, order, weight=w, interpret=True)
+    uave, du, _ = mc._reduce_u_cuda(tt(u), None if w is None else tt(w), order)
+    assert_close((uave, du), (juave, jdu), RTOL32, ATOL32)
+    assert_close(uave, juave, 1e-6)
+
+
+def test_head_shift_emulated_u_alone(kernels, rng):
+    """The head shift with no value stream (V = 0, the K4 / K5 wrappers'
+    first launch): s_u of each row against _head_shift, 0 for a zero-weight
+    head, the same bits as the u column of a shift with values, bfloat16
+    streams, and the flat form."""
+    nbatch, r = 3, 9000
+    u = _f32(rng.normal(5.0, 1.0, (nbatch, r)))
+    x = _f32(rng.normal(2.0, 0.5, (nbatch, r, 2)))
+    w = _f32(rng.uniform(0.5, 1.5, (nbatch, r)))
+    w[1, : mc.HEAD_N] = 0.0
+    mc.reset_launches()
+    got = mc.head_shift_cuda(u, None, w)
+    assert mc.LAUNCHES["head_shift"] == 1 and got.shape == (nbatch,) and got.dtype == torch.float32
+    assert_close(got, mc._head_shift(u, w), 1e-6)
+    assert float(got[1]) == 0.0
+    assert torch.equal(got, mc.head_shift_cuda(u, x, w)[:, 0])
+    ub = u.to(torch.bfloat16)
+    assert_close(mc.head_shift_cuda(ub, None), mc._head_shift(ub.float(), None), 1e-6)
+    flat = mc.head_shift_cuda(u[2], None)
+    assert flat.shape == (1,)
+    assert_close(flat, mc._head_shift(u[2:], None), 1e-6)
+
+
 # -- K5 on the tensor cores: counts as exact bf16, rows as three bf16 terms ------------------
 
 
@@ -344,7 +429,7 @@ def test_k5_tensor_core_path_draws_equal_table_and_match_plain(kernels, rng, nba
     table = mc._poisson_counts(21, nrep, r)
     mc.reset_launches()
     k5 = mc._resample_u_cuda(u, w, nrep, order, seed=21)
-    assert {k: c for k, c in mc.LAUNCHES.items() if c} == {"finalize_u": 1}
+    assert {k: c for k, c in mc.LAUNCHES.items() if c} == {"head_shift": 1, "finalize_u": 1}
     consume = mc._resample_u_cuda(u, w, nrep, order, freq=table)
     assert all(torch.equal(a, b) for a, b in zip(k5, consume))
     atol = 2e-5 if dtype == torch.bfloat16 else ATOL32

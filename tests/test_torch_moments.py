@@ -220,7 +220,6 @@ def test_build_digest_tracks_sources():
         "comoments_resample.cu",
         "finalize.cu",
         "perturb_resample.cu",
-        "umoments_reduce.cu",
         "umoments_resample.cu",
     }
     assert {p.name for p in cuh} == {"common.cuh", "philox.cuh", "resample_tile.cuh"}

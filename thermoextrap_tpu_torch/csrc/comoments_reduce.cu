@@ -1,26 +1,30 @@
-// K1 and K6: single-pass shifted (co)moment reduction, batched.
+// K1, K4 and K6: single-pass shifted (co)moment reduction, batched.
 //
 // Replaces thermoextrap_tpu/ops/moments_pallas.py
 //   K1 reduce_central_comoments_fused   (kernel _reduce_kernel, :192)
+//   K4 reduce_central_umoments_batched  (kernel _reduce_u_batched_kernel, :1656)
 //   K6 reduce_central_comoments_batched (kernel _reduce_co_batched_kernel, :1875)
-// as ONE kernel over (nbatch, R, V); K1 is the case nbatch = 1.  The TPU kept
-// them apart for its 128-lane bitcast packing and misaligned-R path, which
-// mean nothing here.
+// as ONE kernel over (nbatch, R, V); K1 is the case nbatch = 1, K4 the case
+// V = 0 (u-moments alone: the energy moments of every macrostate of an lnPi
+// grid, and the x_is_u route of the flat reduction).  The TPU kept them apart
+// for its 128-lane bitcast packing and misaligned-R path, which mean nothing
+// here.
 //
 // Computes, for every batch row b, value column k and n = 0..order,
 //   part[blk, b, n]               = sum_j w_j (u_j - s_u[b])^n
 //   part[blk, b, (k + 1) n1 + n]  = sum_j w_j (u_j - s_u[b])^n (x_jk - s_x[b, k])
 // (n1 = order + 1) over the samples j of sample block blk: the layout of the
-// finalize kernel of finalize.cu, with the batch row in the place of the
-// replicate.  The shift row (s_u[b], s_x[b, :]) comes from the head-shift
-// kernel; the finalize kernel sums the block partials in float64 in a fixed
-// order (no atomics, so runs repeat exactly) and recentres them exactly.  The
-// wrapper is those three launches.
+// finalize kernels of finalize.cu, with the batch row in the place of the
+// replicate (finalize_comoments), or at V = 0 with the sample blocks as the
+// chunks of one replicate (finalize_umoments).  The shift row (s_u[b],
+// s_x[b, :]) comes from the head-shift kernel; the finalize kernel sums the
+// block partials in float64 in a fixed order (no atomics, so runs repeat
+// exactly) and recentres them exactly.  The wrapper is those three launches.
 //
 // Bound on the H100: bytes read.  Order 6, V = 1 costs ~20 flops per sample
-// against 8 bytes (f32) or 4 bytes (bf16), far below the card's ~20
-// flop/byte balance point, so the kernel is a stream.  What the design does
-// about it:
+// against 8 bytes (f32) or 4 bytes (bf16), and V = 0 at order 7 ~16 flops
+// against 4 or 2 bytes, far below the card's ~20 flop/byte balance point, so
+// the kernel is a stream.  What the design does about it:
 //   - u, w and x are read by 16-byte loads (4 float32 or 8 bfloat16 samples;
 //     the V columns of those samples are V more 16-byte loads), two groups in
 //     flight per thread; a row whose u, x and w do not share an alignment
@@ -30,6 +34,12 @@
 //     columns stay in registers (one kernel for each V up to 4, so that every
 //     register index is known to the compiler).  More columns go in tiles of
 //     4 by scalar loads, u re-read only past the first tile;
+//   - at V = 0 (K4) no x is read, nor passed: one pass over u and w sums the
+//     u powers alone (the kernel for NC = 0; its column arrays keep one slot
+//     that nothing touches, so that no array has size zero).  A sample costs
+//     4 or 2 bytes there, so the instructions per sample count: up to order
+//     7 (the lnPi grid's 6, the x_is_u route's 7) the 8 power slots are
+//     summed without the per-slot order compare (TX_SHORT_NP);
 //   - the sums of a sample block are reduced by warp shuffles and written as
 //     one partial row: nblk nbatch blocks, ~8 a SM at the main path's shape.
 
@@ -37,8 +47,15 @@
 
 #define TX_REDUCE_THREADS 256
 #define TX_RED_NC 4  // value columns a thread keeps in registers
+#define TX_SHORT_NP 8  // power slots of the unguarded u-only kernel (orders up to 7)
 
 namespace {
+
+// slots of a thread's arrays for NC value columns: at least one, so that the
+// u-only kernel (NC = 0) declares no zero-size array; a slot past NC is never
+// read or written
+template <int NC>
+constexpr int kSlots = NC > 0 ? NC : 1;
 
 // 16 bytes of a stream: 4 float32 or 8 bfloat16 samples
 template <typename T>
@@ -53,15 +70,18 @@ struct Vec16 {
   }
 };
 
-// the sums of one block of threads
-template <int NC>
+// the sums of one block of threads in NP power slots: TX_MAX_ORDER + 1 slots,
+// each summed only up to the order, or TX_SHORT_NP slots (order < NP) all
+// summed, as a slot past the order costs less than the compare that would
+// skip it; no slot past the order is written out
+template <int NC, int NP>
 struct Sums {
-  float u[TX_MAX_ORDER + 1];
-  float x[NC][TX_MAX_ORDER + 1];
+  float u[NP];
+  float x[kSlots<NC>][NP];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int n = 0; n <= TX_MAX_ORDER; ++n) {
+    for (int n = 0; n < NP; ++n) {
       u[n] = 0.f;
 #pragma unroll
       for (int k = 0; k < NC; ++k) x[k][n] = 0.f;
@@ -69,10 +89,10 @@ struct Sums {
   }
 
   // one sample: p = w, du and the shifted values of the tile's columns
-  __device__ __forceinline__ void add(float p, float du, const float (&dx)[NC], int order) {
+  __device__ __forceinline__ void add(float p, float du, const float (&dx)[kSlots<NC>], int order) {
 #pragma unroll
-    for (int n = 0; n <= TX_MAX_ORDER; ++n) {
-      if (n <= order) {
+    for (int n = 0; n < NP; ++n) {
+      if (NP == TX_SHORT_NP || n <= order) {
         u[n] += p;
 #pragma unroll
         for (int k = 0; k < NC; ++k) x[k][n] = fmaf(p, dx[k], x[k][n]);
@@ -83,13 +103,13 @@ struct Sums {
 };
 
 // samples [j0, j1) of one row by scalar loads, with a stride of `step`
-template <typename T, int NC>
-__device__ __forceinline__ void add_scalar(Sums<NC>& acc, const T* ub, const T* xb,
-                                           const float* wb, float s_u, const float (&s_x)[NC],
+template <typename T, int NC, int NP>
+__device__ __forceinline__ void add_scalar(Sums<NC, NP>& acc, const T* ub, const T* xb,
+                                           const float* wb, float s_u, const float (&s_x)[kSlots<NC>],
                                            int k0, int nc, int V, long long j0, long long j1,
                                            long long step, int order) {
   for (long long j = j0; j < j1; j += step) {
-    float dx[NC];
+    float dx[kSlots<NC>];
 #pragma unroll
     for (int k = 0; k < NC; ++k) dx[k] = (k < nc) ? tx_to_float(xb[j * V + k0 + k]) - s_x[k] : 0.f;
     acc.add((wb != nullptr) ? wb[j] : 1.f, tx_to_float(ub[j]) - s_u, dx, order);
@@ -97,8 +117,9 @@ __device__ __forceinline__ void add_scalar(Sums<NC>& acc, const T* ub, const T* 
 }
 
 // Block (blk, b) over the samples of row b, for value columns k0 .. k0 + nc - 1
-// (nc <= NC) in turn; the u sums come with the first tile.
-template <typename T, int NC>
+// (nc <= NC) in turn; the u sums come with the first tile (at V = 0 the only
+// one, with no column: x may then be null).
+template <typename T, int NC, int NP>
 __global__ void __launch_bounds__(TX_REDUCE_THREADS)
 reduce_comoments_kernel(const T* __restrict__ u, const T* __restrict__ x,
                         const float* __restrict__ w, const float* __restrict__ shift,
@@ -130,12 +151,16 @@ reduce_comoments_kernel(const T* __restrict__ u, const T* __restrict__ x,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  for (int k0 = 0; k0 < V; k0 += NC) {
+  // column tiles; at V = 0 one pass with no column (the u sums alone).  With
+  // columns the bound is V itself: a loop condition that also admitted V = 0
+  // (k0 == 0 || k0 < V) slowed K1 by 8% on an H100
+  const int vcols = (NC == 0) ? 1 : V;
+  for (int k0 = 0; k0 < vcols; k0 += kSlots<NC>) {
     const int nc = (V - k0 < NC) ? V - k0 : NC;
-    float s_x[NC];
+    float s_x[kSlots<NC>];
 #pragma unroll
     for (int k = 0; k < NC; ++k) s_x[k] = (k < nc) ? shift[(long long)b * (V + 1) + 1 + k0 + k] : 0.f;
-    Sums<NC> acc;
+    Sums<NC, NP> acc;
     acc.zero();
 
     if (vec_ok) {
@@ -143,7 +168,7 @@ reduce_comoments_kernel(const T* __restrict__ u, const T* __restrict__ x,
       for (long long g = tid; g < ngroup; g += 2 * nthreads) {
         const long long g2 = g + nthreads;
         const bool two = g2 < ngroup;
-        float uv[2][VN], wv[2][VN], xv[2][NC * VN];
+        float uv[2][VN], wv[2][VN], xv[2][kSlots<NC> * VN];
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const long long j = h + ((q == 0) ? g : g2) * VN;
@@ -183,7 +208,7 @@ reduce_comoments_kernel(const T* __restrict__ u, const T* __restrict__ x,
         for (int q = 0; q < 2; ++q) {
 #pragma unroll
           for (int i = 0; i < VN; ++i) {
-            float dx[NC];
+            float dx[kSlots<NC>];
 #pragma unroll
             for (int k = 0; k < NC; ++k) {
               // sample i's column k sits at index i V + k of the group (V = NC here)
@@ -194,15 +219,15 @@ reduce_comoments_kernel(const T* __restrict__ u, const T* __restrict__ x,
         }
       }
       // the scalar head [0, h) and tail [body_end, R)
-      add_scalar<T, NC>(acc, ub, xb, wb, s_u, s_x, k0, nc, V, tid, h, nthreads, order);
-      add_scalar<T, NC>(acc, ub, xb, wb, s_u, s_x, k0, nc, V, body_end + tid, R, nthreads, order);
+      add_scalar<T, NC, NP>(acc, ub, xb, wb, s_u, s_x, k0, nc, V, tid, h, nthreads, order);
+      add_scalar<T, NC, NP>(acc, ub, xb, wb, s_u, s_x, k0, nc, V, body_end + tid, R, nthreads, order);
     } else {
-      add_scalar<T, NC>(acc, ub, xb, wb, s_u, s_x, k0, nc, V, tid, R, nthreads, order);
+      add_scalar<T, NC, NP>(acc, ub, xb, wb, s_u, s_x, k0, nc, V, tid, R, nthreads, order);
     }
 
     // block sums: warp shuffles, then the warps in order
 #pragma unroll
-    for (int n = 0; n <= TX_MAX_ORDER; ++n) {
+    for (int n = 0; n < NP; ++n) {
       if (n <= order) {
         const float a = tx_warp_sum(acc.u[n]);
         if (lane == 0) red[warp][n] = a;
@@ -227,11 +252,11 @@ reduce_comoments_kernel(const T* __restrict__ u, const T* __restrict__ x,
   }
 }
 
-template <typename T, int NC>
+template <typename T, int NC, int NP = TX_MAX_ORDER + 1>
 void launch_reduce(const void* u, const void* x, const void* w, const void* shift, void* part,
                    long long nbatch, long long R, int V, int order, int nblk, cudaStream_t s) {
   const dim3 grid((unsigned)nblk, (unsigned)nbatch, 1);
-  reduce_comoments_kernel<T, NC><<<grid, TX_REDUCE_THREADS, 0, s>>>(
+  reduce_comoments_kernel<T, NC, NP><<<grid, TX_REDUCE_THREADS, 0, s>>>(
       (const T*)u, (const T*)x, (const float*)w, (const float*)shift, (float*)part, R, V, order);
 }
 
@@ -239,7 +264,11 @@ template <typename T>
 void launch_by_columns(const void* u, const void* x, const void* w, const void* shift,
                        void* part, long long nbatch, long long R, int V, int order, int nblk,
                        cudaStream_t s) {
-  if (V == 1) {
+  if (V == 0 && order < TX_SHORT_NP) {
+    launch_reduce<T, 0, TX_SHORT_NP>(u, x, w, shift, part, nbatch, R, V, order, nblk, s);
+  } else if (V == 0) {
+    launch_reduce<T, 0>(u, x, w, shift, part, nbatch, R, V, order, nblk, s);
+  } else if (V == 1) {
     launch_reduce<T, 1>(u, x, w, shift, part, nbatch, R, V, order, nblk, s);
   } else if (V == 2) {
     launch_reduce<T, 2>(u, x, w, shift, part, nbatch, R, V, order, nblk, s);
@@ -257,15 +286,17 @@ extern "C" {
 const char* tx_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // u (nbatch, R), x (nbatch, R, V) of the stream type (bf16 != 0: bfloat16,
-// else float32); w (nbatch, R) float32 or null; shift (nbatch, V + 1)
-// float32, a row (s_u, s_x) per batch row (tx_head_shift).  Writes part
-// (nblk, nbatch, (V + 1)(order + 1)) float32, the layout of
-// tx_finalize_comoments.  Returns the launch status.
+// else float32; V = 0: u-moments alone, x not read and may be null); w
+// (nbatch, R) float32 or null; shift (nbatch, V + 1) float32, a row (s_u,
+// s_x) per batch row (tx_head_shift).  Writes part (nblk, nbatch, (V + 1)
+// (order + 1)) float32, the layout of tx_finalize_comoments (V >= 1) and of
+// tx_finalize_umoments with nchunk = nblk, nrep = 1 (V = 0).  Returns the
+// launch status.
 int tx_reduce_comoments(const void* u, const void* x, const void* w, const void* shift,
                         void* part, long long nbatch, long long R, int V, int order, int nblk,
                         int bf16, int device, void* stream) {
   if (order < 0 || order > TX_MAX_ORDER || nblk < 1 || nblk > 2147483647 || nbatch < 1 ||
-      nbatch > 65535 || V < 1 || R < 1) {
+      nbatch > 65535 || V < 0 || (V > 0 && x == nullptr) || R < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);

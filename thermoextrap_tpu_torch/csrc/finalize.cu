@@ -1,20 +1,21 @@
-// Helper kernels of the K1/K6, K2/K3 and K5 wrappers: the head shift before
-// the reduction and bootstrap kernels and the finalize passes after them, so
-// that those wrappers launch kernels and issue no tensor arithmetic from
-// Python (K1/K6 and K2/K3: head shift, kernel, finalize; K5: kernel,
-// finalize).
+// Helper kernels of the K1/K6, K2/K3 and K4/K5 wrappers: the head shift
+// before the reduction and bootstrap kernels and the finalize passes after
+// them, so that those wrappers launch kernels and issue no tensor arithmetic
+// from Python (each is head shift, kernel, finalize).
 //
 // None has a Pallas counterpart: thermoextrap_tpu/ops/moments_pallas.py
 // leaves the shift estimate (_head_shift, :112) and the epilogues of
 // reduce_central_comoments_fused (:472 on), resample_central_comoments_fused
-// (:782 on) and resample_central_umoments_batched_poisson (:1292 on) to XLA,
+// (:782 on), resample_central_umoments_batched_poisson (:1292 on) and
+// reduce_central_umoments_batched (:1796 on) to XLA,
 // which fuses them; in eager PyTorch the same steps are dozens of launches of
 // a few microseconds each and took the wrappers' whole time at small shapes.
 //
 // head_shift_kernel, one block per (column, batch row): s_u[b] and s_x[b, k]
-// are the weighted means of the first `head` samples of batch row b,
-// accumulated in float32; 0 where the head's weight is 0 (the recentring is
-// exact for any finite shift, 0/0 would poison every output).
+// are the weighted means of the first `head` samples of batch row b (s_u
+// alone at V = 0, for K4/K5), accumulated in float32; 0 where the head's
+// weight is 0 (the recentring is exact for any finite shift, 0/0 would
+// poison every output).
 //
 // finalize_comoments_kernel, one block per replicate (K2/K3) or batch row
 // (K1/K6) r: sums the chunk partials part[chunk, r, c] in float64 in a fixed
@@ -33,7 +34,8 @@
 //
 // finalize_umoments_kernel, a group of 1-32 lanes per (replicate, batch
 // row), more for fewer pairs: K5's chunk partials part[chunk, r, b (order +
-// 1) + n] summed in float64 in a fixed order (a lane's chunks in order, then
+// 1) + n] (K4's block partials: one replicate, the blocks as its chunks)
+// summed in float64 in a fixed order (a lane's chunks in order, then
 // the lanes in order), normalised with the same zero-weight convention and recentred about
 // the mean by the same transform, shifted back by s_u[b].
 //
@@ -342,7 +344,8 @@ int tx_finalize_comoments(const void* part, const void* shift, int shift_stride,
   return (int)cudaGetLastError();
 }
 
-// part (nchunk, nrep, nbatch (order+1)) float32 (K5's partials), su (nbatch,)
+// part (nchunk, nrep, nbatch (order+1)) float32 (K5's partials, or K4's with
+// nrep = 1 and nchunk its sample blocks), su (nbatch,)
 // float32.  Writes uave (nrep, nbatch), du (order+1, nrep, nbatch) and wsum
 // (nrep, nbatch) float32.  Returns the launch status.
 int tx_finalize_umoments(const void* part, const void* su, void* uave, void* du, void* wsum,

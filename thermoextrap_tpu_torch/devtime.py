@@ -6,14 +6,17 @@ Run from the repository root on a CUDA machine::
 
 It builds ``chip_smoke.py``'s inputs (R = 1e8 ideal-gas configurations of 8
 particles, the 64 x 1e6 lnΠ grid; same seed) and prints one JSON line per
-call: the main path, ⟨u⟩(β), the lnΠ grid, the volume pipeline, K1 alone at
+call: the main path, ⟨u⟩(β), the lnΠ grid and its series engine alone (the
+call past its K4 and K5 wrappers), the volume pipeline, K1 alone at
 R = 1e8 (one value column at order 6, and the volume path's two at order 1), K3 alone at
 the main path's shape (R = 1e8, 256 replicates), K2 at the quick start's
 shape (R = 1e5) and at R = 1e7 (100 replicates, int32 table), K6 at the quick
-start's shape (100 x 1e5), K4 and K5 alone (K5 at the grid and at one row of
+start's shape (100 x 1e5), K4 and K5 alone (K4 at the grid in float32 and
+bfloat16 and at one row of R = 1e8; K5 at the grid and at one row of
 R = 1e8), the perturbation call at R = 1e7 (counts drawn in the kernel, then
-from a table) and at R = 1e8, its weight build alone, K7 and K8 alone, and
-one streaming update of a 1e7-sample chunk; with names, only those calls.
+from a table) and at R = 1e8, its weight build alone, K7 and K8 alone, one
+streaming update of a 1e7-sample chunk, and one streaming lnΠ update of a
+64 x 250k chunk of the grid; with names, only those calls.
 Each line holds
 
 - ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
@@ -167,6 +170,8 @@ def main() -> int:
     import torch
 
     from . import idealgas
+    from .models.derivatives import central_u_ave_coefs, lnpi_coefs
+    from .models.extrap import _poly_eval
     from .ops import moments_cuda as mc
     from .ops.resample import poisson1_freq
     from .pipeline import (
@@ -175,6 +180,7 @@ def main() -> int:
         make_lnpi_pipeline,
         make_perturb_pipeline,
         make_streaming_extrap_pipeline,
+        make_streaming_lnpi_pipeline,
         make_volume_pipeline,
     )
 
@@ -218,10 +224,26 @@ def main() -> int:
     table2q = table2[:, :100_000].contiguous()
     x2 = torch.stack([x, x * x], dim=1)  # the volume path's two value columns
     u6, x6 = u[:10_000_000].reshape(100, 100_000), x1[:10_000_000].reshape(100, 100_000, 1)
+    lnpi0, mudotn = -0.01 * ncoord**2, 0.3 * ncoord
+    # the lnΠ call past its K4 and K5 wrappers (make_lnpi_pipeline's run on
+    # their outputs): the series engine, the Taylor sums, the replicates' std
+    uave_g, du_g = (t.double() for t in mc.reduce_central_umoments_batched(grid, ORDER))
+    bu_g, bdu_g = mc.resample_central_umoments_batched_poisson(grid, NREP, ORDER, seed=SEED)
+
+    def lnpi_series():
+        dalpha = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=dev)) - BETA0
+        pred = _poly_eval(lnpi_coefs(central_u_ave_coefs(uave_g, du_g, ORDER - 1), lnpi0, mudotn, ORDER), dalpha)
+        coefs = lnpi_coefs(central_u_ave_coefs(bu_g.double(), bdu_g.double(), ORDER - 1), lnpi0[None], mudotn[None], ORDER)
+        return pred, _poly_eval(coefs, dalpha).std(dim=1, correction=0)
+
+    gstate0, gupdate, _ = make_streaming_lnpi_pipeline(ORDER, BETA0, grid_shape=(64,), nrep=NREP, seed=SEED)
+    gchunk = grid.chunk(4, dim=1)[1]  # a 64 x 250k chunk, as a view of the grid
+    gridb = grid.to(torch.bfloat16)
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
-        "lnpi_pipeline": lambda: run_lnpi(grid, -0.01 * ncoord**2, 0.3 * ncoord, betas, seed=SEED),
+        "lnpi_pipeline": lambda: run_lnpi(grid, lnpi0, mudotn, betas, seed=SEED),
+        "lnpi_series": lnpi_series,
         "volume_pipeline": lambda: run_vol(wv, x, x, volumes, seed=SEED),
         "K1_1e8": lambda: mc.reduce_central_comoments_fused(u, x1, ORDER),
         "K1_1e8_V2": lambda: mc.reduce_central_comoments_fused(u, x2, 1),
@@ -230,6 +252,7 @@ def main() -> int:
         "K2_int32_1e7": lambda: mc.resample_central_comoments_fused(up, x1[:rp], table2, ORDER),
         "K6_100x1e5": lambda: mc.reduce_central_comoments_batched(u6, x6, ORDER),
         "K4_grid_order6": lambda: mc.reduce_central_umoments_batched(grid, ORDER),
+        "K4_grid_bf16_order6": lambda: mc.reduce_central_umoments_batched(gridb, ORDER),
         "K4_flat_order7": lambda: mc.reduce_central_umoments_batched(u, ORDER + 1),
         "K5_grid_order6": lambda: mc.resample_central_umoments_batched_poisson(grid, NREP, ORDER, seed=SEED),
         "K5_flat_1e8_order7": lambda: mc.resample_central_umoments_batched_poisson(u[None], NREP, ORDER + 1, seed=SEED),
@@ -240,6 +263,7 @@ def main() -> int:
         "K7_int8_1e7": lambda: mc.resample_perturb_freq(ep, xp[:, None], table),
         "K8_1e7": lambda: mc.resample_perturb_poisson(ep, xp[:, None], nrep_p, seed=SEED),
         "streaming_update_1e7": lambda: update(state0, up, xp),
+        "streaming_lnpi_update_64x250k": lambda: gupdate(gstate0, gchunk),
     }
     wanted = sys.argv[1:] or list(calls)
     for name in wanted:

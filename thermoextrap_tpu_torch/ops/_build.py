@@ -60,7 +60,6 @@ _SIGNATURES = {
     "tx_finalize_comoments": ([_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "tx_finalize_umoments": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "tx_mma_probe": ([_P, _P, _P, _P, _I, _P], _I),
-    "tx_reduce_umoments": ([_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P], _I),
     "tx_resample_umoments": (
         [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I, _I, _I, _LL, _P, _I, _P],
         _I,

@@ -12,21 +12,23 @@ K1      :func:`reduce_central_comoments_fused`              ``csrc/comoments_red
 K6      :func:`reduce_central_comoments_batched`            ``csrc/comoments_reduce.cu``
 K2      :func:`resample_central_comoments_fused`            ``csrc/comoments_resample.cu``
 K3      :func:`resample_central_comoments_poisson`          ``csrc/comoments_resample.cu``
-K4      :func:`reduce_central_umoments_batched`             ``csrc/umoments_reduce.cu``
+K4      :func:`reduce_central_umoments_batched`             ``csrc/comoments_reduce.cu``
 K5      :func:`resample_central_umoments_batched_poisson`   ``csrc/umoments_resample.cu``
 K7      :func:`resample_perturb_freq`                       ``csrc/perturb_resample.cu``
 K8      :func:`resample_perturb_poisson`                    ``csrc/perturb_resample.cu``
 ======  =================================================  ===============================
 
-K1, K2, K3 and K6 run between two helper kernels of ``csrc/finalize.cu``:
-the head shift (:func:`head_shift_cuda`, one shift row per batch row for
-K1 / K6; plain version :func:`_head_shift`) and the finalize pass over the
-chunk or block partials (:func:`finalize_comoments_cuda`, with one shared
-shift for K2 / K3 and a shift row per batch row for K1 / K6; plain version
-:func:`finalize_comoments_plain`), so their wrapper is three launches and
-issues no tensor arithmetic from Python.  K5 is two launches: its kernel and
-its finalize kernel (:func:`finalize_umoments_cuda`; plain version
-:func:`finalize_umoments_plain`), after the head shift of :func:`_u_stream`.
+Every kernel but K7 / K8 runs between two helper kernels of
+``csrc/finalize.cu``: the head shift (:func:`head_shift_cuda`, one shift row
+per batch row for K1 / K6, the u shift alone of each row for K4 / K5; plain
+version :func:`_head_shift`) and the finalize pass over the chunk or block
+partials (:func:`finalize_comoments_cuda`, with one shared shift for K2 / K3
+and a shift row per batch row for K1 / K6; :func:`finalize_umoments_cuda`
+for K5's replicates and for K4's sample blocks as the chunks of one
+replicate; plain versions :func:`finalize_comoments_plain`,
+:func:`finalize_umoments_plain`), so their wrapper is three launches and
+issues no tensor arithmetic from Python.  K4 is the u-only case (no value
+column) of the K1 / K6 kernel.
 
 Every wrapper runs its kernel on a CUDA tensor and its plain torch version on
 a CPU tensor; any other device raises.  On the card the sample streams are
@@ -106,12 +108,12 @@ LAUNCHES = {
     "K6": 0,
     "K7": 0,
     "K8": 0,
-    "head_shift": 0,  # helper kernels of the K1 / K2 / K3 / K6 wrappers (csrc/finalize.cu)
-    "finalize": 0,
-    "finalize_u": 0,  # helper kernel of the K5 wrapper (csrc/finalize.cu)
+    "head_shift": 0,  # helper kernels (csrc/finalize.cu): of every wrapper but K7 / K8
+    "finalize": 0,  # of the K1 / K2 / K3 / K6 wrappers
+    "finalize_u": 0,  # of the K4 / K5 wrappers
 }
 
-_REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu
+_REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu (K1, K4, K6)
 _URS_THREADS = 256  # TX_URS_THREADS of resample_tile.cuh (K2, K3, K5, K7, K8)
 _URS_RB = 4  # TX_URS_RB
 _URS_CB = 16  # TX_URS_CB
@@ -322,9 +324,12 @@ def reduce_comoments_plain(u2, x3, w2, order: int):
 
 
 def _reduce_blocks(nbatch: int, r: int) -> int:
-    """Sample blocks of the K1/K6 kernel per batch row: ~4096 samples a
-    block, at most 1024 (the finalize kernel sums them per row)."""
-    return max(1, min(1024, math.ceil(r / (_REDUCE_THREADS * 16))))
+    """Sample blocks of the K1/K4/K6 kernel per batch row: ~4096 samples a
+    block or more, about two waves of 8 blocks on each SM in all (fewer,
+    longer blocks amortise a block's closing sums over more samples: K4 at
+    the lnΠ grid), at most 1024 a row (the finalize kernels sum them per
+    row)."""
+    return max(1, min(1024, math.ceil(r / (_REDUCE_THREADS * 16)), math.ceil(2 * _TARGET_BLOCKS / nbatch)))
 
 
 def _reduce_cuda(u2, x3, w2, order: int):
@@ -541,19 +546,25 @@ def finalize_comoments_plain(part, s_u, s_x, order: int, v: int):
 
 def head_shift_cuda(u, x, w=None):
     """Launch the head-shift kernel on the kernel operands ``u (R,)``,
-    ``x (R, V)`` and ``w (R,)`` float32 or None, or on batch rows ``u
-    (nbatch, R)``, ``x (nbatch, R, V)``, ``w (nbatch, R)`` (streams both
-    float32 or both bfloat16, contiguous).  Returns the float32 shift ``(V+1,)``
-    (``(nbatch, V+1)`` for batch rows): ``s_u`` then ``s_x`` of each row
-    (:func:`_head_shift` is the plain version)."""
+    ``x (R, V)`` or None and ``w (R,)`` float32 or None, or on batch rows
+    ``u (nbatch, R)``, ``x (nbatch, R, V)`` or None, ``w (nbatch, R)``
+    (streams both float32 or both bfloat16, contiguous).  Returns the float32
+    shift ``(V+1,)`` (``(nbatch, V+1)`` for batch rows): ``s_u`` then ``s_x``
+    of each row; with ``x`` None (V = 0, K4 / K5) ``s_u`` alone, ``(1,)``, or
+    ``(nbatch,)`` for batch rows (:func:`_head_shift` is the plain
+    version)."""
     # shapes only, no views: the K2 / K3 wrapper is host bound at small R
     batched = u.ndim == 2
     nbatch, r = u.shape if batched else (1, u.shape[0])
-    v = x.shape[-1]
-    shift = torch.empty((nbatch, v + 1) if batched else (v + 1,), dtype=torch.float32, device=u.device)
+    v = 0 if x is None else x.shape[-1]
+    if not batched:
+        shape = (v + 1,)
+    else:
+        shape = (nbatch,) if x is None else (nbatch, v + 1)
+    shift = torch.empty(shape, dtype=torch.float32, device=u.device)
     status = _build.library().tx_head_shift(
         u.data_ptr(),
-        x.data_ptr(),
+        None if x is None else x.data_ptr(),
         None if w is None else w.data_ptr(),
         shift.data_ptr(),
         min(HEAD_N, r),
@@ -815,15 +826,13 @@ def _u_rows(uv, weight):
 
 
 def _u_stream(u2, w2):
-    """Kernel operands: the stream in its type (bfloat16 stays, the rest is
-    float32), float32 weights, and the float32 head shift per row."""
+    """Kernel operands of K4 and K5: the stream in its type (bfloat16 stays,
+    the rest is float32), float32 weights, and the float32 shift ``(nbatch,)``
+    of each row from the head-shift kernel (its first launch)."""
     sdt = torch.bfloat16 if u2.dtype == torch.bfloat16 else torch.float32
     u = u2.to(sdt).contiguous()
     w = None if w2 is None else w2.to(torch.float32).contiguous()
-    # the shift reads only the head: convert that, not the whole stream
-    head = slice(0, HEAD_N)
-    s_u = _head_shift(u[:, head].to(torch.float32), None if w is None else w[:, head]).contiguous()
-    return u, w, s_u, int(sdt == torch.bfloat16)
+    return u, w, head_shift_cuda(u, None, w), int(sdt == torch.bfloat16)
 
 
 def _plain_u_rows(u2, w2):
@@ -850,40 +859,45 @@ def reduce_umoments_plain(u2, w2, order: int):
 
 
 def _reduce_u_cuda(u2, w2, order: int):
-    """Launch K4; returns ``(uave, du, wsum)`` (float32)."""
+    """The K4 wrapper on CUDA tensors: checks and casts, then three launches
+    (the head shift of each row, the K1 / K6 reduction kernel with no value
+    column, the u-moment finalize kernel with the sample blocks as the chunks
+    of one replicate) and no tensor arithmetic in between; returns ``(uave
+    (nbatch,), du (order+1, nbatch), wsum (nbatch,))``, float32."""
     _check_cuda_inputs(u2, w2)
     if order > MAX_ORDER:
         msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
         raise ValueError(msg)
     u, w, s_u, bf16 = _u_stream(u2, w2)
     nbatch, r = u.shape
-    nblk = max(1, min(1024, math.ceil(r / (_REDUCE_THREADS * 16))))
-    part = torch.empty((nbatch, nblk, order + 1), dtype=torch.float32, device=u.device)
-    lib = _build.library()
-    status = lib.tx_reduce_umoments(
+    nblk = _reduce_blocks(nbatch, r)
+    part = torch.empty((nblk, 1, nbatch * (order + 1)), dtype=torch.float32, device=u.device)
+    status = _build.library().tx_reduce_comoments(
         u.data_ptr(),
+        None,
         None if w is None else w.data_ptr(),
         s_u.data_ptr(),
         part.data_ptr(),
         nbatch,
         r,
+        0,
         order,
         nblk,
         bf16,
         u.device.index,
         _stream_ptr(u.device),
     )
-    _build.check(status, "tx_reduce_umoments")
-    # deterministic second pass over the block partials, in float64
-    out = _u_epilogue(part.double().sum(1).T, s_u.double())
-    return tuple(t.to(torch.float32) for t in out)
+    _build.check(status, "tx_reduce_comoments")
+    uave, du, wsum = finalize_umoments_cuda(part, s_u, order, nbatch)
+    return uave[0], du[:, 0], wsum[0]
 
 
 def reduce_central_umoments_batched(uv, order: int, weight=None):
     r"""K4: central u-moments of every row of ``uv (*batch, R)`` (flat
     ``(R,)`` too), each row shifted by its own head mean.  Returns ``(uave
     (*batch,), du (order+1, *batch))`` with ``du[0] = 1``, ``du[1] = 0``.
-    The kernel reads the u stream only (bfloat16 streams as it is)."""
+    The kernel reads the u stream (bfloat16 streams as it is) and the
+    weights only."""
     batch = tuple(uv.shape[:-1])
     u2, w2 = _u_rows(uv, weight)
     if _device_kind(uv) == "cpu":
@@ -1019,8 +1033,9 @@ def _mma_launch(m: int, nrep: int, r: int, target_blocks: int):
 
 
 def finalize_umoments_plain(part, s_u, order: int, nbatch: int):
-    """Plain torch version of the K5 finalize kernel: the chunk partials
-    ``part (nchunk, nrep, nbatch (order+1))`` summed in float64 and
+    """Plain torch version of the u-moment finalize kernel: the chunk
+    partials ``part (nchunk, nrep, nbatch (order+1))`` of K5 (or the block
+    partials of K4, ``nrep = 1``) summed in float64 and
     recentred exactly about the shift ``s_u (nbatch,)`` (:func:`_u_epilogue`).
     Returns ``(uave (nrep, nbatch), du (order+1, nrep, nbatch), wsum (nrep,
     nbatch))``, float32 (float64 partials keep float64)."""
@@ -1032,8 +1047,9 @@ def finalize_umoments_plain(part, s_u, order: int, nbatch: int):
 
 
 def finalize_umoments_cuda(part, s_u, order: int, nbatch: int):
-    """Launch the K5 finalize kernel (csrc/finalize.cu) on the chunk partials
-    ``part (nchunk, nrep, nbatch (order+1))`` float32 and the float32 shift
+    """Launch the u-moment finalize kernel (csrc/finalize.cu) on the chunk
+    partials ``part (nchunk, nrep, nbatch (order+1))`` float32 of K5 (or the
+    block partials of K4, ``nrep = 1``) and the float32 shift
     ``s_u (nbatch,)``; :func:`finalize_umoments_plain` is the plain version.
     Returns ``(uave (nrep, nbatch), du (order+1, nrep, nbatch), wsum (nrep,
     nbatch))``, float32."""
@@ -1064,8 +1080,9 @@ def finalize_umoments_cuda(part, s_u, order: int, nbatch: int):
 
 
 def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0):
-    """Launch K5 (Poisson counts drawn in the kernel, or the rows of the
-    int32 table ``freq (nrep, R)``) and its finalize kernel; returns ``(uave,
+    """Launch the head shift, K5 (Poisson counts drawn in the kernel, or the
+    rows of the int32 table ``freq (nrep, R)``) and its finalize kernel, with
+    no tensor arithmetic in between; returns ``(uave,
     du, wsum)`` with batch axes ``(nrep, nbatch)``, float32.  Up to 16 rows
     run in the few-rows kernel, more on the tensor cores
     (:func:`_k5_on_tensor_cores`)."""
