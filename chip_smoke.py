@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the torch port's main path, its ensembles, the perturbation path and
-the streaming pipelines once on an NVIDIA GPU.
+"""Drive the torch port's main path, its ensembles, the perturbation path, the
+streaming pipelines and the interpolation between states once on an NVIDIA
+GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -76,11 +77,26 @@ on any failure, without printing a result.  Phases, one line each:
     ``csrc/philox.cuh``) against the 9-compare sum on all 2^32 words, with
     the exact sum of the counts, and the draw's integer instructions per
     count from its SASS (``python -m thermoextrap_tpu_torch.drawcost``, run
-    beside the kernel build).
+    beside the kernel build);
+20. interpolation between states, each path with fresh launch counts: two
+    more R = 1e8 ideal-gas sets at beta 5.2 and 6.0; ``InterpModel`` over
+    (5.2, 6.0) and ``ExtrapWeightedModel`` / ``InterpModelPiecewise`` over
+    the three states at seven targets, against the same models on the float64
+    plain reduction (0.1 sigma) and ``idealgas.x_ave`` (5 sigma, sigma the
+    streaming replicate std); the streaming interpolation (ten 1e7 chunks a
+    state, 256 replicates: K1 and K3 twenty times each) against the one-shot
+    ``InterpModel`` (1e-6 relative); a checkpoint after five chunks a state,
+    restored onto the card and resumed, equal to the uninterrupted run bit
+    for bit, and the ``.npz`` round trip of a CUDA state; the reference
+    example's shape (beta 1 and 5, 5e4 x 1000, 100 replicates through K6)
+    against the float64 plain path and ``x_ave``; the bucketed runner on
+    1e8 - 12345 samples padded to 2^27 (K1 + K3, and K4 + K5 with x_is_u)
+    against the unpadded calls; and the times of one streaming-interpolation
+    update and predict, the one-shot model at R = 1e8 and one bucketed call.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
-kernel once; phases 6, 11 and 16 hold every path to that.  Each kernel's bound is the
+kernel once; phases 6, 11, 16 and 20 hold every path to that.  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
@@ -93,6 +109,7 @@ at order 7; K3, K5 and K8 carry the draw's
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import json
 import math
 import os
@@ -115,6 +132,16 @@ R_PERTURB = 10_000_000  # the perturbation path's size (benches/bench_pipeline.p
 NREP_PERTURB = 128
 STREAM_CHUNKS = 10
 GRID_CHUNKS = 4
+# phase 20: states of the interpolation (with BETA0 the main path's), the
+# targets (BETAS and two between them), the reference example's shape
+# (examples/beta_extrapolation.py) and the bucketed runner's short request
+INTERP_BETA0S = (5.2, 6.0)
+INTERP_EVAL = BETAS + (5.3, 5.7)
+EXAMPLE_BETA0S = (1.0, 5.0)
+EXAMPLE_SHAPE = (50_000, 1_000)
+EXAMPLE_NREP = 100
+BUCKET_SHORT = 12_345
+BUCKET_RTOL = 1e-6
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -163,16 +190,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from thermoextrap_tpu_torch import DataCentralMomentsVals, beta, factory_data_values, idealgas
+    from thermoextrap_tpu_torch import (
+        DataCentralMoments,
+        DataCentralMomentsVals,
+        ExtrapWeightedModel,
+        InterpModel,
+        InterpModelPiecewise,
+        beta,
+        factory_data_values,
+        idealgas,
+    )
     from thermoextrap_tpu_torch.ops import _build, dispatch, resample
     from thermoextrap_tpu_torch.ops import moments_cuda as mc
     from thermoextrap_tpu_torch.pipeline import (
         _chunk_seed,
         _perturb_weights,
+        make_bucketed_extrap_runner,
         make_extrap_pipeline,
         make_lnpi_pipeline,
         make_perturb_pipeline,
         make_streaming_extrap_pipeline,
+        make_streaming_interp_pipeline,
         make_streaming_lnpi_pipeline,
         make_streaming_perturb_pipeline,
         make_volume_pipeline,
@@ -1124,6 +1162,198 @@ def main() -> int:
         shared_loads=draw["shared_loads"],
         bound_ops_per_count=DRAW_OPS_PER_COUNT,
     )
+
+    # -- phase 20: interpolation between states, each path with fresh launch counts ----------
+    def f64_state(d):
+        """A moment state with float64 fields (the pipelines' state type)."""
+        return dataclasses.replace(d, **{k: getattr(d, k).double() for k in ("xave", "uave", "du", "dxdu", "wsum")})
+
+    # (a) two more simulations, each with its own seed: three states with the main path's
+    sims = {BETA0: (u, x)}
+    for k, b in enumerate(INTERP_BETA0S):
+        xb_, ub_ = idealgas.generate_data(
+            (R_MAIN, NPART), b, rng=torch.Generator(device=dev).manual_seed(SEED + 1 + k), dtype=torch.float32
+        )
+        sims[b] = (ub_, xb_)
+    eval_betas = torch.tensor(INTERP_EVAL, dtype=torch.float64)
+    xtruth = torch.stack([idealgas.x_ave(b) for b in INTERP_EVAL]).to(dev)
+
+    def models(betas_, plain=False):
+        """One-shot models over the given states; ``plain``: the float64 plain reduction on the card."""
+        out = []
+        for b in betas_:
+            ub_, xb_ = sims[b]
+            if plain:
+                with dispatch.use_impl("torch"):
+                    d = DataCentralMoments.from_vals(xb_.double(), ub_.double(), ORDER)
+            else:
+                d = f64_state(DataCentralMoments.from_vals(xb_, ub_, ORDER))
+            out.append(beta.factory_extrapmodel(b, d))
+        return out
+
+    # (b) the one-shot models: InterpModel over the two outer states (joint order 13),
+    # the weighted extrapolation and the piecewise interpolation over all three
+    def one_shot():
+        two, three = models(INTERP_BETA0S), models(sorted(sims))
+        return (
+            InterpModel(two).predict(eval_betas),
+            ExtrapWeightedModel(three).predict(eval_betas),
+            InterpModelPiecewise(three).predict(eval_betas),
+        )
+
+    one = counted("interp_one_shot", one_shot)
+    two64, three64 = models(INTERP_BETA0S, plain=True), models(sorted(sims), plain=True)
+    one64 = (
+        InterpModel(two64).predict(eval_betas),
+        ExtrapWeightedModel(three64).predict(eval_betas),
+        InterpModelPiecewise(three64).predict(eval_betas),
+    )
+    del two64, three64
+
+    # (c) the streaming interpolation: ten 1e7 chunks per state, interleaved
+    chunks = {b: list(zip(sims[b][0].chunk(STREAM_CHUNKS), sims[b][1].chunk(STREAM_CHUNKS))) for b in INTERP_BETA0S}
+
+    def feed(states, update, steps):
+        for k in steps:
+            for i, b in enumerate(INTERP_BETA0S):
+                states = update(states, i, *chunks[b][k])
+        return states
+
+    istates0, iupdate, ipredict = make_streaming_interp_pipeline(ORDER, INTERP_BETA0S, nrep=NREP_MAIN, seed=SEED)
+    istates = counted("interp_stream", lambda: feed(istates0, iupdate, range(STREAM_CHUNKS)))
+    ipred, istd = ipredict(istates, eval_betas)
+    if not (ipred.is_cuda and istd.is_cuda and bool(torch.isfinite(istd).all()) and bool((istd > 0).all())):
+        raise AssertionError(f"streaming interpolation: std {istd.tolist()} on {istd.device}")
+    if [s[2] for s in istates] != [STREAM_CHUNKS] * 2 or torch.equal(istates[0][1].wsum, istates[1][1].wsum):
+        raise AssertionError("streaming interpolation: chunk counters wrong, or both states drew the same counts")
+    interp = {
+        "stream_vs_one_shot_rel": rel_close("streaming interpolation vs InterpModel", ipred, one[0], 1e-6),
+        "stream_vs_analytic": within("streaming interpolation vs x_ave", ipred, istd, xtruth, 5),
+    }
+    for name, got, ref in zip(("interp", "weighted", "piecewise"), one, one64):
+        interp[f"{name}_vs_f64_plain"] = within(f"one-shot {name} vs float64 plain", got, istd, ref, 0.1)
+        interp[f"{name}_vs_analytic"] = within(f"one-shot {name} vs x_ave", got, istd, xtruth, 5)
+    del one64
+
+    # (d) checkpoint after 5 chunks a state, restore onto the card, feed the rest
+    import tempfile
+
+    from thermoextrap_tpu_torch.utils import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def resume():
+            ckpt.save_pytree(os.path.join(tmp, "interp"), feed(istates0, iupdate, range(STREAM_CHUNKS // 2)))
+            back = ckpt.restore_pytree(os.path.join(tmp, "interp"), istates0)
+            return feed(back, iupdate, range(STREAM_CHUNKS // 2, STREAM_CHUNKS))
+
+        resumed = counted("interp_resume", resume)
+        rpred, rstd = ipredict(resumed, eval_betas)
+        same = torch.equal(rpred, ipred) and torch.equal(rstd, istd)
+        same = same and all(
+            torch.equal(getattr(a, f), getattr(b_, f))
+            for sa, sb in zip(resumed, istates)
+            for a, b_ in zip(sa[:2], sb[:2])
+            for f in ("xave", "uave", "du", "dxdu", "wsum")
+        )
+        istates[0][0].save(os.path.join(tmp, "mean"))
+        loaded = DataCentralMoments.load(os.path.join(tmp, "mean"))
+        same_npz = loaded.dxdu.is_cuda and torch.equal(loaded.dxdu, istates[0][0].dxdu) and torch.equal(loaded.wsum, istates[0][0].wsum)
+    if not same or not same_npz:
+        raise AssertionError(f"checkpoint resume equal to the uninterrupted run: {same}; npz round trip: {same_npz}")
+    del resumed, loaded
+
+    # (e) the reference example's shape (examples/beta_extrapolation.py): states at
+    # beta 1 and 5 of 5e4 configurations x 1000 particles, order 6, 100 replicates
+    ex_betas = torch.linspace(1.0, 5.0, 9, dtype=torch.float64)
+    ex_data = [
+        idealgas.generate_data(EXAMPLE_SHAPE, b, rng=torch.Generator(device=dev).manual_seed(SEED + 10 + k), dtype=torch.float32)
+        for k, b in enumerate(EXAMPLE_BETA0S)
+    ]
+
+    def example(plain=False):
+        ms = [
+            beta.factory_extrapmodel(b, factory_data_values(uv=eu.double() if plain else eu, xv=ex.double() if plain else ex, order=ORDER, central=True))
+            for b, (ex, eu) in zip(EXAMPLE_BETA0S, ex_data)
+        ]
+        m = InterpModel(ms)
+        return m.predict(ex_betas), m.resample({"nrep": EXAMPLE_NREP, "rng": SEED}).predict(ex_betas)
+
+    ex_pred, ex_boot = counted("interp_example", example)
+    with dispatch.use_impl("torch"):
+        ex_pred64, _ = example(plain=True)
+    ex_std = ex_boot.double().std(dim=1)
+    ex_truth = torch.stack([idealgas.x_ave(b) for b in ex_betas.tolist()]).to(dev)
+    if tuple(ex_boot.shape) != (9, EXAMPLE_NREP):
+        raise AssertionError(f"example bootstrap shape {tuple(ex_boot.shape)}")
+    interp["example_vs_f64_plain"] = within("example vs float64 plain", ex_pred, ex_std, ex_pred64, 0.1)
+    interp["example_vs_analytic"] = within("example vs x_ave", ex_pred, ex_std, ex_truth, 5)
+
+    # (f) the bucketed runner: R = 1e8 - 12345 samples pad to the 2^27 bucket
+    r_b = R_MAIN - BUCKET_SHORT
+    serve = make_bucketed_extrap_runner(ORDER, BETA0, nrep=NREP_MAIN)
+    serve_u = make_bucketed_extrap_runner(ORDER, BETA0, x_is_u=True, nrep=NREP_MAIN)
+    bpred, bstd = counted("bucketed", lambda: serve(u[:r_b], x[:r_b], betas, seed=SEED))
+    bupred, bustd = counted("bucketed_u", lambda: serve_u(u[:r_b], betas, seed=SEED))
+    if max(serve.buckets) != 1 << 27 or next(b for b in serve.buckets if b >= r_b) != 1 << 27:
+        raise AssertionError(f"buckets {serve.buckets}")
+    upred_b, ustd_b = make_extrap_pipeline(order=ORDER, beta0=BETA0, nrep=NREP_MAIN)(u[:r_b], x[:r_b], betas, seed=SEED)
+    uupred_b, uustd_b = run_u(u[:r_b], betas, seed=SEED)
+    bucket = {
+        "padded_vs_unpadded_rel": rel_close("bucketed vs unpadded", bpred, upred_b, BUCKET_RTOL),
+        "padded_vs_unpadded_u_rel": rel_close("bucketed <u> vs unpadded", bupred, uupred_b, BUCKET_RTOL),
+        "sigma": sigma_close("bucketed sigma", bstd, ustd_b),
+        "sigma_u": sigma_close("bucketed <u> sigma", bustd, uustd_b),
+        "vs_analytic": within("bucketed vs truncated series", bpred, bstd, truth, 5),
+    }
+    del upred_b, uupred_b
+
+    interp_expected = {
+        "interp_one_shot": {"K1": 5},
+        "interp_stream": {"K1": 2 * STREAM_CHUNKS, "K3": 2 * STREAM_CHUNKS},
+        "interp_resume": {"K1": 2 * STREAM_CHUNKS, "K3": 2 * STREAM_CHUNKS},
+        "interp_example": {"K1": 2, "K6": 2},
+        "bucketed": {"K1": 1, "K3": 1},
+        "bucketed_u": {"K4": 1, "K5": 1},
+    }
+    say(20, launches={path: path_launches[path] for path in interp_expected})
+    for path, want in interp_expected.items():
+        if path_launches[path] != full_counts(want):
+            raise AssertionError(f"{path} path launched {path_launches[path]}, expected {want}")
+    say(
+        20,
+        card=card,
+        states=sorted(sims),
+        eval_betas=list(INTERP_EVAL),
+        stream_pred=ipred.tolist(),
+        stream_std=istd.tolist(),
+        analytic=xtruth.tolist(),
+        one_shot={"interp": one[0].tolist(), "weighted": one[1].tolist(), "piecewise": one[2].tolist()},
+        example={"betas": ex_betas.tolist(), "pred": ex_pred.tolist(), "std": ex_std.tolist(), "analytic": ex_truth.tolist()},
+        checkpoint_resume_equal=True,
+        max_diff=interp,
+    )
+    say(20, card=card, bucket=1 << 27, R=r_b, bucket_rtol=BUCKET_RTOL, max_diff=bucket)
+
+    # (g) times
+    uc0, xc0 = chunks[INTERP_BETA0S[0]][1]
+    two_f32 = [sims[b] for b in INTERP_BETA0S]
+
+    def interp_build_predict():
+        ms = [beta.factory_extrapmodel(b, f64_state(DataCentralMoments.from_vals(xb_, ub_, ORDER))) for b, (ub_, xb_) in zip(INTERP_BETA0S, two_f32)]
+        return InterpModel(ms).predict(eval_betas)
+
+    say(
+        20,
+        card=card,
+        interp_update_1e7_ms=time_ms(lambda: iupdate(istates0, 0, uc0, xc0), 5),
+        interp_predict_ms=time_ms(lambda: ipredict(istates, eval_betas), 5),
+        interp_one_shot_1e8_ms=time_ms(interp_build_predict, 3),
+        bucketed_serve_ms=time_ms(lambda: serve(u[:r_b], x[:r_b], betas, seed=SEED), 3),
+        nrep=NREP_MAIN,
+        betas=len(INTERP_EVAL),
+    )
+    del sims, chunks, two_f32, istates, ex_data
 
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0

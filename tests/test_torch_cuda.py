@@ -833,3 +833,116 @@ def test_finalize_umoments_kernel_matches_plain(cuda_device):
     ref = mc.finalize_umoments_plain(part, s_u, order, nbatch)
     assert _rel_err(got, ref) <= 1e-6
     assert torch.equal(got[0][3], s_u) and float(got[2][3].abs().max()) == 0.0
+
+
+# -- the interpolation models, the streaming interpolation, checkpoints, the bucketed runner --
+
+
+def _interp_states(rng, device, r, betas=(0.8, 1.3)):
+    """One-shot moment states of two simulations, on ``device``."""
+    from thermoextrap_tpu_torch import beta as tbeta
+    from thermoextrap_tpu_torch.data import DataCentralMoments
+
+    out = []
+    for b in betas:
+        u, x = _samples(rng, r, 1)
+        uc, xc = _f32(u, device), _f32(x * b, device)
+        out.append((uc, xc, tbeta.factory_extrapmodel(b, DataCentralMoments.from_vals(xc, uc, 4))))
+    return out
+
+
+def test_interp_models_on_gpu_match_cpu(rng, cuda_device):
+    """The collection models on CUDA states give CUDA tensors, equal to the
+    same models on the CPU copies of the samples at the float32 bar (the
+    joint solve runs in float64 on the card)."""
+    from thermoextrap_tpu_torch import beta as tbeta
+    from thermoextrap_tpu_torch.data import DataCentralMoments
+    from thermoextrap_tpu_torch.models.extrap import ExtrapWeightedModel, InterpModel, InterpModelPiecewise
+
+    sims = _interp_states(rng, cuda_device, 200_000, betas=(0.8, 1.05, 1.3))
+    gpu = [m for _, _, m in sims]
+    cpu = [tbeta.factory_extrapmodel(m.alpha0, DataCentralMoments.from_vals(x.cpu().double(), u.cpu().double(), 4)) for u, x, m in sims]
+    betas = tt(BETAS)
+    for cls in (InterpModel, ExtrapWeightedModel, InterpModelPiecewise):
+        got = cls(gpu[::2] if cls is InterpModel else gpu).predict(betas)
+        want = cls(cpu[::2] if cls is InterpModel else cpu).predict(betas)
+        assert got.is_cuda and got.shape == want.shape, cls.__name__
+        assert_close(got, want, RTOL32, ATOL32)
+    assert InterpModel(gpu[::2]).coefs().dtype == torch.float64
+
+
+def test_streaming_interp_on_gpu_launches_and_matches_one_shot(rng, cuda_device):
+    """Two states in four interleaved chunks: one K1 and one K3 per chunk
+    (each with its head shift and finalize), the one-shot InterpModel's
+    mean to float32 roundoff, finite positive sigmas, and distinct
+    replicate draws in the two states."""
+    from thermoextrap_tpu_torch.models.extrap import InterpModel
+
+    sims = _interp_states(rng, cuda_device, 80_000)
+    states, update, predict = tpipe.make_streaming_interp_pipeline(4, (0.8, 1.3), val_shape=(1,), nrep=32, seed=7, device=cuda_device)
+    mc.reset_launches()
+    for k in range(2):
+        for i, (u, x, _) in enumerate(sims):
+            states = update(states, i, u.chunk(2)[k], x.chunk(2)[k])
+    pred, std = predict(states, tt(BETAS))
+    torch.cuda.synchronize()
+    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 4, "K3": 4, "head_shift": 8, "finalize": 8}
+    assert mc.LAUNCHES == want
+    assert pred.is_cuda and std.is_cuda and pred.dtype == torch.float64
+    assert_close(pred, InterpModel([m for _, _, m in sims]).predict(tt(BETAS)), 1e-6, 1e-9)
+    assert bool(torch.isfinite(std).all()) and bool((std > 0).all())
+    assert not torch.equal(states[0][1].wsum, states[1][1].wsum)
+
+
+def test_checkpoint_restores_onto_the_card(rng, cuda_device, tmp_path, monkeypatch):
+    """A streaming state saved from the card restores onto it (the template's
+    device) and resumes to the uninterrupted result exactly; the npz
+    checkpoint loads onto the card too."""
+    from thermoextrap_tpu_torch.data import DataCentralMoments
+    from thermoextrap_tpu_torch.utils import checkpoint as ck
+    from thermoextrap_tpu_torch.utils import device as tdevice
+
+    u, x = _samples(rng, 90_000, 1)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    state0, update, predict = tpipe.make_streaming_extrap_pipeline(4, 1.0, val_shape=(1,), nrep=16, seed=3, device=cuda_device)
+    full = state0
+    for a, b in zip(uc.chunk(3), xc.chunk(3)):
+        full = update(full, a, b)
+    ck.save_pytree(tmp_path / "mid", update(state0, uc.chunk(3)[0], xc.chunk(3)[0]))
+    resumed = ck.restore_pytree(tmp_path / "mid", state0)
+    assert resumed[0].dxdu.is_cuda and resumed[2] == 1
+    for a, b in zip(uc.chunk(3)[1:], xc.chunk(3)[1:]):
+        resumed = update(resumed, a, b)
+    for a, b in zip(predict(resumed, tt(BETAS)), predict(full, tt(BETAS))):
+        assert torch.equal(a, b)
+    full[0].save(tmp_path / "mean")
+    # load goes to the default device, which the parity helper pins to the CPU
+    monkeypatch.setattr(tdevice, "_DEVICE", cuda_device)
+    back = DataCentralMoments.load(tmp_path / "mean")
+    assert back.dxdu.is_cuda and torch.equal(back.dxdu, full[0].dxdu)
+
+
+def test_bucketed_runner_on_gpu_pads_on_the_card(rng, cuda_device, monkeypatch):
+    """A padded request stays on the card (no host copy), launches one K1
+    and one K3 (K4 and K5 with x_is_u), and gives the unpadded call's mean
+    to float32 roundoff."""
+    r = 100_003
+    u, x = _samples(rng, r, 1)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    serve = tpipe.make_bucketed_extrap_runner(4, 1.0, nrep=32)
+    up, xp, wp = tpipe.bucket_pad(uc, xc, None, serve.buckets)
+    assert up.is_cuda and up.shape == (1 << 17,) and wp.dtype == torch.float32 and float(wp[r:].sum()) == 0.0
+    monkeypatch.setattr(torch.Tensor, "numpy", lambda *a: pytest.fail("a padded request went through host numpy"))
+    mc.reset_launches()
+    pred, std = serve(uc, xc, tt(BETAS), seed=5)
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["K1"] == 1 and mc.LAUNCHES["K3"] == 1
+    monkeypatch.undo()
+    assert_close(pred, tpipe.make_extrap_pipeline(4, 1.0)(uc, xc, tt(BETAS)), 1e-6, 1e-9)
+    assert bool((std > 0).all())
+    serve_u = tpipe.make_bucketed_extrap_runner(4, 1.0, x_is_u=True, nrep=32)
+    mc.reset_launches()
+    pred_u, _ = serve_u(uc, tt(BETAS))
+    torch.cuda.synchronize()
+    assert mc.LAUNCHES["K4"] == 1 and mc.LAUNCHES["K5"] == 1
+    assert_close(pred_u, tpipe.make_extrap_pipeline(4, 1.0, x_is_u=True)(uc, tt(BETAS)), 1e-6, 1e-9)

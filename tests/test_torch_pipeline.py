@@ -236,13 +236,16 @@ def test_idealgas_oracle_matches_jax():
 
 
 def test_port_never_imports_jax():
-    """``import thermoextrap_tpu_torch`` (with the CUDA wrappers) pulls in
-    neither jax nor the JAX package."""
+    """``import thermoextrap_tpu_torch`` (with the CUDA wrappers, the
+    checkpoint and tree modules) pulls in neither jax, nor the JAX package,
+    nor orbax, nor sympy (imported only inside ``Derivatives.from_sympy``)."""
     code = (
         "import sys; before = set(sys.modules); "
         "import thermoextrap_tpu_torch, thermoextrap_tpu_torch.ops.moments_cuda; "
+        "import thermoextrap_tpu_torch.utils.checkpoint, thermoextrap_tpu_torch.utils.trees; "
+        "import thermoextrap_tpu_torch.devtime, thermoextrap_tpu_torch.drawcost, thermoextrap_tpu_torch.emulate; "
         "new = set(sys.modules) - before; "
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'thermoextrap_tpu')); "
+        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'thermoextrap_tpu', 'orbax', 'sympy')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     root = Path(__file__).resolve().parent.parent
@@ -274,6 +277,9 @@ def test_numpy_input_goes_to_the_default_device(monkeypatch):
     assert tpipe.make_streaming_lnpi_pipeline(2, 1.0, grid_shape=(2,))[0].wsum.device.type == "meta"
     assert tpipe.make_streaming_volume_pipeline(1.0)[0].dxdu.device.type == "meta"
     assert tpipe.make_streaming_perturb_pipeline(1.0, [1.1])[0][0].device.type == "meta"
+    assert tpipe.make_streaming_interp_pipeline(2, [1.0, 1.2])[0][1].xave.device.type == "meta"
+    assert all(t.device.type == "meta" for t in tpipe.bucket_pad(u, x, None, (16,)))
+    assert tx.DataCentralMoments.from_data(np.ones(4), x_is_u=True).wsum.device.type == "meta"
     assert tx.DataCentralMoments.zeros(2).wsum.device.type == "meta"
     assert tx.DataCentralMoments.from_vals(x, u, 2).xave.device.type == "meta"
     state = interop.data_to_numpy(tx.DataCentralMoments.zeros(2, device="cpu"))
@@ -287,3 +293,85 @@ def test_numpy_input_goes_to_the_default_device(monkeypatch):
     tx.set_default_device("cpu")
     assert tdevice._DEVICE == torch.device("cpu")
     assert tideal.x_sample((4, 2), 1.0, rng=1).device.type == "cpu"
+
+
+# -- the bucketed serving runner (tests/test_pipeline.py::TestBucketedRunner) ----------------
+
+
+def test_bucket_padding_is_exact_and_matches_jax():
+    rng = np.random.default_rng(42)
+    uv = rng.normal(2.0, 1.0, 1000)
+    xv = rng.normal(1.0, 0.5, (1000, 2))
+    betas = np.array([1.8, 2.0, 2.2])
+    serve = tpipe.make_bucketed_extrap_runner(4, 2.0, buckets=(1 << 9, 1 << 11))
+    got = serve(uv, xv, betas)
+    assert_close(got, tpipe.make_extrap_pipeline(4, 2.0)(uv, xv, betas), 1e-12, 1e-14)
+    assert_close(got, np.asarray(jpipe.make_bucketed_extrap_runner(4, 2.0, buckets=(1 << 9, 1 << 11))(uv, xv, betas)), 1e-12, 1e-14)
+    # x_is_u: u alone, padded the same way
+    serve_u = tpipe.make_bucketed_extrap_runner(3, 2.0, buckets=(1 << 11,), x_is_u=True)
+    jserve_u = jpipe.make_bucketed_extrap_runner(3, 2.0, buckets=(1 << 11,), x_is_u=True)
+    assert_close(serve_u(uv, betas), np.asarray(jserve_u(uv, betas)), 1e-12, 1e-14)
+    assert_close(serve_u(uv, betas), tpipe.make_extrap_pipeline(3, 2.0, x_is_u=True)(uv, betas), 1e-12, 1e-14)
+
+
+def test_bucket_selection_and_overflow():
+    serve = tpipe.make_bucketed_extrap_runner(2, 1.0, buckets=(32, 8))
+    assert serve.buckets == (8, 32)
+    assert tpipe.normalize_buckets(None) == tuple(1 << p for p in range(12, 28))
+    uv = np.linspace(0.5, 1.5, 100)  # above the largest bucket: its own length
+    out = serve(uv, uv[:, None] * 2, np.array([1.0]))
+    np.testing.assert_allclose(npy(out)[0, 0], np.mean(2 * uv), rtol=1e-12)
+    with pytest.raises(ValueError, match="at least one sample"):
+        serve(uv[:0], uv[:0, None], np.array([1.0]))
+
+
+def test_bucket_weighted_and_bootstrap():
+    rng = np.random.default_rng(42)
+    uv = rng.normal(2.0, 1.0, 700)
+    xv = rng.normal(1.0, 0.5, (700, 1))
+    w = rng.uniform(0.5, 1.5, 700)
+    serve = tpipe.make_bucketed_extrap_runner(3, 2.0, buckets=(1 << 10,), nrep=32)
+    pred, std = serve(uv, xv, np.array([2.0, 2.1]), weight=w, seed=3)
+    assert bool(torch.isfinite(pred).all()) and bool((std > 0).all())
+    want = tpipe.make_extrap_pipeline(3, 2.0, weighted=True)(uv, xv, np.array([2.0, 2.1]), w)
+    assert_close(pred, want, 1e-12)
+    jpred, _ = jpipe.make_bucketed_extrap_runner(3, 2.0, buckets=(1 << 10,), nrep=32)(uv, xv, np.array([2.0, 2.1]), weight=w, seed=3)
+    assert_close(pred, np.asarray(jpred), 1e-12)
+
+
+def test_bucket_warmup_runs_each_bucket(monkeypatch):
+    serve = tpipe.make_bucketed_extrap_runner(2, 1.0, buckets=(8, 16, 64))
+    seen = []
+    pad = tpipe.bucket_pad
+    monkeypatch.setattr(tpipe, "bucket_pad", lambda uv, *a: seen.append(len(uv)) or pad(uv, *a))
+    serve.warmup(val_shape=(1,), n_betas=2, max_bucket=16)
+    assert seen == [8, 16]
+
+
+def test_bucket_pad_streams_weights_and_tensors():
+    """Tuples of value streams pad together as each alone; pads replicate
+    the last sample with weight 0; weights keep a floating dtype (integers
+    become float32); tensors pad on their own device; numpy matches the JAX
+    package's padding."""
+    rng = np.random.default_rng(42)
+    uv = rng.normal(0.0, 1.0, 100)
+    xv = rng.normal(0.0, 1.0, (100, 2))
+    dx = rng.normal(0.0, 1.0, (100, 2))
+    buckets = (128,)
+    up, (xp, dp), wp = tpipe.bucket_pad(uv, (xv, dx), None, buckets)
+    up1, xp1, wp1 = tpipe.bucket_pad(uv, xv, None, buckets)
+    _, dp1, _ = tpipe.bucket_pad(uv, dx, None, buckets)
+    for a, b in ((up, up1), (xp, xp1), (dp, dp1), (wp, wp1)):
+        assert torch.equal(a, b)
+    ju, jxv, jw = jpipe.bucket_pad(uv, xv, None, buckets)
+    assert_close((up1, xp1, wp1), (ju, jxv, jw), 0.0)
+    assert wp.dtype == torch.float64 and float(wp[100:].abs().sum()) == 0.0 and torch.equal(xp[-1], xp[99])
+    assert tpipe.bucket_pad(uv, None, np.ones(100, dtype=np.int64), buckets)[2].dtype == torch.float32
+    assert tpipe.bucket_pad(tt(uv, torch.bfloat16), None, None, buckets)[2].dtype == torch.float32
+    f64w = tpipe.bucket_pad(uv, xv, np.ones(100), buckets)[2]
+    assert f64w.dtype == torch.float64 and f64w.shape == (128,)
+    same = tpipe.bucket_pad(uv[:64], xv[:64], None, (64,))
+    assert same[0].shape == (64,)
+    for bad in ((), (xv, None)):
+        with pytest.raises(ValueError, match="tuple of value streams"):
+            tpipe.bucket_pad(uv, bad, None, buckets)

@@ -11,7 +11,12 @@ chunks.  Tolerances, with their reasons:
   and, on those same tables, in the JAX package;
 - bootstrap standard deviations across packages, whose random counts differ
   (threefry against torch's generator): a ratio within [0.7, 1.4] at 300
-  replicates (~4% relative error of each side at that count).
+  replicates (~4% relative error of each side at that count);
+- the streaming interpolation against the one-shot ``InterpModel`` and the
+  JAX pipeline: rtol 1e-8, the JAX test's bar (the joint system's condition
+  is 2e11 at order 4, and the two merge orders differ by ~1e-15); its
+  replicate fold against the one-shot bootstrap over the port's own
+  per-chunk count tables: rtol 1e-9.
 """
 
 import jax.numpy as jnp
@@ -21,10 +26,13 @@ import torch
 from _torch_parity import assert_close, npy, tt
 
 import thermoextrap_tpu as jx
+import thermoextrap_tpu_torch as tx
+from thermoextrap_tpu import beta as jbeta
 from thermoextrap_tpu import pipeline as jpipe
 from thermoextrap_tpu.ops import resample as jresample
 from thermoextrap_tpu.utils.trees import replace as jreplace
 from thermoextrap_tpu_torch import DataCentralMoments, interop
+from thermoextrap_tpu_torch import beta as tbeta
 from thermoextrap_tpu_torch import pipeline as tpipe
 from thermoextrap_tpu_torch.ops import resample as tresample
 
@@ -428,3 +436,128 @@ def test_streaming_perturb_chunk_keying_advances(rng):
     # the default state is float64 on the default device (the CPU in these tests)
     d0 = tpipe.make_streaming_perturb_pipeline(1.0, np.array([1.0]))[0]
     assert d0[1].dtype == torch.float64 and d0[1].device.type == "cpu"
+
+
+# -- make_streaming_interp_pipeline (tests/test_streaming.py:507-562, :693-790) ----------------
+
+
+def _two_sims(rng, r=1200):
+    """Two "simulations": disjoint halves of one sample set, moved apart."""
+    uv, xv, _ = _chunks(rng, n=1, c=r, v=1)
+    return (uv[: r // 2], xv[: r // 2, 0]), (uv[r // 2 :] * 1.1, xv[r // 2 :, 0] + 0.2)
+
+
+def test_streaming_interp_matches_one_shot_jackknife_and_jax(rng):
+    """Interleaved chunks of two states give InterpModel over the one-shot
+    states (rtol 1e-8, the JAX test's bar: the merge order differs), the JAX
+    pipeline on the same chunks, and compose with the jackknife over one
+    state's chunks."""
+    (ua, xa), (ub, xb) = _two_sims(rng)
+    beta0s = [0.8, 1.3]
+    states, update, predict = tpipe.make_streaming_interp_pipeline(4, beta0s, **F64)
+    jstates, jupdate, jpredict = jpipe.make_streaming_interp_pipeline(4, beta0s, dtype=jnp.float64)
+    for i, (u, x) in ((0, (ua[:350], xa[:350])), (1, (ub[:200], xb[:200])), (0, (ua[350:], xa[350:])), (1, (ub[200:], xb[200:]))):
+        states = update(states, i, u, x)
+        jstates = jupdate(jstates, i, u, x)
+    betas = np.array([0.8, 1.0, 1.25])
+    got = predict(states, betas)
+    assert got.dtype == torch.float64 and got.shape == (3,)
+    one = tx.InterpModel(
+        [tbeta.factory_extrapmodel(b, DataCentralMoments.from_vals(tt(x), tt(u), 4)) for b, (u, x) in zip(beta0s, [(ua, xa), (ub, xb)])]
+    )
+    assert_close(got, one.predict(betas), 1e-8)
+    assert_close(got, np.asarray(jpredict(jstates, betas)), 1e-8)
+    for s, js in zip(states, jstates):
+        _same_state(s, js)
+
+    zero = DataCentralMoments.zeros(4, **F64)
+    chunks0 = [zero.push_vals(xa[:350], ua[:350]), zero.push_vals(xa[350:], ua[350:])]
+    s1 = states[1]
+    jk_pred, jk_se = tpipe.streaming_jackknife(chunks0, lambda s0, b: predict((s0, s1), b), betas)
+    assert_close(jk_pred, got, 1e-12)
+    assert jk_se.shape == jk_pred.shape and bool((jk_se >= 0).all()) and bool(torch.isfinite(jk_se).all())
+    jz = jx.DataCentralMoments.zeros(4, dtype=jnp.float64)
+    jchunks0 = [jz.push_vals(xa[:350], ua[:350]), jz.push_vals(xa[350:], ua[350:])]
+    js1 = jstates[1]
+    jjk = jpipe.streaming_jackknife(jchunks0, lambda s0, b: jpredict((s0, js1), b), betas)
+    # the standard error is a spread of leave-one-out predictions of size ~2,
+    # so its error across the two solves is absolute: 1e-8 of the predictions
+    assert_close((jk_pred, jk_se), tuple(np.asarray(a) for a in jjk), 1e-8, 2e-8)
+
+    with pytest.raises(ValueError, match=">= 2 reference states"):
+        tpipe.make_streaming_interp_pipeline(4, [1.0])
+
+
+def test_streaming_interp_minus_log_matches_interp_model(rng):
+    (ua, xa), (ub, xb) = _two_sims(rng)
+    xa, xb = xa + 3.0, xb + 3.0  # -log <x> needs <x> > 0
+    states, update, predict = tpipe.make_streaming_interp_pipeline(3, (0.8, 1.3), minus_log=True, **F64)
+    states = update(update(states, 0, ua, xa), 1, ub, xb)
+    one = tx.InterpModel(
+        [
+            tbeta.factory_extrapmodel(b, DataCentralMoments.from_vals(tt(x), tt(u), 3), minus_log=True)
+            for b, (u, x) in zip((0.8, 1.3), [(ua, xa), (ub, xb)])
+        ]
+    )
+    assert_close(predict(states, BETAS), one.predict(BETAS), 1e-10)
+
+
+class TestStreamingInterpBootstrap:
+    """With ``nrep``: per-state replicate accumulators solved jointly.  The
+    oracle is the one-shot bootstrap over the port's own per-state,
+    per-chunk count tables (``_chunk_freq(seed_i, step, ...)``), through the
+    port's and the JAX package's reduction and InterpModel, at rtol 1e-9."""
+
+    ORDER, NREP, SEED = 2, 12, 5
+    BETA0S = (0.7, 1.3)
+
+    def test_streamed_ci_equals_oneshot_same_freq(self):
+        rng = np.random.default_rng(42)
+        n, c, v = 2, 300, 2
+        data = [(rng.normal(5.0 / b, 1.0, n * c), rng.normal(b, 0.3, (n * c, v))) for b in self.BETA0S]
+        states, update, predict = tpipe.make_streaming_interp_pipeline(
+            self.ORDER, self.BETA0S, val_shape=(v,), nrep=self.NREP, seed=self.SEED, **F64
+        )
+        for i, (uv, xv) in enumerate(data):
+            for k in range(n):
+                states = update(states, i, uv[k * c : (k + 1) * c], xv[k * c : (k + 1) * c])
+        assert all(s[2] == n for s in states)
+        betas = np.array([0.8, 1.0, 1.2])
+        pred, std = predict(states, betas)
+
+        derivs = tbeta.factory_derivatives("x_ave", central=True)
+        jderivs = jbeta.factory_derivatives("x_ave", central=True)
+        rep_models, jrep_models = [], []
+        for i, (b, (uv, xv)) in enumerate(zip(self.BETA0S, data)):
+            seed_i = int((self.SEED + 0x9E3779B9 * (i + 1)) & 0x7FFFFFFF)
+            assert seed_i == tpipe._state_seed(self.SEED, i)
+            freq = torch.cat([tpipe._chunk_freq(seed_i, s, self.NREP, c, "cpu") for s in range(n)], dim=1)
+            boot = tresample.resample_central_comoments(tt(uv), tt(xv), freq, self.ORDER)
+            rep = DataCentralMoments.from_ave_central(*boot, wsum=freq.sum(dim=1).double())
+            rep_models.append(tx.ExtrapModel(b, rep, derivs, order=self.ORDER, alpha_name="beta"))
+            jboot = jresample.resample_central_comoments(uv, xv, jnp.asarray(npy(freq)), self.ORDER)
+            jrep = jx.DataCentralMoments.from_ave_central(*jboot, wsum=npy(freq).sum(axis=1).astype(np.float64))
+            jrep_models.append(jx.ExtrapModel(b, jrep, jderivs, order=self.ORDER, alpha_name="beta"))
+        want = tx.InterpModel(rep_models).predict(betas).std(dim=1, correction=0)
+        assert_close(std, want, 1e-9)
+        assert_close(std, np.asarray(jx.InterpModel(jrep_models).predict(betas)).std(axis=1), 1e-9)
+
+        s0, up0, pr0 = tpipe.make_streaming_interp_pipeline(self.ORDER, self.BETA0S, val_shape=(v,), **F64)
+        for i, (uv, xv) in enumerate(data):
+            for k in range(n):
+                s0 = up0(s0, i, uv[k * c : (k + 1) * c], xv[k * c : (k + 1) * c])
+        assert_close(pred, pr0(s0, betas), 1e-12)
+        assert bool((std > 0).all())
+
+    def test_state_seeds_differ(self):
+        """Identical data in both states must not give identical replicates:
+        each state draws from its own seed."""
+        rng = np.random.default_rng(2)
+        uv = rng.normal(5.0, 1.0, 400)
+        xv = rng.normal(2.0, 0.5, (400, 1))
+        states, update, _ = tpipe.make_streaming_interp_pipeline(
+            self.ORDER, self.BETA0S, val_shape=(1,), nrep=self.NREP, seed=self.SEED, **F64
+        )
+        states = update(update(states, 0, uv, xv), 1, uv, xv)
+        assert not torch.allclose(states[0][1].xave, states[1][1].xave)
+        assert torch.equal(states[0][0].xave, states[1][0].xave)

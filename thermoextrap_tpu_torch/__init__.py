@@ -3,19 +3,22 @@
 The port of the JAX package ``thermoextrap_tpu`` to PyTorch, with the TPU's
 Pallas kernels rewritten by hand in CUDA C++ for Hopper (``csrc/``, built on
 first use).  Module names mirror the JAX package.  It carries the
-β-extrapolation main path, the ensembles, perturbation reweighting and the
-streaming pipelines:
+β-extrapolation main path, the ensembles, perturbation reweighting, the
+interpolation models and the streaming pipelines:
 
 - (co)moment reduction and bootstrap (:mod:`.ops.moments`,
   :mod:`.ops.resample`, kernels in :mod:`.ops.moments_cuda`, routed by
   device in :mod:`.ops.dispatch`);
 - the truncated-series derivative engine (:mod:`.ops.series`,
   :mod:`.models.derivatives`);
-- data containers and the streaming accumulator (:mod:`.data`), the Taylor
-  and perturbation models (:mod:`.models.extrap`), the β factories
-  (:mod:`.beta`), the ideal-gas oracle (:mod:`.idealgas`), the one-shot and
-  streaming serving pipelines (:mod:`.pipeline`, with the perturbation
-  bootstrap kernels K7 / K8) and the states shared with the JAX package
+- data containers, the streaming accumulator and its ``.npz`` checkpoint
+  (:mod:`.data`), the Taylor, perturbation and collection models (weighted
+  extrapolation and joint or piecewise interpolation between states,
+  :mod:`.models.extrap`), the β factories (:mod:`.beta`), the ideal-gas
+  oracle (:mod:`.idealgas`), the one-shot, streaming, streaming-interpolation
+  and bucketed serving pipelines (:mod:`.pipeline`, with the perturbation
+  bootstrap kernels K7 / K8), checkpoints of any state
+  (:mod:`.utils.checkpoint`) and the states shared with the JAX package
   (:mod:`.interop`);
 - the lnΠ macrostate-grid expansion (:mod:`.lnpi`) and the volume expansion
   (:mod:`.volume`, :mod:`.volume_idealgas`), with the batched u-moment
@@ -37,7 +40,14 @@ from .data import (
     factory_data_values,
 )
 from .models.derivatives import Derivatives
-from .models.extrap import ExtrapModel, PerturbModel
+from .models.extrap import (
+    ExtrapModel,
+    ExtrapWeightedModel,
+    InterpModel,
+    InterpModelPiecewise,
+    PerturbModel,
+    StateCollection,
+)
 from .utils.device import default_device, set_default_device
 
 __version__ = "0.1.0"
@@ -51,7 +61,11 @@ __all__ = [
     "DataValuesCentral",
     "Derivatives",
     "ExtrapModel",
+    "ExtrapWeightedModel",
+    "InterpModel",
+    "InterpModelPiecewise",
     "PerturbModel",
+    "StateCollection",
     "beta",
     "data",
     "default_device",

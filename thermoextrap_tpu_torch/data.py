@@ -1,8 +1,6 @@
 r"""Data layer: sample values and (co)moment containers on torch tensors.
 
-Counterpart of ``thermoextrap_tpu/data.py`` (its checkpoint methods ``save``
-/ ``load`` and ``from_data`` / ``cmom`` / ``rmom`` are not ported yet).
-Layout conventions:
+Counterpart of ``thermoextrap_tpu/data.py``.  Layout conventions:
 
 - ``uv``: ``(*batch, rec)`` energy-like samples; ``batch`` is empty or
   ``(rep,)`` after a bootstrap.
@@ -13,12 +11,16 @@ Layout conventions:
 :mod:`.models.derivatives`: raw ``(u, xu)`` or central ``(xave, du, dxdu)``
 (``(uave, du)`` when ``x_is_u``).  The containers are frozen dataclasses;
 every tensor lives on the device of the samples it came from, and the
-moment reductions run there (:mod:`.ops.dispatch`).
+moment reductions run there (:mod:`.ops.dispatch`).  Their tensor fields are
+the leaves of :mod:`.utils.trees` (``__tree_meta__`` names the static ones),
+so that :mod:`.utils.checkpoint` saves any state built of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from functools import cached_property
 from math import comb
 from typing import Any
@@ -47,6 +49,9 @@ __all__ = [
     "DataValuesCentral",
     "factory_data_values",
 ]
+
+
+_MOMENT_FIELDS = ("xave", "uave", "du", "dxdu", "wsum")
 
 
 class DataCallbackABC:
@@ -126,6 +131,8 @@ def _normalize_sampler(sampler, nrec: int, device, rng=None):
 @dataclasses.dataclass(frozen=True, eq=False)
 class DataValues:
     """Raw timeseries container with lazy (co)moment accessors."""
+
+    __tree_meta__ = ("meta", "order", "central", "x_is_u", "xalpha", "val_ndim")
 
     uv: torch.Tensor
     xv: torch.Tensor
@@ -297,6 +304,8 @@ class DataCentralMoments:
     ``wsum (*batch,)``.
     """
 
+    __tree_meta__ = ("meta", "order", "central", "x_is_u", "xalpha", "val_ndim")
+
     xave: torch.Tensor
     uave: torch.Tensor
     du: torch.Tensor
@@ -458,6 +467,94 @@ class DataCentralMoments:
 
     # the reference's alias: the same contract, moment axis leading
     from_ave_raw = from_raw
+
+    @classmethod
+    def from_data(
+        cls,
+        data,
+        *,
+        central: bool = False,
+        x_is_u: bool = False,
+        xalpha: bool = False,
+        val_ndim: int = 0,
+        meta: DataCallbackABC | None = None,
+    ):
+        """From a central (co)moment tensor in the cmomy layout, moment axes
+        trailing (the inverse of :meth:`cmom`), as float64 on the device of
+        ``data`` (the default device for an array):
+
+        - ``x_is_u=False``: ``data (*batch, *val, 2, order+1)`` with
+          ``data[..., 0, 0] = weight``, ``data[..., 1, 0] = <x>``,
+          ``data[..., 0, 1] = <u>``, ``data[..., 0, j>=2] = <du^j>``,
+          ``data[..., 1, j>=1] = <dx du^j>``.
+        - ``x_is_u=True``: ``data (*batch, K+1)``, the u-moments ``[w, <u>,
+          <du^2>, ...]``, read as comoments of x = u with ``order = K - 1``.
+
+        ``val_ndim`` counts the trailing value axes of the batch part; the
+        u-moment slices are read at value index 0.
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> d = DataCentralMoments.from_data(
+        ...     np.array([10.0, 2.0, 0.5, 0.1]), x_is_u=True, central=True
+        ... )  # [w, <u>, <du^2>, <du^3>] -> order 2
+        >>> d.order
+        2
+        >>> float(d.uave), [float(v) for v in d.du]
+        (2.0, [1.0, 0.0, 0.5])
+        """
+        data = _as_tensor(data).to(torch.float64)
+        if xalpha:
+            msg = "from_data with a deriv axis is not supported; use from_ave_central"
+            raise NotImplementedError(msg)
+        meta = meta if meta is not None else DataCallback()
+        if x_is_u:
+            order = int(data.shape[-1] - 2)
+            if order < 0:
+                msg = f"x_is_u data needs >= 2 moment entries, got {tuple(data.shape)}"
+                raise ValueError(msg)
+            du_full = torch.movedim(data, -1, 0).clone()  # (K+1, *batch)
+            wsum, uave = du_full[0].clone(), du_full[1].clone()
+            du_full[0] = 1.0
+            du_full[1] = 0.0
+            return cls(
+                xave=uave,
+                uave=uave,
+                du=du_full[: order + 1],
+                dxdu=du_full[1:],  # <du du^n> = du[n+1]
+                wsum=wsum,
+                meta=meta,
+                order=order,
+                central=bool(central),
+                x_is_u=True,
+                xalpha=False,
+                val_ndim=0,
+            )
+        if data.ndim < 2 or data.shape[-2] != 2:
+            msg = f"expected trailing (xmom=2, umom) axes, got {tuple(data.shape)}"
+            raise ValueError(msg)
+        order = int(data.shape[-1] - 1)
+        idx0 = (Ellipsis, *(0,) * val_ndim)
+        du = torch.movedim(data[..., 0, :], -1, 0)[(slice(None), *idx0)].clone()  # (order+1, *batch)
+        du[0] = 1.0
+        if order >= 1:
+            du[1] = 0.0
+        dxdu = torch.movedim(data[..., 1, :], -1, 0).clone()
+        dxdu[0] = 0.0
+        return cls(
+            xave=data[..., 1, 0].clone(),
+            uave=data[..., 0, 1][idx0].clone(),
+            du=_pad_val(du, val_ndim),
+            dxdu=dxdu,
+            wsum=data[..., 0, 0][idx0].clone(),
+            meta=meta,
+            order=order,
+            central=bool(central),
+            x_is_u=False,
+            xalpha=False,
+            val_ndim=int(val_ndim),
+        )
 
     @classmethod
     def from_resample_vals(
@@ -635,6 +732,55 @@ class DataCentralMoments:
         )
         return self.merge(chunk)
 
+    def save(self, path) -> None:
+        """Checkpoint the moment state to one ``.npz`` file (``.npz`` is
+        appended to a path without it), in the JAX package's layout: the five
+        fields as arrays and a JSON ``_header`` with the flags and each
+        field's dtype name.  bfloat16 is stored as float32 (exact) and
+        restored to bfloat16.  ``meta`` is not stored: pass it to
+        :meth:`load`."""
+        arrays, dtypes = {}, {}
+        for k in _MOMENT_FIELDS:
+            a = getattr(self, k).detach()
+            dtypes[k] = str(a.dtype).removeprefix("torch.")
+            arrays[k] = (a.float() if a.dtype == torch.bfloat16 else a).cpu().numpy()
+        header = {
+            "order": self.order,
+            "central": self.central,
+            "x_is_u": self.x_is_u,
+            "xalpha": self.xalpha,
+            "val_ndim": self.val_ndim,
+            "dtypes": dtypes,
+        }
+        path = str(path)
+        if not path.endswith(".npz"):
+            path += ".npz"
+        np.savez(path, _header=json.dumps(header), **arrays)
+
+    @classmethod
+    def load(cls, path, *, meta: DataCallbackABC | None = None):
+        """Restore a state written by :meth:`save` (by either package), on
+        the default device."""
+        path = str(path)
+        if not path.endswith(".npz") and not os.path.exists(path):
+            path += ".npz"
+        device = default_device()
+        with np.load(path) as z:
+            header = json.loads(str(z["_header"]))
+            fields = {
+                k: torch.as_tensor(z[k], device=device).to(getattr(torch, header["dtypes"][k]))
+                for k in _MOMENT_FIELDS
+            }
+        return cls(
+            **fields,
+            meta=meta if meta is not None else DataCallback(),
+            order=int(header["order"]),
+            central=bool(header["central"]),
+            x_is_u=bool(header["x_is_u"]),
+            xalpha=bool(header["xalpha"]),
+            val_ndim=int(header["val_ndim"]),
+        )
+
     def __len__(self) -> int:
         return int(self.wsum if self.wsum.ndim == 0 else self.wsum.reshape(-1)[0])
 
@@ -679,6 +825,53 @@ class DataCentralMoments:
         if self.x_is_u:
             return u_from_xu_when_x_is_u(self.dxdu, fill0=1.0)
         return self.du
+
+    def _dtype(self):
+        return torch.promote_types(self.dxdu.dtype, self.wsum.dtype)
+
+    def cmom(self):
+        """The central comoment tensor in the cmomy layout, moment axes
+        trailing; the inverse of :meth:`from_data`.  ``x_is_u``: ``(*batch,
+        order+2)`` ``[w, <u>, <du^2>, ...]``; else ``(*batch, *val, 2,
+        order+1)`` with ``[..., 0, 0] = w``, ``[..., 0, 1] = <u>``, ``[..., 0,
+        j>=2] = <du^j>``, ``[..., 1, 0] = <x>``, ``[..., 1, j>=1] = <dx
+        du^j>``."""
+        if self.xalpha:
+            msg = "cmom with a deriv axis is not supported"
+            raise NotImplementedError(msg)
+        dt = self._dtype()
+        if self.x_is_u:
+            full = self.du_x.to(dt).clone()
+            full[0] = self.wsum
+            full[1] = self.uave
+            return torch.movedim(full, 0, -1)
+        b_val = self.dxdu.shape[1:]
+        wsum_b = torch.broadcast_to(_pad_val(self.wsum, self.val_ndim), b_val)
+        uave_b = torch.broadcast_to(_pad_val(self.uave, self.val_ndim), b_val)
+        du_b = torch.broadcast_to(self._du_norm, (self.order + 1, *b_val))
+        rows0 = [wsum_b] + ([uave_b] if self.order >= 1 else []) + list(du_b[2:])
+        rows1 = [self.xave] + list(self.dxdu[1:])
+        out = torch.stack([torch.stack([r.to(dt) for r in rows0]), torch.stack([r.to(dt) for r in rows1])])
+        return torch.movedim(out, (0, 1), (-2, -1))
+
+    def rmom(self):
+        """The raw comoment tensor in the cmomy layout, moment axes trailing:
+        the shapes of :meth:`cmom`, with ``[..., 0, j>=1] = <u^j>`` and
+        ``[..., 1, j] = <x u^j>`` (the weight still at ``[..., 0, 0]``)."""
+        if self.xalpha:
+            msg = "rmom with a deriv axis is not supported"
+            raise NotImplementedError(msg)
+        dt = self._dtype()
+        if self.x_is_u:
+            full = self.u.to(dt).clone()
+            full[0] = self.wsum
+            return torch.movedim(full, 0, -1)
+        xu = self.xu.to(dt)
+        b_val = xu.shape[1:]
+        wsum_b = torch.broadcast_to(_pad_val(self.wsum, self.val_ndim), b_val).to(dt)
+        row0 = torch.broadcast_to(self.u, (self.order + 1, *b_val)).to(dt)
+        out = torch.stack([torch.cat([wsum_b[None], row0[1:]]), xu])
+        return torch.movedim(out, (0, 1), (-2, -1))
 
     @property
     def derivs_args(self) -> tuple:

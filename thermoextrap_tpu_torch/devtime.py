@@ -15,8 +15,11 @@ start's shape (100 x 1e5), K4 and K5 alone (K4 at the grid in float32 and
 bfloat16 and at one row of R = 1e8; K5 at the grid and at one row of
 R = 1e8), the perturbation call at R = 1e7 (counts drawn in the kernel, then
 from a table) and at R = 1e8, its weight build alone, K7 and K8 alone, one
-streaming update of a 1e7-sample chunk, and one streaming lnΠ update of a
-64 x 250k chunk of the grid; with names, only those calls.
+streaming update of a 1e7-sample chunk, one streaming lnΠ update of a
+64 x 250k chunk of the grid, and one update (a 1e7 chunk) and one predict
+(seven targets, two states of 256 replicates) of the streaming interpolation
+over beta 5.2 and 6.0, and one call of the bucketed runner on 1e8 - 12345
+samples padded to 2^27 (256 replicates); with names, only those calls.
 Each line holds
 
 - ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
@@ -176,10 +179,12 @@ def main() -> int:
     from .ops.resample import poisson1_freq
     from .pipeline import (
         _perturb_weights,
+        make_bucketed_extrap_runner,
         make_extrap_pipeline,
         make_lnpi_pipeline,
         make_perturb_pipeline,
         make_streaming_extrap_pipeline,
+        make_streaming_interp_pipeline,
         make_streaming_lnpi_pipeline,
         make_volume_pipeline,
     )
@@ -239,6 +244,14 @@ def main() -> int:
     gstate0, gupdate, _ = make_streaming_lnpi_pipeline(ORDER, BETA0, grid_shape=(64,), nrep=NREP, seed=SEED)
     gchunk = grid.chunk(4, dim=1)[1]  # a 64 x 250k chunk, as a view of the grid
     gridb = grid.to(torch.bfloat16)
+    # the streaming interpolation over beta 5.2 and 6.0: one update of a 1e7
+    # chunk, and one predict at seven targets from states of one 1e7 chunk each
+    istates0, iupdate, ipredict = make_streaming_interp_pipeline(ORDER, (5.2, 6.0), nrep=NREP, seed=SEED)
+    istates = iupdate(iupdate(istates0, 0, up, xp), 1, u[rp : 2 * rp], x[rp : 2 * rp])
+    ibetas = torch.tensor((*BETAS, 5.3, 5.7), dtype=torch.float64)
+    # the bucketed runner on R = 1e8 - 12345 samples, padded to 2^27
+    serve = make_bucketed_extrap_runner(ORDER, BETA0, nrep=NREP)
+    rb = 100_000_000 - 12_345
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
@@ -264,6 +277,9 @@ def main() -> int:
         "K8_1e7": lambda: mc.resample_perturb_poisson(ep, xp[:, None], nrep_p, seed=SEED),
         "streaming_update_1e7": lambda: update(state0, up, xp),
         "streaming_lnpi_update_64x250k": lambda: gupdate(gstate0, gchunk),
+        "interp_update": lambda: iupdate(istates0, 0, up, xp),
+        "interp_predict": lambda: ipredict(istates, ibetas),
+        "bucketed_serve": lambda: serve(u[:rb], x[:rb], betas, seed=SEED),
     }
     wanted = sys.argv[1:] or list(calls)
     for name in wanted:

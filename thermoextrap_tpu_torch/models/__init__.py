@@ -1,6 +1,21 @@
 """Derivative engine and models of the torch port."""
 
 from .derivatives import Derivatives
-from .extrap import ExtrapModel, PerturbModel
+from .extrap import (
+    ExtrapModel,
+    ExtrapWeightedModel,
+    InterpModel,
+    InterpModelPiecewise,
+    PerturbModel,
+    StateCollection,
+)
 
-__all__ = ["Derivatives", "ExtrapModel", "PerturbModel"]
+__all__ = [
+    "Derivatives",
+    "ExtrapModel",
+    "ExtrapWeightedModel",
+    "InterpModel",
+    "InterpModelPiecewise",
+    "PerturbModel",
+    "StateCollection",
+]

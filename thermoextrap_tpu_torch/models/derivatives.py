@@ -21,9 +21,11 @@ from dataclasses import dataclass
 from math import comb
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ..ops.series import derivs_from_coefs, series_div, series_mul, series_neg_log, series_pow
+from ..utils.device import default_device
 
 __all__ = [
     "Derivatives",
@@ -48,6 +50,12 @@ def _alt(n: int) -> float:
 
 def _stack(rows):
     return torch.stack(torch.broadcast_tensors(*rows), dim=0)
+
+
+def _tensor(v):
+    """A derivative row as a tensor: a number or numpy value goes to the
+    default device."""
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v), device=default_device())
 
 
 def _den_series(m, order: int):
@@ -255,6 +263,36 @@ class Derivatives:
         """Build from an indexable of per-order derivative functions."""
 
         def coefs_fn(args, order):
-            return _stack([funcs[i](*args) / math.factorial(i) for i in range(order + 1)])
+            return _stack([_tensor(funcs[i](*args)) / math.factorial(i) for i in range(order + 1)])
 
         return cls(coefs_fn=coefs_fn, name=name)
+
+    @classmethod
+    def from_sympy(cls, exprs, args, name="sympy"):
+        """Build from user sympy expressions, one per derivative order, in
+        indexed moment symbols (``u[n]``, ``xu[n]``, which index the leading
+        axis of the ``derivs_args`` tensors); ``args`` are those symbols.
+        Each order is lambdified once, on first use, with the elementary
+        functions mapped to torch (``modules="torch"`` cannot print indexed
+        symbols); sympy runs at build time only and is imported here alone.
+        """
+        import sympy as sp
+
+        cache: dict[int, Callable] = {}
+
+        def fn(i: int) -> Callable:
+            if i not in cache:
+                cache[i] = sp.lambdify(tuple(args), exprs[i], modules=[_SYMPY_TORCH, "math"])
+            return cache[i]
+
+        def coefs_fn(call_args, order):
+            return _stack([_tensor(fn(i)(*call_args)) / math.factorial(i) for i in range(order + 1)])
+
+        return cls(coefs_fn=coefs_fn, name=name)
+
+
+# sympy function names -> torch, for Derivatives.from_sympy
+_SYMPY_TORCH = {
+    name: getattr(torch, name)
+    for name in ("exp", "log", "sqrt", "sin", "cos", "tan", "sinh", "cosh", "tanh", "asin", "acos", "atan")
+}

@@ -3,9 +3,11 @@ r"""Serving pipelines: samples → extrapolation (+ bootstrap CI).
 Counterpart of ``thermoextrap_tpu/pipeline.py`` without a mesh: the one-shot
 ``make_extrap_pipeline``, ``make_lnpi_pipeline``, ``make_volume_pipeline``
 and ``make_perturb_pipeline``, their streaming forms
-(``make_streaming_{extrap,lnpi,volume,perturb}_pipeline``) and
-``streaming_jackknife``.  The streaming interpolation and the GPR pipelines
-are not ported yet.  Arrays that are not tensors go to the package's default
+(``make_streaming_{extrap,lnpi,volume,perturb}_pipeline``), the streaming
+interpolation between states (``make_streaming_interp_pipeline``),
+``streaming_jackknife`` and the bucketed serving runner
+(``make_bucketed_extrap_runner``).  The GPR pipeline is not ported yet.
+Arrays that are not tensors go to the package's default
 device (:func:`.utils.device.default_device`); the path then runs by the
 device of the samples, decided per call:
 
@@ -34,21 +36,25 @@ import torch
 
 from .data import DataCentralMoments, _as_tensor
 from .models.derivatives import central_u_ave_coefs, central_x_ave_coefs, central_x_ave_coefs_xalpha, lnpi_coefs
-from .models.extrap import _poly_eval, _weighted_sums
+from .models.extrap import _interp_eval, _interp_fit, _poly_eval, _weighted_sums
 from .ops import dispatch, moments_cuda, resample
-from .ops.series import series_neg_log
+from .ops.series import derivs_from_coefs, series_neg_log
 from .utils.device import default_device
 from .utils.random import validate_rng
 
 __all__ = [
+    "bucket_pad",
+    "make_bucketed_extrap_runner",
     "make_extrap_pipeline",
     "make_lnpi_pipeline",
     "make_perturb_pipeline",
     "make_streaming_extrap_pipeline",
+    "make_streaming_interp_pipeline",
     "make_streaming_lnpi_pipeline",
     "make_streaming_perturb_pipeline",
     "make_streaming_volume_pipeline",
     "make_volume_pipeline",
+    "normalize_buckets",
     "streaming_jackknife",
 ]
 
@@ -857,6 +863,93 @@ def make_streaming_perturb_pipeline(
     return state0, update, predict
 
 
+def _state_seed(seed: int, i: int) -> int:
+    """The base seed of state ``i`` of a streaming interpolation: a
+    golden-ratio mix, so that independent simulations share no counts."""
+    return int((int(seed) + 0x9E3779B9 * (i + 1)) & 0x7FFFFFFF)
+
+
+def make_streaming_interp_pipeline(
+    order: int,
+    beta0s,
+    *,
+    minus_log: bool = False,
+    val_shape: tuple[int, ...] = (),
+    dtype=torch.float64,
+    bf16: bool = False,
+    nrep: int = 0,
+    seed: int = 0,
+    device=None,
+):
+    r"""Streaming interpolation between states: one online accumulator per
+    reference inverse temperature (one simulation per state point), and a
+    prediction at any time from the joint polynomial through all states (as
+    :class:`.models.extrap.InterpModel`), keeping no samples.
+
+    ``order``: Taylor order of each state (the joint polynomial's is
+    ``len(beta0s) * (order + 1) - 1``).  ``beta0s``: the states' inverse
+    temperatures, at least two.  ``minus_log``: interpolate ``-log <x>``.
+    ``val_shape``, ``dtype``, ``bf16``, ``device``: as in
+    :func:`make_streaming_extrap_pipeline`, shared by every state.  ``nrep >
+    0``: every state also carries ``nrep`` Poisson-bootstrap replicate
+    accumulators (K3 per chunk on CUDA), each state from its own base seed
+    ``(seed + 0x9E3779B9 (i+1)) & 0x7FFFFFFF`` and from it a seed per chunk,
+    so that no two states share counts.
+
+    Returns ``(states0, update, predict)``: ``states0`` a tuple of empty
+    states, one per β; ``update(states, i, uv, xv, weight=None) -> states``
+    folds a chunk of the simulation at ``beta0s[i]`` (K1 on CUDA);
+    ``predict(states, betas) -> (A, *val_shape)`` float64 on the states'
+    device, or ``(pred, std)`` with ``nrep``: every state's unnormalized
+    derivative stack, then one float64 solve of the joint system on the
+    device (:func:`.models.extrap._interp_fit`), the replicate axis
+    riding its right-hand side.  ``predict`` composes with
+    :func:`streaming_jackknife` over one state's chunks.
+    """
+    beta0s = [float(b) for b in beta0s]
+    if len(beta0s) < 2:
+        msg = f"interpolation needs >= 2 reference states, got {len(beta0s)}"
+        raise ValueError(msg)
+    device = default_device() if device is None else torch.device(device)
+    pipes = [
+        make_streaming_extrap_pipeline(
+            order,
+            b,
+            val_shape=val_shape,
+            dtype=dtype,
+            bf16=bf16,
+            nrep=nrep,
+            seed=_state_seed(seed, i),
+            device=device,
+        )
+        for i, b in enumerate(beta0s)
+    ]
+    states0 = tuple(p[0] for p in pipes)
+
+    def update(states, i, uv, xv, weight=None):
+        i = int(i)
+        states = list(states)
+        states[i] = pipes[i][1](states[i], uv, xv, weight=weight)
+        return tuple(states)
+
+    def _derivs(s):
+        c = central_x_ave_coefs(s.xave.double(), s.du.double(), s.dxdu.double(), order)
+        return derivs_from_coefs(series_neg_log(c) if minus_log else c)
+
+    def _solve_eval(data_states, betas):
+        return _interp_eval(_interp_fit(beta0s, [_derivs(s) for s in data_states], order), betas)
+
+    def predict(states, betas):
+        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
+        if not nrep:
+            return _solve_eval(states, betas)
+        pred = _solve_eval([s[0] for s in states], betas)
+        bpred = _solve_eval([s[1] for s in states], betas)  # (A, nrep, *val)
+        return pred, bpred.std(dim=1, correction=0)
+
+    return states0, update, predict
+
+
 def streaming_jackknife(states, predict, *args):
     r"""Delete-one-block jackknife over retained per-chunk states: a
     prediction and its standard error with no sample retention.
@@ -893,3 +986,143 @@ def streaming_jackknife(states, predict, *args):
     theta = torch.stack([predict(s, *args) for s in loo])
     var = (c - 1) / c * ((theta - theta.mean(dim=0)) ** 2).sum(dim=0)
     return predict(prefix[c], *args), torch.sqrt(var)
+
+
+# ---------------------------------------------------------------------------
+# bucketed serving
+# ---------------------------------------------------------------------------
+
+
+def normalize_buckets(buckets) -> tuple:
+    """Sorted bucket table; by default the powers of two ``2^12 .. 2^27``."""
+    return tuple(1 << p for p in range(12, 28)) if buckets is None else tuple(sorted(int(b) for b in buckets))
+
+
+def bucket_pad(uv, xv, weight, buckets):
+    """Pad ``(uv, xv, weight)`` with zero-weight samples up to the smallest
+    bucket ``>= R`` (unchanged past the largest bucket).
+
+    Arrays that are not tensors go to the default device first; tensors are
+    padded on their own device by ``torch.cat`` (a 1e8-sample request does
+    not pass through host memory).  ``xv=None`` passes through (the
+    ``x_is_u`` runner has no observable stream), and ``xv`` may be a tuple of
+    value streams padded together.  Exact: a pad replicates the last sample
+    (a bfloat16 stream stays in distribution) and carries weight 0.  Weights
+    keep their floating dtype (all ones of ``promote(uv.dtype, float32)``
+    without a weight); integer weights become float32.  Returns ``(uv, xv,
+    weight)``.
+    """
+    multi = isinstance(xv, tuple)
+    uv = _as_tensor(uv)
+    if multi:
+        if not xv:
+            msg = "bucket_pad: a tuple of value streams may not be empty"
+            raise ValueError(msg)
+        if any(x is None for x in xv):
+            msg = "bucket_pad: a tuple of value streams may not contain None"
+            raise ValueError(msg)
+        xvs = tuple(_as_tensor(x, uv.device) for x in xv)
+    else:
+        xvs = () if xv is None else (_as_tensor(xv, uv.device),)
+    r = uv.shape[0]
+    if r == 0:
+        msg = "serve() needs at least one sample"
+        raise ValueError(msg)
+    if weight is None:
+        w = torch.ones(r, dtype=torch.promote_types(uv.dtype, torch.float32), device=uv.device)
+    else:
+        w = _as_tensor(weight, uv.device)
+        if not w.is_floating_point():
+            w = w.float()
+    rp = next((b for b in buckets if b >= r), r)
+    pad = rp - r
+    if pad:
+
+        def _pad(x):
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+
+        uv = _pad(uv)
+        xvs = tuple(_pad(x) for x in xvs)
+        w = torch.cat([w, w.new_zeros(pad)])
+    return uv, (xvs if multi else (xvs[0] if xvs else None)), w
+
+
+def make_bucketed_extrap_runner(
+    order: int,
+    beta0: float,
+    *,
+    buckets=None,
+    minus_log: bool = False,
+    xalpha: bool = False,
+    x_is_u: bool = False,
+    nrep: int = 0,
+    bf16: bool = False,
+):
+    r"""Serving wrapper around the weighted :func:`make_extrap_pipeline` that
+    pads every request with zero-weight samples up to a bucket of sample
+    counts (:func:`bucket_pad`), so that requests of any size take a few
+    fixed shapes.  A zero-weight sample adds nothing to the reduction, so the
+    mean is the unpadded call's up to the order of the sums (on the card the
+    kernels' blocks move with the length).  With ``nrep`` the bootstrap is
+    over the padded stream: on CUDA Poisson(1) counts (K3, or K5 with
+    ``x_is_u``), whose pads weigh nothing; on CPU the multinomial count table
+    of :func:`make_extrap_pipeline` over the padded length.
+
+    ``buckets``: increasing sample counts, by default ``2^12 .. 2^27``; a
+    request above the largest runs at its own length.  ``order``, ``beta0``,
+    ``minus_log``, ``xalpha``, ``x_is_u``, ``nrep``, ``bf16``: as in
+    :func:`make_extrap_pipeline`.
+
+    Returns ``serve(uv, xv, betas, weight=None, seed=0)`` (``serve(uv, betas,
+    weight=None, seed=0)`` with ``x_is_u``), with ``serve.buckets`` and
+    ``serve.warmup(val_shape=(1,), n_betas=1, max_bucket=None,
+    dtype=torch.float32)``, which runs each bucket once on the default device
+    (on CUDA that builds the kernels; no bucket compiles anything of its
+    own).
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> serve = make_bucketed_extrap_runner(2, 1.0, buckets=(8, 16))
+    >>> uv = np.array([1.0, 2.0, 3.0, 4.0, 5.0])   # R=5 -> bucket 8
+    >>> pred = serve(uv, 2.0 * uv[:, None], np.array([1.0]))
+    >>> float(pred[0, 0])
+    6.0
+    """
+    run = make_extrap_pipeline(
+        order, beta0, minus_log=minus_log, xalpha=xalpha, x_is_u=x_is_u, nrep=nrep, weighted=True, bf16=bf16
+    )
+    buckets = normalize_buckets(buckets)
+
+    if x_is_u:
+
+        def serve(uv, betas, weight=None, seed=0):
+            uvp, _, wp = bucket_pad(uv, None, weight, buckets)
+            return run(uvp, betas, wp, seed)
+
+    else:
+
+        def serve(uv, xv, betas, weight=None, seed=0):
+            uvp, xvp, wp = bucket_pad(uv, xv, weight, buckets)
+            return run(uvp, xvp, betas, wp, seed)
+
+    def warmup(val_shape=(1,), n_betas: int = 1, max_bucket: int | None = None, dtype=torch.float32):
+        """Run each bucket (up to ``max_bucket``) once on dummy samples of
+        ``dtype`` on the default device."""
+        device = default_device()
+        betas = torch.full((n_betas,), float(beta0), dtype=torch.float64)
+        for b in buckets:
+            if max_bucket is not None and b > max_bucket:
+                break
+            uv = torch.linspace(0.5, 1.5, b, dtype=dtype, device=device)
+            if x_is_u:
+                serve(uv, betas)
+            else:
+                xv_shape = (b, order + 1, *val_shape) if xalpha else (b, *val_shape)
+                serve(uv, torch.ones(xv_shape, dtype=dtype, device=device), betas)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    serve.warmup = warmup
+    serve.buckets = buckets
+    return serve
