@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port's main path, its ensembles, the perturbation path, the
-streaming pipelines and the interpolation between states once on an NVIDIA
-GPU.
+streaming pipelines, the interpolation between states, MBAR and the file-fed
+ingest runtime once on an NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -92,11 +92,30 @@ on any failure, without printing a result.  Phases, one line each:
     against the float64 plain path and ``x_ave``; the bucketed runner on
     1e8 - 12345 samples padded to 2^27 (K1 + K3, and K4 + K5 with x_is_u)
     against the unpadded calls; and the times of one streaming-interpolation
-    update and predict, the one-shot model at R = 1e8 and one bucketed call.
+    update and predict, the one-shot model at R = 1e8 and one bucketed call;
+21. MBAR at ``benches/bench_mbar.py``'s serving size: the hybrid solve of
+    K = 4 harmonic states (sigma in [1, 3]) over N = 1e8 pooled float32
+    samples against the analytic free energies and a float64 solve of the
+    same u_kn; 256 reweighting targets in alpha chunks against the exact
+    <x^2> and the explicit grid; the overlap, covariance and perturbed free
+    energies; ``MBARModel.predict`` over phase 20's three R = 1e8 sets
+    against ``idealgas.x_ave`` and the float64 model, and ``predict_ci``
+    (16 replicates on a third of each set) twice with one seed; the
+    statistical inefficiency of a 1e7-step AR(1) series on the card against
+    19 and the CPU's float64; the times of each;
+22. file-fed streaming through the ingest runtime: the main samples as ten
+    ``.npy`` files of (1e7, 2) read by ``read_npy_chunks`` onto the card and
+    folded by ``ingest_stream`` into the streaming pipeline (K1 and K3 ten
+    times each) equal to phase 16's in-memory stream exactly, also with
+    ``fan_in=2``; two 2e5-row text tables through the C++ loader
+    (``native.loadtxt_fast``, equal to ``np.loadtxt``) equal to feeding the
+    parsed arrays; ``native.available()``; the ingest's time against the
+    in-memory stream's and the bare file read, with the device's idle share.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
-kernel once; phases 6, 11, 16 and 20 hold every path to that.  Each kernel's bound is the
+kernel once; phases 6, 11, 16, 20 and 22 hold every path to that (MBAR's
+paths launch no kernel).  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
@@ -115,6 +134,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ORDER = 6
@@ -142,6 +162,19 @@ EXAMPLE_SHAPE = (50_000, 1_000)
 EXAMPLE_NREP = 100
 BUCKET_SHORT = 12_345
 BUCKET_RTOL = 1e-6
+# phase 21: benches/bench_mbar.py's serving size (K states, N pooled samples, A
+# targets in alpha chunks), a cap on the solver's iterations, the bootstrap of
+# MBARModel.predict_ci, and the AR(1) series of the statistical inefficiency
+MBAR_K = 4
+MBAR_N = 100_000_000
+MBAR_A = 256
+MBAR_CHUNK = 8
+MBAR_MAX_ITER = 100
+MBAR_NREP = 16  # about 0.17 s a replicate on an H100 at N = 1e8; 32 would push phases 21-22 toward a minute
+MBAR_REP_CHUNK = 3  # 5.2 GB a replicate at K = 3, N = 1e8: under 20 GB
+AR_STEPS = 10_000_000
+# phase 22: rows of each text table
+TEXT_ROWS = 200_000
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -184,6 +217,7 @@ def _card_line() -> str:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1236,8 +1270,6 @@ def main() -> int:
     del one64
 
     # (d) checkpoint after 5 chunks a state, restore onto the card, feed the rest
-    import tempfile
-
     from thermoextrap_tpu_torch.utils import checkpoint as ckpt
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1353,7 +1385,265 @@ def main() -> int:
         nrep=NREP_MAIN,
         betas=len(INTERP_EVAL),
     )
-    del sims, chunks, two_f32, istates, ex_data
+    del chunks, two_f32, istates, ex_data
+
+    # -- phase 21: MBAR at the repo's serving width, each path with fresh launch counts ------
+    from thermoextrap_tpu_torch import DataValues, MBARModel
+    from thermoextrap_tpu_torch.models import mbar as mb
+
+    def peak_gb(fn):
+        """``(result, GB)``: the most device memory ``fn`` held beyond what was allocated before it."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # (a) benches/bench_mbar.py's problem: K = 4 harmonic states, sigma in [1, 3], N = 1e8
+    # pooled samples (N/K a state), u_kn = x^2 / (2 sigma_k^2) in float32 (1.6 GB)
+    msig = torch.linspace(1.0, 3.0, MBAR_K, dtype=torch.float64)
+    mgen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    xs_m = torch.cat([float(s) * torch.randn(MBAR_N // MBAR_K, generator=mgen, device=dev) for s in msig])
+    u_kn = xs_m[None] ** 2 / (2.0 * msig.float().to(dev)[:, None] ** 2)
+    n_km = torch.full((MBAR_K,), float(MBAR_N // MBAR_K), device=dev)
+    (f32_f, f32_it, f32_res), solve_gb = peak_gb(lambda: counted("mbar_solve", lambda: mb.mbar_solve_info(u_kn, n_km, max_iter=MBAR_MAX_ITER)))
+    f_exact = -torch.log(msig / msig[0]).to(dev)
+    u_kn64 = u_kn.double()
+    f64_f, f64_it, f64_res = mb.mbar_solve_info(u_kn64, n_km.double(), max_iter=MBAR_MAX_ITER)
+    del u_kn64
+    mbar = {
+        "solve_f32_iterations": f32_it,
+        "solve_f32_residual": float(f32_res),
+        "solve_f64_iterations": f64_it,
+        "solve_f64_residual": float(f64_res),
+        "f32_vs_analytic": float((f32_f.double() - f_exact).abs().max()),
+        "f32_vs_f64": float((f32_f.double() - f64_f).abs().max()),
+        "f64_vs_analytic": float((f64_f - f_exact).abs().max()),
+        "solve_peak_gb": solve_gb,
+    }
+    if not (float(f32_res) <= 1e-5 and float(f64_res) <= 1e-12):
+        raise AssertionError(f"MBAR solve did not converge: {mbar}")
+    if not (mbar["f32_vs_analytic"] <= 5e-3 and mbar["f32_vs_f64"] <= 1e-4):
+        raise AssertionError(f"MBAR free energies: {mbar}")
+
+    # (b) 256 targets u_a = alpha_a x^2 / 2 with the target sigma_a = alpha_a^(-1/2) in
+    # [1, 3]: <x^2> = sigma_a^2; the first chunk against the explicit grid
+    sig_a = torch.linspace(1.0, 3.0, MBAR_A, dtype=torch.float64, device=dev)
+    alphas_m = (1.0 / sig_a**2).float()
+    u_base = xs_m**2 / 2.0
+    x_nm = torch.stack([xs_m, xs_m**2], dim=1)
+    grid_a = counted("mbar_alphas", lambda: mb.mbar_expectations_alphas(u_kn, n_km, f32_f, alphas_m, u_base, x_nm, chunk=MBAR_CHUNK))
+    grid_8 = mb.mbar_expectations_grid(u_kn, n_km, f32_f, alphas_m[:MBAR_CHUNK, None] * u_base[None], x_nm)
+    mbar["alphas_x2_vs_sigma2_rel"] = rel_close("MBAR <x^2> vs sigma_a^2", grid_a[:, 1].double(), sig_a**2, 1e-3)
+    mbar["alphas_vs_grid_rel"] = rel_close("MBAR alpha chunks vs the grid", grid_a[:MBAR_CHUNK].double(), grid_8.double(), 1e-6)
+    del grid_8
+
+    # (c) diagnostics at the sampled states
+    overlap = mb.mbar_overlap(u_kn, n_km, f32_f)
+    theta = mb.mbar_covariance(u_kn, n_km, f32_f)
+    dfe = mb.mbar_fe_uncertainties(theta)
+    f_same = mb.mbar_perturbed_free_energies(u_kn, n_km, f32_f, u_kn)
+    mbar["overlap_row_sums_minus_1"] = float((overlap.double().sum(dim=1) - 1.0).abs().max())
+    mbar["perturbed_at_states_vs_f"] = float((f_same - f32_f).abs().max())
+    if not (mbar["overlap_row_sums_minus_1"] <= 1e-5 and mbar["perturbed_at_states_vs_f"] <= 1e-5):
+        raise AssertionError(f"MBAR diagnostics: {mbar}")
+    if not (bool(torch.isfinite(theta).all()) and np.isfinite(dfe).all() and not np.diag(dfe).any()):
+        raise AssertionError(f"MBAR uncertainties: theta {theta.tolist()}, d(f) {dfe.tolist()}")
+    say(
+        21,
+        card=card,
+        K=MBAR_K,
+        N=MBAR_N,
+        A=MBAR_A,
+        f=f32_f.tolist(),
+        f_analytic=f_exact.tolist(),
+        dfe_row0=dfe[0].tolist(),
+        overlap_min=float(overlap.min()),
+        max_diff=mbar,
+    )
+
+    # (d) MBARModel over phase 20's three R = 1e8 ideal-gas sets (order 0, N = 3e8 pooled),
+    # (e) its bootstrap on the first 1/3 of each set (N ~ 1e8 pooled), nrep 32, seeded
+    def mbar_model(dtype, r=R_MAIN):
+        return MBARModel(
+            [
+                beta.factory_extrapmodel(b, DataValues.from_vals(sims[b][1][:r].to(dtype), sims[b][0][:r].to(dtype), order=0), order=0)
+                for b in sorted(sims)
+            ]
+        )
+
+    mpred = counted("mbar_predict", lambda: mbar_model(torch.float32).predict(betas))
+    mpred64 = mbar_model(torch.float64).predict(betas)
+    r_ci = R_MAIN // 3
+    ci_model = mbar_model(torch.float32, r_ci)
+    (mci, mci_std), ci_gb = peak_gb(lambda: counted("mbar_predict_ci", lambda: ci_model.predict_ci(betas, nrep=MBAR_NREP, seed=SEED, rep_chunk=MBAR_REP_CHUNK)))
+    (mci2, mci2_std), ci_ms = timed(lambda: ci_model.predict_ci(betas, nrep=MBAR_NREP, seed=SEED, rep_chunk=MBAR_REP_CHUNK))
+    if not (torch.equal(mci, mci2) and torch.equal(mci_std, mci2_std)):
+        raise AssertionError("predict_ci with one seed gave two answers")
+    if not (bool(torch.isfinite(mci_std).all()) and bool((mci_std > 0).all())):
+        raise AssertionError(f"predict_ci std {mci_std.tolist()}")
+    xave_truth = idealgas.x_ave(betas).to(dev)
+    mbar["model_vs_analytic"] = within("MBARModel vs x_ave", mpred.double(), mci_std.double(), xave_truth, 5)
+    mbar["model_vs_f64"] = within("MBARModel vs float64", mpred.double(), mci_std.double(), mpred64, 0.1)
+    mbar["ci_mean_vs_predict"] = within("predict_ci mean vs predict", mci.double(), mci_std.double(), mpred.double(), 4)
+    mbar["predict_ci_peak_gb"] = ci_gb
+    say(
+        21,
+        card=card,
+        states=sorted(sims),
+        R_per_state=R_MAIN,
+        ci_R_per_state=r_ci,
+        nrep=MBAR_NREP,
+        rep_chunk=MBAR_REP_CHUNK,
+        betas=list(BETAS),
+        pred=mpred.tolist(),
+        pred_f64=mpred64.tolist(),
+        ci_mean=mci.tolist(),
+        ci_std=mci_std.tolist(),
+        analytic=xave_truth.tolist(),
+        max_diff=mbar,
+    )
+    del mpred64, ci_model
+
+    # (f) the statistical inefficiency of an AR(1) series, rho = 0.9 (g = 19), 1e7 steps
+    from scipy.signal import lfilter
+
+    ar = lfilter([1.0], [1.0, -0.9], np.random.default_rng(SEED).standard_normal(AR_STEPS))
+    g_card = float(mb.statistical_inefficiency(torch.as_tensor(ar, dtype=torch.float32, device=dev)))
+    g_cpu = float(mb.statistical_inefficiency(torch.as_tensor(ar)))
+    if not (abs(g_card / 19.0 - 1.0) <= 0.1 and abs(g_card / g_cpu - 1.0) <= 1e-3):
+        raise AssertionError(f"statistical inefficiency {g_card} on the card, {g_cpu} float64 on the CPU")
+    say(21, card=card, ar_steps=AR_STEPS, g_card_f32=g_card, g_cpu_f64=g_cpu, g_exact=19.0)
+
+    # times, by CUDA events (best of 3)
+    u_kn64 = u_kn.double()
+    n_km64 = n_km.double()
+    solve32_ms = time_ms(lambda: mb.mbar_solve_info(u_kn, n_km, max_iter=MBAR_MAX_ITER), 3)
+    solve64_ms = time_ms(lambda: mb.mbar_solve_info(u_kn64, n_km64, max_iter=MBAR_MAX_ITER), 3)
+    del u_kn64
+    mbar_times = {
+        "solve_f32_ms": solve32_ms,
+        "solve_f32_ms_per_iteration": solve32_ms / max(f32_it, 1),
+        "solve_f64_ms": solve64_ms,
+        "solve_f64_ms_per_iteration": solve64_ms / max(f64_it, 1),
+        # one pass over u_kn at the memory rate
+        "pass_bound_f32_ms": 4.0 * MBAR_K * MBAR_N / HBM_BPS * 1e3,
+        "pass_bound_f64_ms": 8.0 * MBAR_K * MBAR_N / HBM_BPS * 1e3,
+        "alphas_256_ms": time_ms(lambda: mb.mbar_expectations_alphas(u_kn, n_km, f32_f, alphas_m, u_base, x_nm, chunk=MBAR_CHUNK), 3),
+        "model_predict_3x1e8_ms": time_ms(lambda: mbar_model(torch.float32).predict(betas), 3),
+        "model_predict_ci_ms": ci_ms,
+    }
+    say(21, card=card, nrep=MBAR_NREP, **mbar_times)
+    del u_kn, xs_m, u_base, x_nm, grid_a, sims
+
+    # -- phase 22: file-fed streaming through the ingest runtime -----------------------------
+    from thermoextrap_tpu_torch import io_stream, native
+    from thermoextrap_tpu_torch.devtime import device_time
+
+    if not native.available():
+        raise AssertionError("the native host engine did not build (g++)")
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the main path's u and x as 10 .npy files of (1e7, 2) float32 (0.8 GB)
+        npy_paths = []
+        for k, (uc, xc) in enumerate(zip(u.chunk(STREAM_CHUNKS), x.chunk(STREAM_CHUNKS))):
+            npy_paths.append(os.path.join(tmp, f"chunk{k}.npy"))
+            np.save(npy_paths[-1], torch.stack([uc, xc], dim=1).cpu().numpy())
+        state_f, update_f, predict_f = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP_MAIN, seed=SEED)
+
+        def ingest(paths=npy_paths, fan_in=1):
+            return io_stream.ingest_stream(update_f, state_f, io_stream.read_npy_chunks(paths, columns=(0, 1), device=dev), fan_in=fan_in)
+
+        fstate = counted("ingest_npy", ingest)
+        fpred, fstd = predict_f(fstate, betas)
+        gpred_, gstd_ = predict_f(ingest(fan_in=2), betas)
+        if not (torch.equal(fpred, spred) and torch.equal(fstd, sstd)):
+            raise AssertionError(
+                f"file-fed stream differs from the in-memory stream: {float((fpred - spred).abs().max())}, {float((fstd - sstd).abs().max())}"
+            )
+        if not (torch.equal(gpred_, fpred) and torch.equal(gstd_, fstd)):
+            raise AssertionError("fan_in=2 gave another state")
+
+        # (b) two text tables of 2e5 rows (u x) through the C++ loader
+        txt_paths = []
+        for k in range(2):
+            txt_paths.append(os.path.join(tmp, f"table{k}.txt"))
+            sl = slice(k * TEXT_ROWS, (k + 1) * TEXT_ROWS)
+            np.savetxt(txt_paths[-1], torch.stack([u[sl], x[sl]], dim=1).cpu().numpy())
+        # the C++ parser scales its digits by a power of ten (two roundings,
+        # csrc/host/fastloader.cpp): within one float64 ulp of np.loadtxt, and
+        # equal to it once cast to the stream's float32
+        parsed = [np.loadtxt(p) for p in txt_paths]
+        text_ulps = []
+        for p, want in zip(txt_paths, parsed):
+            got = native.loadtxt_fast(p)
+            ulps = np.abs(got - want) / np.spacing(np.abs(want))
+            text_ulps.append((int((got != want).sum()), float(ulps.max())))
+            if not (ulps.max() <= 1.0 and np.array_equal(got.astype(np.float32), want.astype(np.float32))):
+                raise AssertionError(f"loadtxt_fast against np.loadtxt on {p}: {text_ulps[-1]} (entries differing, ulps)")
+        tstate = counted("ingest_text", lambda: io_stream.ingest_stream(update_f, state_f, io_stream.read_table_chunks(txt_paths, columns=(0, 1), device=dev)))
+        pstate = state_f
+        for t in parsed:
+            pstate = update_f(pstate, torch.as_tensor(t[:, 0], device=dev), torch.as_tensor(t[:, 1], device=dev))
+        if not all(torch.equal(a, b) for a, b in zip(predict_f(tstate, betas), predict_f(pstate, betas))):
+            raise AssertionError("the text-fed stream differs from feeding the parsed arrays")
+
+        # (d) times: the 10-file ingest against the in-memory 10-chunk stream and the bare
+        # host read of the files, with the device's idle share
+        def in_memory():
+            state = state_f
+            for uc, xc in zip(u.chunk(STREAM_CHUNKS), x.chunk(STREAM_CHUNKS)):
+                state = update_f(state, uc, xc)
+            return state
+
+        t0 = time.perf_counter()
+        for p in npy_paths:
+            arr = np.load(p, allow_pickle=False)
+            _cols = (np.ascontiguousarray(arr[:, 0]), np.ascontiguousarray(arr[:, 1]))
+        read_ms = (time.perf_counter() - t0) * 1e3
+        del arr, _cols
+        ingest_wall, ingest_dev, ingest_top = device_time(ingest, 2)
+        mem_wall, mem_dev, mem_top = device_time(in_memory, 3)
+
+    ingest_expected = {
+        "ingest_npy": {"K1": STREAM_CHUNKS, "K3": STREAM_CHUNKS},
+        "ingest_text": {"K1": 2, "K3": 2},
+        "mbar_solve": {},
+        "mbar_alphas": {},
+        "mbar_predict": {},
+        "mbar_predict_ci": {},
+    }
+    say(22, launches={path: path_launches[path] for path in ingest_expected})
+    for path, want in ingest_expected.items():
+        if path_launches[path] != full_counts(want):
+            raise AssertionError(f"{path} path launched {path_launches[path]}, expected {want}")
+    say(
+        22,
+        card=card,
+        files=STREAM_CHUNKS,
+        rows_per_file=R_MAIN // STREAM_CHUNKS,
+        text_rows=TEXT_ROWS,
+        equal_to_in_memory_stream=True,
+        fan_in_2_equal=True,
+        text_equal_to_parsed=True,
+        text_float64_entries_differing_and_max_ulps=text_ulps,
+        native_available=True,
+        pred=fpred.tolist(),
+        std=fstd.tolist(),
+    )
+    say(
+        22,
+        card=card,
+        ingest_10_files_ms=ingest_wall,
+        ingest_device_ms=ingest_dev,
+        ingest_idle=1.0 - ingest_dev / ingest_wall,
+        ingest_top=ingest_top,
+        in_memory_10_chunks_ms=mem_wall,
+        in_memory_device_ms=mem_dev,
+        in_memory_idle=1.0 - mem_dev / mem_wall,
+        host_read_10_files_ms=read_ms,
+        depth=2,
+    )
 
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0

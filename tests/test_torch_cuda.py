@@ -946,3 +946,126 @@ def test_bucketed_runner_on_gpu_pads_on_the_card(rng, cuda_device, monkeypatch):
     torch.cuda.synchronize()
     assert mc.LAUNCHES["K4"] == 1 and mc.LAUNCHES["K5"] == 1
     assert_close(pred_u, tpipe.make_extrap_pipeline(4, 1.0, x_is_u=True)(uc, tt(BETAS)), 1e-6, 1e-9)
+
+
+# -- MBAR and the ingest runtime on the card ---------------------------------------------------
+
+
+def test_mbar_on_gpu_matches_cpu(cuda_device):
+    """MBAR on CUDA float32 tensors returns CUDA tensors and equals the CPU
+    float64 port at float32 bars: free energies to 1e-4, expectations and
+    overlap rows to 1e-4 relative, the bootstrap's mean to its own sigma."""
+    from thermoextrap_tpu_torch.models import mbar as tm
+
+    rng = np.random.default_rng(3)
+    sig = np.array([1.0, 1.5, 2.2])
+    xs = np.concatenate([rng.normal(0.0, s, 100_000) for s in sig])
+    u_kn, n_k = xs[None] ** 2 / (2 * sig[:, None] ** 2), np.full(3, 100_000.0)
+    u_t = xs[None] ** 2 / (2 * np.array([1.2, 1.9])[:, None] ** 2)
+    x_n = np.stack([xs, xs**2], axis=1)
+    uc, utc, xc = (_f32(a, cuda_device) for a in (u_kn, u_t, x_n))
+    f, it, res = tm.mbar_solve_info(uc, n_k)
+    f64 = tm.mbar_solve(tt(u_kn), n_k)
+    assert f.is_cuda and res.is_cuda and f.dtype == torch.float32 and float(res) <= 1e-5 and isinstance(it, int)
+    assert_close(f, f64, 0.0, 1e-4)
+    grid = tm.mbar_expectations_grid(uc, n_k, f, utc, xc)
+    assert grid.is_cuda
+    assert_close(grid, tm.mbar_expectations_grid(tt(u_kn), n_k, f64, tt(u_t), tt(x_n)), 1e-4, 1e-5)
+    alphas = tm.mbar_expectations_alphas(uc, n_k, f, [1 / 1.2**2, 1 / 1.9**2], _f32(xs**2 / 2, cuda_device), xc, chunk=1)
+    assert_close(alphas, grid, 1e-5, 1e-6)
+    o = tm.mbar_overlap(uc, n_k, f)
+    assert o.is_cuda and bool((o.sum(dim=1) - 1).abs().max() < 1e-4)
+    theta = tm.mbar_covariance(uc, n_k, f)
+    assert theta.is_cuda and theta.dtype == torch.float64
+    dfe = tm.mbar_fe_uncertainties(theta)
+    assert np.isfinite(dfe).all() and np.all(np.diag(dfe) == 0)
+    mean, std = tm.mbar_bootstrap_expectations(uc, n_k, utc, xc, nrep=8, rng=5, rep_chunk=4)
+    assert mean.is_cuda and bool((std > 0).all()) and bool(((mean - grid).abs() <= 4 * std).all())
+    again = tm.mbar_bootstrap_expectations(uc, n_k, utc, xc, nrep=8, rng=5, rep_chunk=3)
+    assert torch.equal(mean, again[0]) and torch.equal(std, again[1])
+    g = tm.statistical_inefficiency(_f32(xs, cuda_device))
+    assert g.is_cuda and abs(float(g) - float(tm.statistical_inefficiency(xs))) < 1e-3 * float(g)
+
+
+def test_mbar_model_on_gpu(cuda_device):
+    from thermoextrap_tpu_torch import DataValues
+    from thermoextrap_tpu_torch import beta as tbeta
+    from thermoextrap_tpu_torch import idealgas as tideal
+    from thermoextrap_tpu_torch.models.extrap import MBARModel
+
+    states, states64 = [], []
+    for i, b in enumerate((0.8, 1.2)):
+        x, u = tideal.generate_data((50_000, 10), b, rng=torch.Generator(device=cuda_device).manual_seed(i), dtype=torch.float32)
+        states.append(tbeta.factory_extrapmodel(b, DataValues.from_vals(x, u, order=0), order=0))
+        states64.append(tbeta.factory_extrapmodel(b, DataValues.from_vals(x.double().cpu(), u.double().cpu(), order=0), order=0))
+    pred = MBARModel(states).predict(tt(BETAS))
+    assert pred.is_cuda and pred.dtype == torch.float32
+    mean, std = MBARModel(states).predict_ci(tt(BETAS), nrep=8, seed=1)
+    assert mean.is_cuda and bool((std > 0).all())
+    assert bool(((pred.double().cpu() - MBARModel(states64).predict(tt(BETAS))).abs() <= 0.1 * std.double().cpu()).all())
+
+
+def test_prefetch_stages_on_a_side_stream(cuda_device):
+    """Chunks staged onto the card by the worker's stream equal their source
+    after a deliberately slow consumer: each chunk is read behind a long
+    kernel on the consumer's stream, so a missing wait would read it before
+    its copy landed and a missing ``record_stream`` would let a later copy
+    reuse its memory while it is still to be read."""
+    from thermoextrap_tpu_torch import io_stream
+
+    sources = [np.full(1 << 20, float(i), dtype=np.float32) + np.arange(1 << 20, dtype=np.float32) for i in range(8)]
+    seen = []
+    for i, (a, b) in enumerate(io_stream.prefetch_chunks(sources, load=lambda s: (s, s[:1000] * 2), depth=2, device=cuda_device)):
+        assert a.is_cuda and b.is_cuda
+        torch.cuda._sleep(20_000_000)  # the consumer's stream is busy while the worker copies on
+        seen.append((a * 1.0, b.clone()))
+        del a, b
+        if i % 2:
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for (a, b), s in zip(seen, sources):
+        assert np.array_equal(npy(a), s) and np.array_equal(npy(b), s[:1000] * 2)
+
+
+def test_file_fed_stream_on_gpu_launches_and_equals_in_memory(cuda_device, tmp_path):
+    """``.npy`` chunks through ``read_npy_chunks(device=card)`` and
+    ``ingest_stream`` launch one K1 and one K3 per chunk and give the
+    in-memory stream's state exactly, also with ``fan_in=2``."""
+    from thermoextrap_tpu_torch import io_stream
+
+    rng = np.random.default_rng(11)
+    u, x = _samples(rng, 300_000, 1)
+    table = np.stack([u, x[:, 0]], axis=1).astype(np.float32)
+    paths = []
+    for k, part in enumerate(np.split(table, 3)):
+        paths.append(tmp_path / f"c{k}.npy")
+        np.save(paths[-1], part)
+    state0, update, predict = tpipe.make_streaming_extrap_pipeline(4, 1.0, nrep=16, seed=3, device=cuda_device)
+    mc.reset_launches()
+    state = io_stream.ingest_stream(update, state0, io_stream.read_npy_chunks(paths, columns=(0, 1), device=cuda_device))
+    torch.cuda.synchronize()
+    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 3, "K3": 3, "head_shift": 6, "finalize": 6}
+    assert mc.LAUNCHES == want
+    mem = state0
+    for part in np.split(table, 3):
+        mem = update(mem, _f32(part[:, 0], cuda_device), _f32(part[:, 1], cuda_device))
+    fan = io_stream.ingest_stream(update, state0, io_stream.read_npy_chunks(paths, columns=(0, 1), device=cuda_device), fan_in=2)
+    for got in (state, fan):
+        for a, b in zip(predict(got, tt(BETAS)), predict(mem, tt(BETAS))):
+            assert torch.equal(a, b)
+
+
+def test_native_engine_refuses_card_tensors(cuda_device):
+    """The host engine raises on a CUDA tensor; under ``set_impl("native")``
+    a CUDA tensor keeps its kernel route (K1)."""
+    from thermoextrap_tpu_torch import native
+    from thermoextrap_tpu_torch.ops import dispatch
+
+    u = torch.linspace(0, 1, 1000, device=cuda_device)
+    with pytest.raises(ValueError, match="cuda"):
+        native.reduce_central_comoments(u, u[:, None], 3)
+    mc.reset_launches()
+    with dispatch.use_impl("native"):
+        out = dispatch.reduce_central(u, u[:, None], 3)
+    torch.cuda.synchronize()
+    assert out[0].is_cuda and mc.LAUNCHES["K1"] == 1

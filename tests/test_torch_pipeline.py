@@ -237,13 +237,16 @@ def test_idealgas_oracle_matches_jax():
 
 def test_port_never_imports_jax():
     """``import thermoextrap_tpu_torch`` (with the CUDA wrappers, the
-    checkpoint and tree modules) pulls in neither jax, nor the JAX package,
+    checkpoint and tree modules, MBAR, the ingest runtime and the native
+    engines) pulls in neither jax, nor the JAX package,
     nor orbax, nor sympy (imported only inside ``Derivatives.from_sympy``)."""
     code = (
         "import sys; before = set(sys.modules); "
         "import thermoextrap_tpu_torch, thermoextrap_tpu_torch.ops.moments_cuda; "
         "import thermoextrap_tpu_torch.utils.checkpoint, thermoextrap_tpu_torch.utils.trees; "
         "import thermoextrap_tpu_torch.devtime, thermoextrap_tpu_torch.drawcost, thermoextrap_tpu_torch.emulate; "
+        "import thermoextrap_tpu_torch.models.mbar, thermoextrap_tpu_torch.io_stream, thermoextrap_tpu_torch.native; "
+        "import thermoextrap_tpu_torch.native._fallback; "
         "new = set(sys.modules) - before; "
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'thermoextrap_tpu', 'orbax', 'sympy')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -284,6 +287,16 @@ def test_numpy_input_goes_to_the_default_device(monkeypatch):
     assert tx.DataCentralMoments.from_vals(x, u, 2).xave.device.type == "meta"
     state = interop.data_to_numpy(tx.DataCentralMoments.zeros(2, device="cpu"))
     assert interop.state_from_numpy(state).xave.device.type == "meta"
+    # MBAR (the solve's loop reads the card, so its pieces stand in for it)
+    from thermoextrap_tpu_torch.models import mbar as tmbar
+
+    u_kn = np.stack([u, 2 * u])
+    assert tmbar.mbar_log_weights(u_kn, [5, 5], [0.0, 0.5], u).device.type == "meta"
+    assert tmbar.mbar_expectations_grid(u_kn, [5, 5], [0.0, 0.5], u_kn, x[:, None]).device.type == "meta"
+    assert tmbar.mbar_expectations_alphas(u_kn, [5, 5], [0.0, 0.5], [1.0], u, x).device.type == "meta"
+    assert tmbar.mbar_perturbed_free_energies(u_kn, [5, 5], [0.0, 0.5], u_kn).device.type == "meta"
+    assert tmbar.statistical_inefficiency(x).device.type == "meta"
+    assert tmbar.mbar_log_weights(tt(u_kn), [5, 5], [0.0, 0.5], u).device.type == "cpu"
     # a tensor keeps its device, and an explicit device wins
     assert tpipe.make_extrap_pipeline(3, 1.0)(tt(u), x, [1.1]).device.type == "cpu"
     assert tpipe.make_streaming_extrap_pipeline(3, 1.0, device="cpu")[0].xave.device.type == "cpu"

@@ -8,7 +8,8 @@ interpolation models and the streaming pipelines:
 
 - (co)moment reduction and bootstrap (:mod:`.ops.moments`,
   :mod:`.ops.resample`, kernels in :mod:`.ops.moments_cuda`, routed by
-  device in :mod:`.ops.dispatch`);
+  device in :mod:`.ops.dispatch`, with the compiled host engine of
+  :mod:`.native` for host arrays on request);
 - the truncated-series derivative engine (:mod:`.ops.series`,
   :mod:`.models.derivatives`);
 - data containers, the streaming accumulator and its ``.npz`` checkpoint
@@ -22,14 +23,19 @@ interpolation models and the streaming pipelines:
   (:mod:`.interop`);
 - the lnΠ macrostate-grid expansion (:mod:`.lnpi`) and the volume expansion
   (:mod:`.volume`, :mod:`.volume_idealgas`), with the batched u-moment
-  kernels K4 / K5 behind the lnΠ and ⟨u⟩ paths.
+  kernels K4 / K5 behind the lnΠ and ⟨u⟩ paths;
+- multistate reweighting (:mod:`.models.mbar`, ``MBARModel``);
+- the ingest runtime (:mod:`.io_stream`: prefetched chunk streams from
+  text and ``.npy`` files into the streaming pipelines, staged onto the
+  card on a side stream) and the compiled host engines (:mod:`.native`:
+  the table loader and the float64 moment engine, built with ``g++``).
 
 Arrays that are not tensors go to :func:`default_device`: the CUDA card when
 there is one, unless :func:`set_default_device` says otherwise.  Importing
 the package needs neither CUDA nor a compiler.
 """
 
-from . import beta, data, idealgas, interop, lnpi, pipeline, volume, volume_idealgas
+from . import beta, data, idealgas, interop, io_stream, lnpi, pipeline, volume, volume_idealgas
 from .data import (
     DataCallback,
     DataCallbackABC,
@@ -45,6 +51,7 @@ from .models.extrap import (
     ExtrapWeightedModel,
     InterpModel,
     InterpModelPiecewise,
+    MBARModel,
     PerturbModel,
     StateCollection,
 )
@@ -64,6 +71,7 @@ __all__ = [
     "ExtrapWeightedModel",
     "InterpModel",
     "InterpModelPiecewise",
+    "MBARModel",
     "PerturbModel",
     "StateCollection",
     "beta",
@@ -72,6 +80,7 @@ __all__ = [
     "factory_data_values",
     "idealgas",
     "interop",
+    "io_stream",
     "lnpi",
     "pipeline",
     "set_default_device",

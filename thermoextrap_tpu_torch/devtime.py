@@ -18,8 +18,14 @@ from a table) and at R = 1e8, its weight build alone, K7 and K8 alone, one
 streaming update of a 1e7-sample chunk, one streaming lnΠ update of a
 64 x 250k chunk of the grid, and one update (a 1e7 chunk) and one predict
 (seven targets, two states of 256 replicates) of the streaming interpolation
-over beta 5.2 and 6.0, and one call of the bucketed runner on 1e8 - 12345
-samples padded to 2^27 (256 replicates); with names, only those calls.
+over beta 5.2 and 6.0, one call of the bucketed runner on 1e8 - 12345
+samples padded to 2^27 (256 replicates), MBAR at ``benches/bench_mbar.py``'s
+size (the float32 hybrid solve of K = 4 harmonic states over N = 1e8 pooled
+samples, its 256 targets in chunks of 8, and ``MBARModel.predict`` over the
+main samples and two more R = 1e8 sets at beta 5.2 and 6.0), and one
+file-fed streaming update (a 1e7-row ``.npy`` file through
+``read_npy_chunks`` onto the card and ``ingest_stream``); with names, only
+those calls.
 Each line holds
 
 - ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
@@ -48,6 +54,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 __all__ = ["STUBS", "device_time", "main"]
@@ -170,11 +177,16 @@ def _stubs(names) -> int:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     from . import idealgas
+    from .beta import factory_extrapmodel
+    from .data import DataValues
+    from .io_stream import ingest_stream, read_npy_chunks
+    from .models import mbar
     from .models.derivatives import central_u_ave_coefs, lnpi_coefs
-    from .models.extrap import _poly_eval
+    from .models.extrap import MBARModel, _poly_eval
     from .ops import moments_cuda as mc
     from .ops.resample import poisson1_freq
     from .pipeline import (
@@ -252,6 +264,26 @@ def main() -> int:
     # the bucketed runner on R = 1e8 - 12345 samples, padded to 2^27
     serve = make_bucketed_extrap_runner(ORDER, BETA0, nrep=NREP)
     rb = 100_000_000 - 12_345
+    # MBAR: K = 4 harmonic states, sigma in [1, 3], N = 1e8 pooled float32
+    # samples; 256 targets alpha x^2 / 2 with sigma_a in [1, 3]; the model over
+    # three R = 1e8 ideal-gas sets
+    sig = torch.linspace(1.0, 3.0, 4, dtype=torch.float64)
+    xs = torch.cat([float(s) * torch.randn(25_000_000, generator=gen, device=dev) for s in sig])
+    u_kn = xs[None] ** 2 / (2.0 * sig.float().to(dev)[:, None] ** 2)
+    n_k = torch.full((4,), 25_000_000.0, device=dev)
+    f_k = mbar.mbar_solve(u_kn, n_k)
+    alphas = (1.0 / torch.linspace(1.0, 3.0, 256, dtype=torch.float64, device=dev) ** 2).float()
+    u_base, x_n = xs**2 / 2.0, torch.stack([xs, xs**2], dim=1)
+    sets = {BETA0: (x, u)}
+    for k, b in enumerate((5.2, 6.0)):
+        sets[b] = idealgas.generate_data((100_000_000, 8), b, rng=torch.Generator(device=dev).manual_seed(SEED + 1 + k), dtype=torch.float32)
+    mbar_model = MBARModel(
+        [factory_extrapmodel(b, DataValues.from_vals(xb, ub, order=0), order=0) for b, (xb, ub) in sorted(sets.items())]
+    )
+    # a 1e7-row (u, x) .npy file, read onto the card for one streaming update
+    tmp = tempfile.TemporaryDirectory()
+    npy_path = f"{tmp.name}/chunk.npy"
+    np.save(npy_path, torch.stack([up, xp], dim=1).cpu().numpy())
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
@@ -280,6 +312,10 @@ def main() -> int:
         "interp_update": lambda: iupdate(istates0, 0, up, xp),
         "interp_predict": lambda: ipredict(istates, ibetas),
         "bucketed_serve": lambda: serve(u[:rb], x[:rb], betas, seed=SEED),
+        "mbar_solve": lambda: mbar.mbar_solve_info(u_kn, n_k),
+        "mbar_alphas": lambda: mbar.mbar_expectations_alphas(u_kn, n_k, f_k, alphas, u_base, x_n, chunk=8),
+        "mbar_predict": lambda: mbar_model.predict(betas),
+        "ingest_update": lambda: ingest_stream(update, state0, read_npy_chunks([npy_path], columns=(0, 1), device=dev)),
     }
     wanted = sys.argv[1:] or list(calls)
     for name in wanted:

@@ -6,6 +6,7 @@ from .extrap import (
     ExtrapWeightedModel,
     InterpModel,
     InterpModelPiecewise,
+    MBARModel,
     PerturbModel,
     StateCollection,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "ExtrapWeightedModel",
     "InterpModel",
     "InterpModelPiecewise",
+    "MBARModel",
     "PerturbModel",
     "StateCollection",
 ]

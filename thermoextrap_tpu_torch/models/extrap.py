@@ -2,8 +2,8 @@ r"""Extrapolation and interpolation models.
 
 Counterpart of ``thermoextrap_tpu/models/extrap.py``: ``ExtrapModel``,
 ``StateCollection``, ``ExtrapWeightedModel``, ``InterpModel``,
-``InterpModelPiecewise``, ``PerturbModel`` and ``predict_fn`` (``MBARModel``
-is not ported yet).  An array-valued ``alpha`` of shape ``(A,)`` gives
+``InterpModelPiecewise``, ``PerturbModel``, ``MBARModel`` (on
+:mod:`.mbar`) and ``predict_fn``.  An array-valued ``alpha`` of shape ``(A,)`` gives
 outputs ``(A, *rest)``, ``rest`` being the coefficient batch shape
 (replicates, values, ...).
 
@@ -29,6 +29,7 @@ __all__ = [
     "ExtrapWeightedModel",
     "InterpModel",
     "InterpModelPiecewise",
+    "MBARModel",
     "PerturbModel",
     "StateCollection",
     "eval_abs_poly",
@@ -456,6 +457,77 @@ class PerturbModel:
             data=self.data.resample(sampler, **kws),
             alpha_name=self.alpha_name,
         )
+
+
+def _mbar_predict_core(uv, xv, alpha0, alphas, method: str = "hybrid"):
+    """Pooled-sample MBAR solve and the expectations at every target.
+
+    ``uv (K, R)``, ``xv (K, R, *val)``, ``alpha0 (K,)``, ``alphas (A,)`` →
+    ``(A, V)``.  The targets ``alphas[a] * u`` are taken in blocks of at
+    most 2^27 elements (:func:`.mbar.mbar_expectations_alphas`, the same
+    products as the reference's ``(A, N)`` grid), so no ``(A, N)`` matrix
+    is built."""
+    from .mbar import mbar_expectations_alphas, mbar_solve
+
+    # reduced potential of every state evaluated on all pooled samples
+    u_flat = uv.reshape(-1)
+    u_kn = alpha0[:, None] * u_flat[None, :]  # (K, K*R)
+    n_k = torch.full((uv.shape[0],), float(uv.shape[-1]), dtype=uv.dtype, device=uv.device)
+    f_k = mbar_solve(u_kn, n_k, method=method)
+    chunk = max(1, min(alphas.shape[0], (1 << 27) // u_flat.shape[0]))
+    return mbar_expectations_alphas(u_kn, n_k, f_k, alphas, u_flat, xv.reshape(u_flat.shape[0], -1), chunk=chunk)
+
+
+class MBARModel(StateCollection):
+    """Multistate Bennett acceptance ratio reweighting over the pooled
+    samples of every state, solved by the Newton / self-consistent hybrid of
+    :mod:`.mbar` on the samples' device (the reference delegates to
+    ``pymbar``).  The states' samples are stacked ``(K, R)`` state by state
+    on their own device; the state energies are ``alpha0`` times ``uv`` in
+    the samples' type."""
+
+    def _pooled(self, alpha):
+        uv = torch.stack([m.data.uv for m in self])  # (K, R)
+        xv = torch.stack([m.data.xv for m in self])  # (K, R, *val)
+        alpha0 = torch.tensor([m.alpha0 for m in self], dtype=uv.dtype, device=uv.device)
+        alpha = torch.as_tensor(alpha, dtype=uv.dtype, device=uv.device)
+        return uv, xv, alpha0, torch.atleast_1d(alpha), alpha.ndim == 0
+
+    def predict(self, alpha, method: str = "hybrid"):
+        uv, xv, alpha0, alphas, scalar = self._pooled(alpha)
+        out = _mbar_predict_core(uv, xv, alpha0, alphas, method=method)
+        out = out.reshape((alphas.shape[0], *xv.shape[2:]))
+        return out[0] if scalar else out
+
+    def predict_ci(self, alpha, nrep: int = 100, seed: int = 0, method: str = "hybrid", rep_chunk: int = 2):
+        """Bootstrap ``(mean, std)`` of the reweighted prediction: each
+        Poisson replicate re-solves the weighted MBAR problem and re-evaluates
+        every target (:func:`.mbar.mbar_bootstrap_expectations`, counts drawn
+        from a generator seeded with ``seed`` on the samples' device)."""
+        from .mbar import mbar_bootstrap_expectations
+
+        uv, xv, alpha0, alphas, scalar = self._pooled(alpha)
+        u_flat = uv.reshape(1, -1)
+        mean, std = mbar_bootstrap_expectations(
+            alpha0[:, None] * u_flat,
+            [uv.shape[-1]] * len(self),
+            alphas[:, None] * u_flat,
+            xv.reshape(u_flat.shape[1], -1),
+            nrep=nrep,
+            rng=seed,
+            method=method,
+            rep_chunk=rep_chunk,
+        )
+        shape = (alphas.shape[0], *xv.shape[2:])
+        mean, std = mean.reshape(shape), std.reshape(shape)
+        return (mean[0], std[0]) if scalar else (mean, std)
+
+    def resample(self, *args, **kws):
+        msg = (
+            "resample not implemented for MBARModel (as in the reference); "
+            "use predict_ci(alpha, nrep=) for bootstrap uncertainties"
+        )
+        raise NotImplementedError(msg)
 
 
 def predict_fn(model: ExtrapModel):
