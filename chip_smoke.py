@@ -110,12 +110,31 @@ on any failure, without printing a result.  Phases, one line each:
     ``fan_in=2``; two 2e5-row text tables through the C++ loader
     (``native.loadtxt_fast``, equal to ``np.loadtxt``) equal to feeding the
     parsed arrays; ``native.available()``; the ingest's time against the
-    in-memory stream's and the bare file read, with the device's idle share.
+    in-memory stream's and the bare file read, with the device's idle share;
+23. the adaptive trainers at a real size: ``train_iterative`` and
+    ``train_recursive`` with ``InterpModel`` over 41 beta in [1, 5]
+    (``examples/beta_extrapolation.py``'s range), maxiter 6, each state 1e7
+    ideal-gas configurations of 100 particles drawn on the card in float32,
+    order 4, resampled by a 100-replicate index table through
+    ``DataCentralMomentsVals.resample`` (K2 once a state, as the JAX
+    package's ``factory_state_idealgas`` route); the final models at every
+    beta within 5 sigma of ``x_ave`` and 0.1 sigma of the same states
+    through the float64 plain path (same samples, same tables);
+    ``RecursiveInterp.recursive_train`` at its own data size (1e4 x 1000,
+    raw moments, no kernel) and ``factory_state_idealgas`` at its defaults;
+    each trainer's wall time by CUDA events and its host reads;
+24. gradients through K1 (R = 1e7, order 6, V = 1, with and without
+    weights), K6 (100 x 1e5), K4 (the lnPi grid 64 x 1e6 at order 6, and the
+    x_is_u route on one row of 1e7) and K2 (R = 1e5, 100 replicates, int32
+    table) against autograd of the float64 plain path on the card (rtol
+    2e-3, atol 1e-5 of the largest entry); K1's forward and backward at the
+    main path's R = 1e8 and the peak memory; K3, K5, K7 and K8 still raise on
+    an input that requires grad.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
-kernel once; phases 6, 11, 16, 20 and 22 hold every path to that (MBAR's
-paths launch no kernel).  Each kernel's bound is the
+kernel once; phases 6, 11, 16, 20, 22, 23 and 24 hold every path to that
+(MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel).  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
@@ -175,6 +194,21 @@ MBAR_REP_CHUNK = 3  # 5.2 GB a replicate at K = 3, N = 1e8: under 20 GB
 AR_STEPS = 10_000_000
 # phase 22: rows of each text table
 TEXT_ROWS = 200_000
+# phase 23: the trainers' states (R configurations of NPART particles, order,
+# replicates), the beta grid of examples/beta_extrapolation.py, and a
+# tolerance under the two edge states' bootstrap relative error (~8e-4 at
+# this R), so that each trainer adds states
+TRAIN_R = 10_000_000
+TRAIN_NPART = 100
+TRAIN_ORDER = 4
+TRAIN_NREP = 100
+TRAIN_ALPHAS = (1.0, 5.0, 41)
+TRAIN_MAXITER = 6
+TRAIN_TOL = 3e-4
+# phase 24: the gradients' bar (tests/test_parallel.py:364-367), the absolute
+# part relative to the largest entry (the gradients scale as 1 / R)
+GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5
+GRAD_R = 10_000_000  # K1's and the x_is_u route's R; K6 takes them as (100, R / 100)
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -1645,6 +1679,268 @@ def main() -> int:
         depth=2,
     )
 
+    # -- phase 23: the adaptive trainers at a real size, each with fresh launch counts ------
+    t23 = time.perf_counter()
+    from thermoextrap_tpu_torch import adaptive_interp
+    from thermoextrap_tpu_torch.ops import moments as tmoments
+    from thermoextrap_tpu_torch.ops import resample as tresample
+    from thermoextrap_tpu_torch.recursive_interp import RecursiveInterp
+
+    train_alphas = np.linspace(*TRAIN_ALPHAS)
+    train_betas = torch.tensor(train_alphas, dtype=torch.float64)
+    train_truth = torch.stack([idealgas.x_ave(b) for b in train_alphas]).to(dev)
+    train_samples = {}
+
+    def state_seed(b, k):
+        """factory_state_idealgas's per-state seed (SEED mixed with the bits
+        of float32(beta)); k = 0 the samples, 1 the index table."""
+        return (SEED + k + int(np.float32(b).view(np.uint32)) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+
+    def index_table(b):
+        return tresample.random_indices(torch.Generator(device=dev).manual_seed(state_seed(b, 1)), TRAIN_NREP, TRAIN_R)
+
+    def make_state(b):
+        """A simulation at beta: float32 samples made on the card, resampled
+        by its index table (K2)."""
+        xs_, us_ = idealgas.generate_data(
+            (TRAIN_R, TRAIN_NPART), b, rng=torch.Generator(device=dev).manual_seed(state_seed(b, 0)), dtype=torch.float32
+        )
+        train_samples.setdefault(b, (xs_, us_))
+        made.append(b)
+        data = DataCentralMomentsVals.from_vals(xs_, us_, TRAIN_ORDER).resample({"indices": index_table(b)})
+        return beta.factory_extrapmodel(b, data)
+
+    def plain_state(s):
+        """The same state through the float64 plain path: same samples, same table."""
+        xs_, us_ = train_samples[s.alpha0]
+        with dispatch.use_impl("torch"):
+            data = DataCentralMomentsVals.from_vals(xs_.double(), us_.double(), TRAIN_ORDER).resample(
+                {"indices": index_table(s.alpha0)}
+            )
+            return beta.factory_extrapmodel(s.alpha0, data)
+
+    def hold_model(name, model, model64):
+        """The final model at every beta: within 5 sigma of x_ave and 0.1 sigma
+        of the float64 plain model (sigma the bootstrap's)."""
+        pred = model.predict(train_betas)
+        pred64 = model64.predict(train_betas)
+        mean, sig = pred.mean(1), pred.std(1)
+        z_exact = float(((mean - train_truth).abs() / sig).max())
+        z_plain = float(((mean - pred64.mean(1)).abs() / sig).max())
+        if not (pred.shape == (len(train_alphas), TRAIN_NREP) and bool(torch.isfinite(pred).all())):
+            raise AssertionError(f"{name}: prediction {tuple(pred.shape)} or non-finite")
+        if z_exact > 5.0 or z_plain > 0.1:
+            raise AssertionError(f"{name}: {z_exact} sigma from x_ave, {z_plain} sigma from float64 plain")
+        return z_exact, z_plain, float(sig.min()), float(sig.max())
+
+    train_runs = {}
+    for name, trainer in (("train_iterative", adaptive_interp.train_iterative), ("train_recursive", adaptive_interp.train_recursive)):
+        made = []
+        reads = []
+
+        def run_trainer(trainer=trainer, reads=reads):
+            def read(model, alphas_, info_dict):
+                reads.append(info_dict["depth"])  # one read of the (A, nrep) prediction per check
+
+            return trainer(
+                train_alphas,
+                make_state,
+                InterpModel,
+                maxiter=TRAIN_MAXITER,
+                tol=TRAIN_TOL,
+                callback=read,
+            )
+
+        (out, info), train_ms = timed(lambda: counted(name, run_trainer))
+        if name == "train_iterative":
+            model, chosen = out, out.alpha0
+        else:
+            unique = {s.alpha0: s for s in out}
+            chosen = [s.alpha0 for s in out]
+            model = InterpModelPiecewise([unique[b] for b in sorted(unique)])
+        if len(set(chosen) - {train_alphas[0], train_alphas[-1]}) < 1:
+            raise AssertionError(f"{name} added no state: {chosen}")
+        if path_launches[name] != full_counts({"K2": len(made)}):
+            raise AssertionError(f"{name} launched {path_launches[name]}, expected K2 = {len(made)} states")
+        model64 = type(model)([plain_state(s) for s in model.states])
+        z_exact, z_plain, sig_min, sig_max = hold_model(name, model, model64)
+        train_runs[name] = {
+            "states_chosen": [float(b) for b in chosen],
+            "new_alphas": [i.get("alpha_new") for i in info],
+            "states_made": len(made),
+            "launches_K2": path_launches[name]["K2"],
+            "wall_ms": train_ms,
+            "host_reads": len(reads),
+            "max_sigma_from_x_ave": z_exact,
+            "max_sigma_from_float64_plain": z_plain,
+            "sigma_range": [sig_min, sig_max],
+        }
+        del model, model64, out
+    say(23, card=card, R=TRAIN_R, npart=TRAIN_NPART, order=TRAIN_ORDER, nrep=TRAIN_NREP, tol=TRAIN_TOL, **train_runs)
+
+    # (c) RecursiveInterp at its own get_data size (raw moments: no kernel), and the
+    # JAX package's demo factory at its defaults (K2 once)
+    ri = RecursiveInterp(
+        InterpModel, beta.factory_derivatives("x_ave", central=False), edge_beta=[1.0, 5.0], max_order=2, tol=0.003, rng=SEED
+    )
+    _, ri_ms = timed(lambda: counted("recursive_interp", lambda: ri.recursive_train(1.0, 5.0)))
+    ri_pred = ri.predict(train_alphas).reshape(-1)
+    ri_err = float(np.abs(ri_pred - train_truth.cpu().numpy()).max())
+    if path_launches["recursive_interp"] != full_counts({}) or not (len(ri.edge_beta) > 2 and ri_err < 0.01):
+        raise AssertionError(f"RecursiveInterp: {path_launches['recursive_interp']}, edges {ri.edge_beta}, error {ri_err}")
+    demo = counted("factory_state_idealgas", lambda: adaptive_interp.factory_state_idealgas(1.0, 4, rng=SEED))
+    demo_pred = demo.predict(train_betas[:5])
+    if path_launches["factory_state_idealgas"] != full_counts({"K2": 1}) or tuple(demo_pred.shape) != (5, 100):
+        raise AssertionError(f"factory_state_idealgas: {path_launches['factory_state_idealgas']}, {tuple(demo_pred.shape)}")
+    say(
+        23,
+        recursive_interp_edges=ri.edge_beta.tolist(),
+        recursive_interp_max_error=ri_err,
+        recursive_interp_ms=ri_ms,
+        factory_state_idealgas_mean_at_1=float(demo_pred[0].mean()),
+        x_ave_at_1=float(idealgas.x_ave(1.0)),
+    )
+    del train_samples, ri, demo
+    phase23_s = time.perf_counter() - t23
+
+    # -- phase 24: gradients through K1, K2, K4 and K6, each with fresh launch counts --------
+    def grad_scalar(out):
+        """A fixed scalar of the outputs (tests/test_parallel.py:340-344's role)."""
+        total = 0.0
+        for o in out:
+            ramp = torch.arange(1.0, 1.0 + o.numel(), dtype=o.dtype, device=o.device).reshape(o.shape)
+            total = total + torch.sin(o).sum() + (o**2 * ramp).sum()
+        return total
+
+    u7, x7 = u[:GRAD_R], x[:GRAD_R, None]
+    w7 = 0.5 + torch.rand(GRAD_R, generator=gen, device=dev)
+    grid_u = u[: GRID_B * GRID_R].reshape(GRID_B, GRID_R)
+    table_g = torch.randint(0, 3, (100, 100_000), generator=gen, device=dev, dtype=torch.int32)
+    grad_cases = {
+        "K1": ("K1", lambda a, b: dispatch.reduce_central(a, b, ORDER), lambda a, b: tmoments.reduce_central_comoments(a, b, ORDER), (u7, x7)),
+        "K1_weighted": (
+            "K1",
+            lambda a, b, c: dispatch.reduce_central(a, b, ORDER, weight=c),
+            lambda a, b, c: tmoments.reduce_central_comoments(a, b, ORDER, weight=c),
+            (u7, x7, w7),
+        ),
+        "K6": (
+            "K6",
+            lambda a, b: dispatch.reduce_central(a.reshape(100, -1), b.reshape(100, -1, 1), ORDER),
+            lambda a, b: tmoments.reduce_central_comoments(a.reshape(100, -1), b.reshape(100, -1, 1), ORDER),
+            (u7, x7),
+        ),
+        "K4_grid": (
+            "K4",
+            lambda a: dispatch.reduce_central_u(a, ORDER),
+            lambda a: tmoments.reduce_central_umoments(a, ORDER),
+            (grid_u,),
+        ),
+        "K4_x_is_u": (
+            "K4",
+            lambda a: dispatch.reduce_central(a, a, ORDER, val_ndim=0, x_is_u=True),
+            lambda a: tmoments.reduce_central_comoments(a, a, ORDER, val_ndim=0),
+            (u7,),
+        ),
+        "K2": (
+            "K2",
+            lambda a, b: dispatch.resample_central(a, b, table_g, ORDER),
+            lambda a, b: tresample.resample_central_comoments(a, b, table_g, ORDER),
+            (u7[:100_000], x7[:100_000]),
+        ),
+    }
+    grad_errs = {}
+    for name, (kernel, route, plain, inputs) in grad_cases.items():
+        got_in = [a.detach().requires_grad_(True) for a in inputs]
+        ref_in = [a.detach().double().requires_grad_(True) for a in inputs]
+        got = counted(f"grad_{name}", lambda route=route, got_in=got_in: torch.autograd.grad(grad_scalar(route(*got_in)), got_in))
+        if path_launches[f"grad_{name}"] != full_counts({kernel: 1}):
+            raise AssertionError(f"grad {name} launched {path_launches[f'grad_{name}']}, expected {kernel} once")
+        ref = torch.autograd.grad(grad_scalar(plain(*ref_in)), ref_in)
+        rel = []
+        for g, f, a in zip(got, ref, got_in):
+            if g.dtype != a.dtype:
+                raise AssertionError(f"grad {name}: {g.dtype} for a {a.dtype} input")
+            scale = float(f.abs().max())
+            compare(f"grad {name}", (g,), (f,), GRAD_RTOL, GRAD_ATOL * scale)
+            rel.append(float((g.double() - f).abs().max()) / scale)
+        grad_errs[name] = rel
+        del got, ref, got_in, ref_in
+    say(24, card=card, max_abs_err_over_largest=grad_errs, rtol=GRAD_RTOL, atol_of_largest=GRAD_ATOL)
+
+    # K1's forward and backward at the main path's shape, and the peak memory
+    ug, xg = u.detach().requires_grad_(True), x[:, None].detach().requires_grad_(True)
+
+    def k1_forward():
+        return dispatch.reduce_central(ug, xg, ORDER)
+
+    fwd_ms = bwd_ms = float("inf")
+    for _ in range(3):
+        out, ms = timed(k1_forward)
+        fwd_ms = min(fwd_ms, ms)
+        loss = grad_scalar(out)
+        _, ms = timed(lambda: torch.autograd.grad(loss, (ug, xg)))
+        bwd_ms = min(bwd_ms, ms)
+    del out, loss
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(grad_scalar(k1_forward()), (ug, xg))
+    torch.cuda.synchronize()
+    k1_bwd_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del ug, xg
+
+    # each backward's time at its kernel's rows of the kernels line: one forward, then
+    # the backward alone (retain_graph), best of 3 by CUDA events
+    x2_main = torch.stack([x, x * x], dim=1)
+    table_big = torch.randint(0, 3, (100, GRAD_R), generator=gen, device=dev, dtype=torch.int32)
+    backward_rows = {
+        "K1": (lambda a, b: dispatch.reduce_central(a, b, ORDER), (u, x[:, None]), "R=1e8 V=1 order 6"),
+        "K1_V2": (lambda a, b: dispatch.reduce_central(a, b, 1), (u, x2_main), "R=1e8 V=2 order 1"),
+        "K2": (lambda a, b: dispatch.resample_central(a, b, table_g, ORDER), (u[:100_000], x[:100_000, None]), "R=1e5 nrep=100 int32"),
+        "K2_1e7": (lambda a, b: dispatch.resample_central(a, b, table_big, ORDER), (u7, x7), "R=1e7 nrep=100 int32"),
+        "K4": (lambda a: dispatch.reduce_central_u(a, ORDER), (grid_u,), "(64, 1e6) order 6"),
+        "K4_1e8": (lambda a: dispatch.reduce_central_u(a, ORDER + 1), (u,), "R=1e8 order 7"),
+        "K6": (lambda a, b: dispatch.reduce_central(a.reshape(100, -1), b.reshape(100, -1, 1), ORDER), (u7, x7), "(100, 1e5) V=1"),
+    }
+    backward_ms = {}
+    for name, (route, inputs, shape) in backward_rows.items():
+        leaves = [a.detach().requires_grad_(True) for a in inputs]
+        loss = grad_scalar(route(*leaves))
+        best = min(timed(lambda: torch.autograd.grad(loss, leaves, retain_graph=True))[1] for _ in range(3))
+        backward_ms[name] = (shape, best)
+        del leaves, loss
+    del x2_main, table_big
+
+    # the kernels with no backward still refuse an input that requires grad
+    ur = u7[:100_000].detach().requires_grad_(True)
+    e_small = torch.ones((2, 100_000), device=dev, requires_grad=True)
+    refusals = {
+        "K3": lambda: mc.resample_central_comoments_poisson(ur, x7[:100_000], 8, ORDER),
+        "K5": lambda: mc.resample_central_umoments_batched_poisson(ur[None], 8, ORDER),
+        "K7": lambda: mc.resample_perturb_freq(e_small, x7[:100_000], table_g[:8]),
+        "K8": lambda: mc.resample_perturb_poisson(e_small, x7[:100_000], 8),
+    }
+    for name, call in refusals.items():
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{name} took an input that requires grad")
+    say(
+        24,
+        card=card,
+        k1_R=R_MAIN,
+        k1_order=ORDER,
+        k1_forward_ms=fwd_ms,
+        k1_backward_ms=bwd_ms,
+        k1_backward_peak_gb_beyond_held=k1_bwd_peak_gb,
+        backward_ms=backward_ms,
+        refuse_grad=sorted(refusals),
+        phase23_s=phase23_s,
+        phase24_s=time.perf_counter() - t23 - phase23_s,
+    )
+
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0
     n1 = ORDER + 1
@@ -1713,6 +2009,9 @@ def main() -> int:
     for k in kernels:
         if k["name"] in ("K3", "K5", "K8"):
             k["draw_instructions_per_count"] = draw["draw_instructions_per_count"]
+        if k["name"] in ("K1", "K2", "K4", "K6"):
+            k["backward"] = "plain torch: closed form" if k["name"] == "K1" else "plain torch: autograd of the two-pass"
+            k["backward_ms"] = backward_ms[k["name"]][1]
     k5 = next(k for k in kernels if k["name"] == "K5")
     k5["shape"] = "(64, 1e6) order 6 nrep=256, tensor cores"
     k5["bound_f32_fma_ms"] = k5_fma_bound[0]  # the same sums as float32 FMAs on the CUDA cores

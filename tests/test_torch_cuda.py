@@ -166,12 +166,77 @@ def test_poisson_map_every_word(cuda_device):
 
 
 def test_kernel_rejects_grad(rng, cuda_device):
+    """A direct call of a wrapper with an input that requires grad raises:
+    K1 / K2 / K4 / K6 point to their backward route, K3 / K5 / K7 / K8 have
+    none."""
     u, x = _samples(rng, 1000, 1)
     tu = _f32(u, cuda_device).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward only"):
+    with pytest.raises(NotImplementedError, match="returns no graph"):
         mc.reduce_central_comoments_fused(tu, _f32(x, cuda_device), 4)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        mc.resample_central_comoments_poisson(tu, _f32(x, cuda_device), 8, 4)
     with pytest.raises(ValueError, match="but xv on cpu"):
         mc.reduce_central_comoments_fused(_f32(u, cuda_device), tt(x), 4)
+
+
+def _grad_scalar(out):
+    """A fixed scalar of the outputs (the role of ``scalar`` in
+    tests/test_parallel.py:340-344)."""
+    total = 0.0
+    for o in out:
+        ramp = torch.arange(1.0, 1.0 + o.numel(), dtype=o.dtype, device=o.device).reshape(o.shape)
+        total = total + torch.sin(o).sum() + (o**2 * ramp).sum()
+    return total
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K1_weighted", "K2", "K4", "K6"])
+def test_kernel_gradients_match_plain(rng, cuda_device, kernel):
+    """Gradients through the kernel route on the card (float32 kernels, the
+    backward in float64) against autograd of the float64 plain path on the
+    card, at the bar of tests/test_parallel.py:364-367 (rtol 2e-3, atol 1e-5)
+    with the absolute part taken relative to the largest entry: the
+    gradients scale as 1 / R, so an absolute 1e-5 would hold nothing here."""
+    from thermoextrap_tpu_torch.ops import dispatch
+    from thermoextrap_tpu_torch.ops import moments as tm
+    from thermoextrap_tpu_torch.ops import resample as trs
+
+    r = 20_000
+    u, x = _samples(rng, r, 1)
+    w = rng.uniform(0.5, 1.5, r)
+    freq = tt(rng.integers(0, 3, (16, r))).to(torch.int32).to(cuda_device)
+    cases = {
+        "K1": (lambda a, b: dispatch.reduce_central(a, b, 6), lambda a, b: tm.reduce_central_comoments(a, b, 6), (u, x)),
+        "K1_weighted": (
+            lambda a, b, c: dispatch.reduce_central(a, b, 6, weight=c),
+            lambda a, b, c: tm.reduce_central_comoments(a, b, 6, weight=c),
+            (u, x, w),
+        ),
+        "K2": (
+            lambda a, b: dispatch.resample_central(a, b, freq, 4),
+            lambda a, b: trs.resample_central_comoments(a, b, freq, 4),
+            (u, x),
+        ),
+        "K4": (
+            lambda a: dispatch.reduce_central_u(a.reshape(4, -1), 6),
+            lambda a: tm.reduce_central_umoments(a.reshape(4, -1), 6),
+            (u,),
+        ),
+        "K6": (
+            lambda a, b: dispatch.reduce_central(a.reshape(4, -1), b.reshape(4, -1, 1), 4),
+            lambda a, b: tm.reduce_central_comoments(a.reshape(4, -1), b.reshape(4, -1, 1), 4),
+            (u, x),
+        ),
+    }
+    route, plain, inputs = cases[kernel]
+    got_in = [_f32(a, cuda_device).requires_grad_(True) for a in inputs]
+    ref_in = [tt(a).to(cuda_device).requires_grad_(True) for a in inputs]
+    mc.reset_launches()
+    got = torch.autograd.grad(_grad_scalar(route(*got_in)), got_in)
+    assert mc.LAUNCHES[kernel[:2]] == 1
+    ref = torch.autograd.grad(_grad_scalar(plain(*ref_in)), ref_in)
+    for g, f, a in zip(got, ref, got_in):
+        assert g.dtype == a.dtype
+        assert_close(g, f, RTOL32, ATOL32 * float(f.abs().max()))
 
 
 def test_pipeline_on_gpu_matches_cpu(rng, cuda_device):

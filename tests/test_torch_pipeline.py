@@ -236,17 +236,22 @@ def test_idealgas_oracle_matches_jax():
 
 
 def test_port_never_imports_jax():
-    """``import thermoextrap_tpu_torch`` (with the CUDA wrappers, the
-    checkpoint and tree modules, MBAR, the ingest runtime and the native
-    engines) pulls in neither jax, nor the JAX package,
-    nor orbax, nor sympy (imported only inside ``Derivatives.from_sympy``)."""
+    """``import thermoextrap_tpu_torch`` (with the CUDA wrappers and their
+    backward route, the checkpoint and tree modules, MBAR, the ingest
+    runtime, the native engines, the trainers, the GPR staging, the
+    labeled-array adapter, the random seam and the type aliases) pulls in
+    neither jax, nor the JAX package, nor orbax, nor sympy (imported only
+    inside ``Derivatives.from_sympy``)."""
     code = (
         "import sys; before = set(sys.modules); "
         "import thermoextrap_tpu_torch, thermoextrap_tpu_torch.ops.moments_cuda; "
         "import thermoextrap_tpu_torch.utils.checkpoint, thermoextrap_tpu_torch.utils.trees; "
         "import thermoextrap_tpu_torch.devtime, thermoextrap_tpu_torch.drawcost, thermoextrap_tpu_torch.emulate; "
         "import thermoextrap_tpu_torch.models.mbar, thermoextrap_tpu_torch.io_stream, thermoextrap_tpu_torch.native; "
-        "import thermoextrap_tpu_torch.native._fallback; "
+        "import thermoextrap_tpu_torch.native._fallback, thermoextrap_tpu_torch.ops.moments_autograd; "
+        "import thermoextrap_tpu_torch.stack, thermoextrap_tpu_torch.adaptive_interp; "
+        "import thermoextrap_tpu_torch.recursive_interp, thermoextrap_tpu_torch.compat; "
+        "import thermoextrap_tpu_torch.random, thermoextrap_tpu_torch.typing; "
         "new = set(sys.modules) - before; "
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'thermoextrap_tpu', 'orbax', 'sympy')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -254,6 +259,15 @@ def test_port_never_imports_jax():
     root = Path(__file__).resolve().parent.parent
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_all_names_of_the_jax_package_but_two():
+    """``thermoextrap_tpu_torch.__all__`` holds every name of the JAX
+    package's ``__all__`` except the two modules still to port:
+    ``parallel`` and ``serving_export`` (ROADMAP Queue 1)."""
+    assert set(jx.__all__) - set(tx.__all__) == {"parallel", "serving_export"}
+    for name in set(jx.__all__) & set(tx.__all__):
+        assert getattr(tx, name) is not None
 
 
 # -- the default device ----------------------------------------------------------------------

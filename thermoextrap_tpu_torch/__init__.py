@@ -28,14 +28,36 @@ interpolation models and the streaming pipelines:
 - the ingest runtime (:mod:`.io_stream`: prefetched chunk streams from
   text and ``.npy`` files into the streaming pipelines, staged onto the
   card on a side stream) and the compiled host engines (:mod:`.native`:
-  the table loader and the float64 moment engine, built with ``g++``).
+  the table loader and the float64 moment engine, built with ``g++``);
+- the adaptive and recursive interpolation trainers
+  (:mod:`.adaptive_interp`, :mod:`.recursive_interp`), the GPR data staging
+  (:mod:`.stack`), the labeled-array adapter (:mod:`.compat`) and the
+  random-number seam (:mod:`.random`);
+- gradients through the kernels K1, K2, K4 and K6
+  (:mod:`.ops.moments_autograd`, taken by :mod:`.ops.dispatch` for inputs
+  that require grad).
 
 Arrays that are not tensors go to :func:`default_device`: the CUDA card when
 there is one, unless :func:`set_default_device` says otherwise.  Importing
 the package needs neither CUDA nor a compiler.
 """
 
-from . import beta, data, idealgas, interop, io_stream, lnpi, pipeline, volume, volume_idealgas
+from . import (
+    adaptive_interp,
+    beta,
+    compat,
+    data,
+    idealgas,
+    interop,
+    io_stream,
+    lnpi,
+    pipeline,
+    random,
+    recursive_interp,
+    stack,
+    volume,
+    volume_idealgas,
+)
 from .data import (
     DataCallback,
     DataCallbackABC,
@@ -74,7 +96,9 @@ __all__ = [
     "MBARModel",
     "PerturbModel",
     "StateCollection",
+    "adaptive_interp",
     "beta",
+    "compat",
     "data",
     "default_device",
     "factory_data_values",
@@ -83,7 +107,10 @@ __all__ = [
     "io_stream",
     "lnpi",
     "pipeline",
+    "random",
+    "recursive_interp",
     "set_default_device",
+    "stack",
     "volume",
     "volume_idealgas",
 ]

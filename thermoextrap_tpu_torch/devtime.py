@@ -24,8 +24,12 @@ size (the float32 hybrid solve of K = 4 harmonic states over N = 1e8 pooled
 samples, its 256 targets in chunks of 8, and ``MBARModel.predict`` over the
 main samples and two more R = 1e8 sets at beta 5.2 and 6.0), and one
 file-fed streaming update (a 1e7-row ``.npy`` file through
-``read_npy_chunks`` onto the card and ``ingest_stream``); with names, only
-those calls.
+``read_npy_chunks`` onto the card and ``ingest_stream``), one
+``train_iterative`` at ``chip_smoke.py`` phase 23's size (41 beta in [1, 5],
+maxiter 6, each state 1e7 float32 configurations of 100 particles made on
+the card, order 4, 100 replicates through K2), and K1's forward and backward
+through ``ops.dispatch`` at R = 1e8 (order 6, one value column, the
+closed-form backward in float64); with names, only those calls.
 Each line holds
 
 - ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
@@ -183,10 +187,13 @@ def main() -> int:
     from . import idealgas
     from .beta import factory_extrapmodel
     from .data import DataValues
+    from .adaptive_interp import train_iterative
+    from .data import DataCentralMomentsVals
     from .io_stream import ingest_stream, read_npy_chunks
     from .models import mbar
     from .models.derivatives import central_u_ave_coefs, lnpi_coefs
-    from .models.extrap import MBARModel, _poly_eval
+    from .models.extrap import InterpModel, MBARModel, _poly_eval
+    from .ops import dispatch
     from .ops import moments_cuda as mc
     from .ops.resample import poisson1_freq
     from .pipeline import (
@@ -284,6 +291,23 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     npy_path = f"{tmp.name}/chunk.npy"
     np.save(npy_path, torch.stack([up, xp], dim=1).cpu().numpy())
+
+    def train_state(b):
+        """A state of phase 23's trainer: its samples and table seeded from
+        SEED and the bits of float32(b)."""
+        seed = (SEED + int(np.float32(b).view(np.uint32)) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+        xs, us = idealgas.generate_data(
+            (10_000_000, 100), b, rng=torch.Generator(device=dev).manual_seed(seed), dtype=torch.float32
+        )
+        data = DataCentralMomentsVals.from_vals(xs, us, 4).resample({"nrep": 100, "rng": seed ^ 1})
+        return factory_extrapmodel(b, data)
+
+    ug, x1g = u.detach().requires_grad_(True), x[:, None].detach().requires_grad_(True)
+
+    def k1_backward():
+        out = dispatch.reduce_central(ug, x1g, ORDER)
+        return torch.autograd.grad(sum((o * o).sum() for o in out), (ug, x1g))
+
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
@@ -316,6 +340,8 @@ def main() -> int:
         "mbar_alphas": lambda: mbar.mbar_expectations_alphas(u_kn, n_k, f_k, alphas, u_base, x_n, chunk=8),
         "mbar_predict": lambda: mbar_model.predict(betas),
         "ingest_update": lambda: ingest_stream(update, state0, read_npy_chunks([npy_path], columns=(0, 1), device=dev)),
+        "trainer_iterative": lambda: train_iterative(np.linspace(1.0, 5.0, 41), train_state, InterpModel, maxiter=6, tol=3e-4),
+        "k1_backward": k1_backward,
     }
     wanted = sys.argv[1:] or list(calls)
     for name in wanted:

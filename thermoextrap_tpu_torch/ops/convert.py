@@ -35,7 +35,10 @@ def _powers(base, order: int):
 
 
 def _binomial_shift(m, base):
-    """``out[n] = sum_k C(n,k) m[k] base^{n-k}`` for n = 0..order."""
+    """``out[n] = sum_k C(n,k) m[k] base^{n-k}`` for n = 0..order; ``base``
+    a tensor or a Python number (taken in ``m``'s dtype and device)."""
+    if not isinstance(base, torch.Tensor):
+        base = torch.as_tensor(base, dtype=m.dtype, device=m.device)
     order = m.shape[0] - 1
     d = _powers(base, order)
     rows = [

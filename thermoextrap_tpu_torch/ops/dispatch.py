@@ -12,6 +12,11 @@ cmomy / numba role) and hands its results back as float64 CPU tensors; a
 call with a tensor on the card keeps its kernel route, as the reference
 sends only host-transferable arrays to its engine.  So ``set_impl("native")``
 is safe to leave on globally.
+
+On the kernel route an input that requires grad (under grad mode) takes the
+autograd Functions of :mod:`.moments_autograd` around K1, K2, K4 and K6,
+whose backward passes are plain torch; every other call is the kernel
+wrapper itself.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import contextlib
 
 import torch
 
-from . import moments, moments_cuda, resample
+from . import moments, moments_autograd, resample
 
 __all__ = ["reduce_central", "reduce_central_u", "reduce_raw", "resample_central", "set_impl", "use_impl"]
 
@@ -79,11 +84,11 @@ def reduce_central(uv, xv, order, weight=None, val_ndim=1, x_is_u=False):
         return _native("reduce_central_comoments", uv, xv, order, weight=weight, val_ndim=val_ndim)
     if _use_kernels(uv):
         if x_is_u or xv is uv:
-            uave, du_full = moments_cuda.reduce_central_umoments_batched(uv, order + 1, weight)
+            uave, du_full = moments_autograd.reduce_central_umoments_batched_ad(uv, weight, order + 1)
             return uave, uave, du_full[: order + 1], du_full[1 : order + 2]
         if uv.ndim == 1:
-            return moments_cuda.reduce_central_comoments_fused(uv, xv, order, weight)
-        return moments_cuda.reduce_central_comoments_batched(uv, xv, order, weight)
+            return moments_autograd.reduce_central_comoments_fused_ad(uv, xv, weight, order)
+        return moments_autograd.reduce_central_comoments_batched_ad(uv, xv, weight, order)
     return moments.reduce_central_comoments(uv, xv, order, weight=weight, val_ndim=val_ndim)
 
 
@@ -94,7 +99,7 @@ def reduce_central_u(uv, order, weight=None):
         _x, uave, du, _dxdu = _native("reduce_central_comoments", uv, uv, order, weight=weight, val_ndim=0)
         return uave, du
     if _use_kernels(uv):
-        return moments_cuda.reduce_central_umoments_batched(uv, order, weight)
+        return moments_autograd.reduce_central_umoments_batched_ad(uv, weight, order)
     return moments.reduce_central_umoments(uv, order, weight=weight)
 
 
@@ -112,6 +117,6 @@ def resample_central(uv, xv, freq, order, weight=None):
     if _use_native(uv, xv, freq, weight):
         return _native("resample_central_comoments", uv, xv, freq, order, weight=weight)
     if _use_kernels(uv):
-        return moments_cuda.resample_central_comoments_fused(uv, xv, freq, order, weight)
+        return moments_autograd.resample_central_comoments_fused_ad(uv, xv, freq, order, weight)
     freq = torch.as_tensor(freq, device=uv.device)
     return resample.resample_central_comoments(uv, xv, freq, order, weight=weight)

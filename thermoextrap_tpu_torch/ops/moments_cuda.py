@@ -49,8 +49,10 @@ K5 past 16 rows runs on the tensor cores instead (:func:`_k5_on_tensor_cores`,
 :func:`mma_probe_cuda`), and
 the in-kernel Poisson draw of ``csrc/philox.cuh`` (:func:`poisson_map_cuda`
 holds its word → count map against the 9-compare sum).  The
-kernels are forward only: a CUDA input that requires grad raises, and the
-CPU path differentiates by autograd.
+wrappers are forward only.  K1, K2, K4 and K6 are differentiated through
+:mod:`.moments_autograd` (plain torch backward passes); a CUDA input that
+requires grad raises in a direct call of those four under grad mode, and in
+any call of K3, K5, K7 or K8.
 """
 
 from __future__ import annotations
@@ -235,13 +237,26 @@ def _shifted_epilogue(sum_u, sum_x, s_u, s_x):
     return xave, uave, fix_central_du(du), fix_central_dxdu(dxdu), sum_u[0]
 
 
-def _check_cuda_inputs(*tensors):
+def _check_cuda_inputs(*tensors, backward: bool = False):
+    """Raise on an input that requires grad.  K3, K5, K7 and K8 are forward
+    only, as in the reference.  K1, K2, K4 and K6 (``backward=True``) have a
+    backward route, :mod:`.moments_autograd` (which :mod:`.dispatch` takes),
+    whose forward runs with grad mode off: a direct wrapper call under grad
+    mode would hand back outputs cut from the graph, so it raises."""
+    if backward and not torch.is_grad_enabled():
+        return
     for t in tensors:
         if isinstance(t, torch.Tensor) and t.requires_grad:
-            msg = (
-                "the CUDA moment kernels are forward only (their backward "
-                "kernels are not ported yet); detach the inputs or run on CPU"
-            )
+            if backward:
+                msg = (
+                    "this kernel wrapper returns no graph; differentiate through "
+                    "ops.dispatch or ops.moments_autograd, or detach the inputs"
+                )
+            else:
+                msg = (
+                    "this CUDA kernel is forward only, as in the reference; "
+                    "detach the inputs or run on CPU"
+                )
             raise NotImplementedError(msg)
 
 
@@ -337,7 +352,7 @@ def _reduce_cuda(u2, x3, w2, order: int):
     launches (the head shift of each batch row, the reduction kernel, the
     finalize kernel with a shift row per batch row) and no tensor arithmetic
     in between; returns the epilogue's 5-tuple (float32)."""
-    _check_cuda_inputs(u2, x3, w2)
+    _check_cuda_inputs(u2, x3, w2, backward=True)
     if order > MAX_ORDER:
         msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
         raise ValueError(msg)
@@ -626,7 +641,7 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
     ``csrc/resample_tile.cuh`` with table counts when ``freq`` is given and
     in-kernel Poisson counts otherwise, finalize) and no tensor arithmetic
     in between; returns the epilogue's 5-tuple."""
-    _check_cuda_inputs(uv, x2, weight, freq)
+    _check_cuda_inputs(uv, x2, weight, freq, backward=freq is not None)
     if order > MAX_ORDER:
         msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
         raise ValueError(msg)
@@ -864,7 +879,7 @@ def _reduce_u_cuda(u2, w2, order: int):
     column, the u-moment finalize kernel with the sample blocks as the chunks
     of one replicate) and no tensor arithmetic in between; returns ``(uave
     (nbatch,), du (order+1, nbatch), wsum (nbatch,))``, float32."""
-    _check_cuda_inputs(u2, w2)
+    _check_cuda_inputs(u2, w2, backward=True)
     if order > MAX_ORDER:
         msg = f"order {order} exceeds the kernel's maximum {MAX_ORDER}"
         raise ValueError(msg)

@@ -8,9 +8,10 @@ with :func:`set_default_device`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["default_device", "set_default_device"]
+__all__ = ["default_device", "host_numpy", "set_default_device"]
 
 _DEVICE: torch.device | None = None  # None = by availability
 
@@ -26,3 +27,11 @@ def set_default_device(device) -> None:
     """Choose the default device (``None`` restores the choice by availability)."""
     global _DEVICE
     _DEVICE = None if device is None else torch.device(device)
+
+
+def host_numpy(a) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array: one read
+    back from the card for a tensor there."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

@@ -27,3 +27,18 @@ def validate_rng(rng=None, device=None) -> torch.Generator:
         return gen
     msg = f"cannot interpret {rng!r} as a torch.Generator or an integer seed"
     raise TypeError(msg)
+
+
+def split(rng=None, num: int = 2) -> list[torch.Generator]:
+    """``num`` new generators on the device of ``validate_rng(rng)``, each
+    seeded from one 63-bit draw of it (so ``rng`` advances).  The port's
+    counterpart of ``jax.random.split``: the streams differ from the JAX
+    package's keys at an equal seed."""
+    gen = validate_rng(rng)
+    seeds = torch.randint(0, 2**63 - 1, (int(num),), generator=gen, device=gen.device, dtype=torch.int64)
+    out = []
+    for seed in seeds.tolist():
+        g = torch.Generator(device=gen.device)
+        g.manual_seed(seed)
+        out.append(g)
+    return out
