@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port's main path, its ensembles, the perturbation path, the
-streaming pipelines, the interpolation between states, MBAR and the file-fed
-ingest runtime once on an NVIDIA GPU.
+streaming pipelines, the interpolation between states, MBAR, the file-fed
+ingest runtime, the trainers and the derivative GPR once on an NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -129,11 +129,27 @@ on any failure, without printing a result.  Phases, one line each:
     table) against autograd of the float64 plain path on the card (rtol
     2e-3, atol 1e-5 of the largest entry); K1's forward and backward at the
     main path's R = 1e8 and the peak memory; K3, K5, K7 and K8 still raise on
-    an input that requires grad.
+    an input that requires grad;
+25. derivative GPR on the card in float64: (a) ``benches/bench_gpr.py``'s
+    configuration (5 ideal-gas states at beta 0.5-2.5, 1e4 x 1e3, order 4,
+    made on the card; K1 and K2 once a state in ``input_GP_from_state``),
+    ``make_gpr_pipeline`` with the default RBF, its posterior on 200 beta
+    within max(4 sigma, 1e-3) of ``x_ave``; the same model on the CPU under
+    ``host_f64``: the LML, its gradient and ``predict_f`` (diagonal and full
+    covariance) at the card's optimum to 1e-8 of their largest entry (the
+    gradient also against the value, since it vanishes at the optimum; the
+    variances against ``var``), the two fits' NLL to 1e-6 relative, with the
+    condition number of K + S; the float32 log-whitened fit on the card
+    (finite, not rolled back) and its NLL gap in float64; (b) the same 5 beta
+    at 1e7 float32 configurations of 100 particles, with the stages timed
+    (states, staging, fit with its evaluations and host reads, predict);
+    (c) the two-output state (K1 with V = 2) through ``create_GPR``; (d) the
+    closed-form RBF against nested ``torch.func.grad`` at orders 0-4 on 30
+    locations (1e-10), and ``K_diag`` against ``diag(K)``.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
-kernel once; phases 6, 11, 16, 20, 22, 23 and 24 hold every path to that
+kernel once; phases 6, 11, 16, 20, 22, 23, 24 and 25 hold every path to that
 (MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel).  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
@@ -209,6 +225,18 @@ TRAIN_TOL = 3e-4
 # part relative to the largest entry (the gradients scale as 1 / R)
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-5
 GRAD_R = 10_000_000  # K1's and the x_is_u route's R; K6 takes them as (100, R / 100)
+# phase 25: benches/bench_gpr.py's GPR configuration (5 ideal-gas states of
+# 1e4 configurations of 1e3 particles, order 4, 100 bootstrap replicates), the
+# prediction grid of examples/gpr_active_learning.py (200 beta), the same 5
+# beta at a real sample size (1e7 configurations of 100 particles, float32),
+# and the bars: the accuracy floor under 4 sigma, and card against CPU
+# (tests/test_gps.py:292-309, :386-397) and the two fits' NLL
+GPR_BETAS = (0.5, 1.0, 1.5, 2.0, 2.5)
+GPR_NCONFIG, GPR_NPART, GPR_ORDER, GPR_NREP = 10_000, 1_000, 4, 100
+GPR_GRID = 200
+GPR_R = 10_000_000
+GPR_FLOOR = 1e-3
+GPR_CORE_BAR, GPR_NLL_RTOL = 1e-8, 1e-6
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -1940,6 +1968,227 @@ def main() -> int:
         phase23_s=phase23_s,
         phase24_s=time.perf_counter() - t23 - phase23_s,
     )
+
+    # -- phase 25: derivative GPR on the card, each path with fresh launch counts ----------
+    t25 = time.perf_counter()
+    from scipy import linalg
+
+    from thermoextrap_tpu_torch.gpr_active import active_utils as gau
+    from thermoextrap_tpu_torch.gpr_active import ig_active
+    from thermoextrap_tpu_torch.gpr_active.kernels import CallableDerivativeKernel, RBFDerivKernel
+    from thermoextrap_tpu_torch.pipeline import make_gpr_pipeline
+    from thermoextrap_tpu_torch.utils.compute import host_f64
+    from thermoextrap_tpu_torch.utils.device import host_numpy
+
+    # the CPU side's 25-row factorizations run faster on one thread than on a pool
+    cpu_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    gpr_grid = np.linspace(GPR_BETAS[0], GPR_BETAS[-1], GPR_GRID)
+    gpr_truth = idealgas.x_ave(torch.tensor(gpr_grid)).numpy()
+
+    def gp_rows(alphas, order):
+        return np.column_stack([alphas, np.full(len(alphas), float(order))])
+
+    def stacked(staged):
+        """create_GPR's GP input: the states' rows and their block-diagonal noise."""
+        x_ = np.vstack([d[0] for d in staged])
+        y_ = np.vstack([d[1] for d in staged])
+        cov_ = np.array([linalg.block_diag(*[d[2][k] for d in staged]) for k in range(y_.shape[1])])
+        return x_, y_, cov_
+
+    def held_launches(path, nstates):
+        if path_launches[path] != full_counts({"K1": nstates, "K2": nstates}):
+            raise AssertionError(f"{path} launched {path_launches[path]}, expected K1 = K2 = {nstates} states")
+
+    def accurate(name, mean, var, alphas):
+        """The order-0 mean within max(4 sigma, GPR_FLOOR) of x_ave."""
+        truth = idealgas.x_ave(torch.tensor(alphas)).numpy()
+        err = np.abs(host_numpy(mean)[:, 0] - truth)
+        bar = np.maximum(4.0 * np.sqrt(host_numpy(var)[:, 0]), GPR_FLOOR)
+        if not (np.all(np.isfinite(err)) and np.all(err <= bar)):
+            raise AssertionError(f"{name}: |mean - x_ave| {err.max()} beyond max(4 sigma, {GPR_FLOOR})")
+        return float(err.max()), float((err / bar).max())
+
+    # (a) the repo's GPR configuration: states made on the card, staged (K1, K2), fit and served
+    def make_states_a():
+        return [
+            ig_active.extrap_IG(
+                b, rng=torch.Generator(device=dev).manual_seed(SEED + k), nconfig=GPR_NCONFIG, npart=GPR_NPART, order=GPR_ORDER
+            )
+            for k, b in enumerate(GPR_BETAS)
+        ]
+
+    staged_a = counted("gpr_a", lambda: [gau.input_GP_from_state(st, n_rep=GPR_NREP) for st in make_states_a()])
+    held_launches("gpr_a", len(GPR_BETAS))
+    inputs_a = [lambda d=d: d for d in staged_a]
+    (gpr, predict), fit_a_ms = timed(lambda: make_gpr_pipeline(inputs_a, orders=(0, 1)))
+    (mean0, var0), predict_a_ms = timed(lambda: predict(gpr_grid, 0))
+    mean1, var1 = predict(gpr_grid, 1)
+    if not (mean0.shape == var0.shape == mean1.shape == (GPR_GRID, 1) and mean0.dtype == np.float64):
+        raise AssertionError(f"gpr predict: {mean0.shape}, {mean0.dtype}")
+    if not (np.all(np.isfinite(mean1)) and np.all(var0 > 0)):
+        raise AssertionError("gpr predict: non-finite order-1 mean or a non-positive variance")
+    err_a, ratio_a = accurate("gpr (a)", mean0, var0, gpr_grid)
+    vec = gpr.get_unconstrained()
+    nll_card = float(gpr.neg_lml(vec))
+
+    # card against the CPU: the same (X, Y, cov), the card's optimum parameters
+    data_a = stacked(staged_a)
+    rows = np.vstack([gp_rows(gpr_grid, 0), gp_rows(gpr_grid[::20], 1)])
+    card_val, card_grad = gpr._lml_fns()["neg_vag"](vec.to(dev), *gpr._bound_args())
+    card_pred = [gpr.predict_f(rows), gpr.predict_f(rows, full_cov=True)]
+    if not (card_val.is_cuda and card_pred[0][0].is_cuda and card_pred[0][0].dtype == torch.float64):
+        raise AssertionError("gpr: the core did not run on the card in float64")
+    with host_f64():
+        cpu = gau.create_base_GP_model(data_a)
+        cpu.set_parameters(gpr.parameters())
+        cpu_val, cpu_grad = cpu._lml_fns()["neg_vag"](vec, *cpu._bound_args())
+        cpu_pred = [cpu.predict_f(rows), cpu.predict_f(rows, full_cov=True)]
+        ks = cpu.kernel.K(cpu.X) + cpu.likelihood.build_scaled_cov_mat(cpu.X)[0]
+        cond_ks = float(np.linalg.cond(host_numpy(ks)))
+        cpu_fit = gau.create_base_GP_model(data_a)
+        cpu_res = cpu_fit.train()
+    var_param = gpr.parameters()["kernel/var"]
+    gaps = {
+        "lml": abs(float(card_val) - float(cpu_val)) / abs(float(cpu_val)),
+        "lml_grad": float((card_grad.cpu() - cpu_grad).abs().max()) / max(float(cpu_grad.abs().max()), abs(float(cpu_val))),
+    }
+    for label, (card_mv, cpu_mv) in (("diag", (card_pred[0], cpu_pred[0])), ("full", (card_pred[1], cpu_pred[1]))):
+        gaps[f"mean_{label}"] = float((card_mv[0].cpu() - cpu_mv[0]).abs().max()) / float(cpu_mv[0].abs().max())
+        gaps[f"var_{label}"] = float((card_mv[1].cpu() - cpu_mv[1]).abs().max()) / var_param
+    nll_gap = abs(nll_card - float(cpu_res.fun)) / abs(float(cpu_res.fun))
+    if max(gaps.values()) > GPR_CORE_BAR or nll_gap > GPR_NLL_RTOL:
+        raise AssertionError(f"gpr card against CPU: gaps {gaps}, NLL {nll_card} vs {cpu_res.fun} ({nll_gap}); cond(K + S) {cond_ks}")
+
+    # the same fit once more through train(), for its evaluations, and one evaluation
+    # alone (the LML and its gradient on the card, then the one host read of both)
+    fit64 = gau.create_base_GP_model(data_a)
+    res64, fit64_ms = timed(fit64.train)
+    if abs(float(res64.fun) - nll_card) > GPR_NLL_RTOL * abs(nll_card):
+        raise AssertionError(f"gpr: train() reached {res64.fun}, the pipeline's fit {nll_card}")
+    vag, bound64 = fit64._lml_fns()["neg_vag"], fit64._bound_args()
+
+    def one_evaluation():
+        v_, g_ = vag(torch.as_tensor(res64.x, device=dev), *bound64)
+        return host_numpy(torch.cat([v_.reshape(1), g_]))
+
+    eval_ms = sorted(timed(one_evaluation)[1] for _ in range(21))[10]
+
+    # the float32 log-whitened fit on the card, its NLL taken in float64 at its parameters
+    model32 = gau.create_base_GP_model(data_a)
+    x0_32 = host_numpy(model32.get_unconstrained())
+    res32, fit32_ms = timed(lambda: model32.train(on_device=True))
+    if not (np.isfinite(res32.fun) and np.all(np.isfinite(res32.x))) or np.array_equal(np.asarray(res32.x), x0_32):
+        raise AssertionError(f"gpr float32 fit: fun {res32.fun}, x {res32.x} (start {x0_32}): non-finite or rolled back")
+    nll32_at = float(gpr.neg_lml(res32.x))
+    say(
+        25,
+        card=card,
+        config="a",
+        states=len(GPR_BETAS),
+        N=int(gpr.X.shape[0]),
+        launches_K1_K2=[path_launches["gpr_a"]["K1"], path_launches["gpr_a"]["K2"]],
+        fit_ms=fit_a_ms,
+        train_ms=fit64_ms,
+        # train's loop: one evaluation and one host read at the start, each of
+        # L-BFGS-B's, and one at the end
+        fit_evaluations=int(res64.nfev) + 2,
+        cpu_fit_evaluations=int(cpu_res.nfev) + 2,
+        one_evaluation_median_ms=eval_ms,
+        predict_200_ms=predict_a_ms,
+        params=gpr.parameters(),
+        nll=nll_card,
+        cpu_nll=float(cpu_res.fun),
+        nll_rel_gap=nll_gap,
+        max_err_from_x_ave=err_a,
+        max_err_over_bar=ratio_a,
+        card_vs_cpu_gaps=gaps,
+        cond_K_plus_S=cond_ks,
+        f32_fit_ms=fit32_ms,
+        f32_evaluations=int(res32.nfev),
+        f32_nll_gap=nll32_at - nll_card,
+    )
+    del staged_a
+
+    # (b) the same 5 beta at a real sample size: states made on the card in float32 (K1),
+    # bootstrapped with 100 replicates (K2), each stage timed
+    def make_state_b(k, b):
+        xs_, us_ = idealgas.generate_data(
+            (GPR_R, TRAIN_NPART), b, rng=torch.Generator(device=dev).manual_seed(SEED + 100 + k), dtype=torch.float32
+        )
+        return beta.factory_extrapmodel(b, DataCentralMomentsVals.from_vals(xs_[:, None], us_, GPR_ORDER))
+
+    states_b, make_b_ms = timed(lambda: counted("gpr_b_make", lambda: [make_state_b(k, b) for k, b in enumerate(GPR_BETAS)]))
+    staged_b, stage_b_ms = timed(lambda: counted("gpr_b", lambda: [gau.input_GP_from_state(st, n_rep=GPR_NREP) for st in states_b]))
+    if path_launches["gpr_b_make"] != full_counts({}):
+        raise AssertionError(f"gpr (b): making the states launched {path_launches['gpr_b_make']}")
+    held_launches("gpr_b", len(GPR_BETAS))
+    del states_b
+    gpr_b = gau.create_base_GP_model(stacked(staged_b))
+    res_b, fit_b_ms = timed(lambda: gau.train_GPR(gpr_b, record_loss=True))
+    (mean_b, var_b), predict_b_ms = timed(lambda: gpr_b.predict_f(gp_rows(gpr_grid, 0)))
+    err_b, ratio_b = accurate("gpr (b)", mean_b, var_b, gpr_grid)
+    say(
+        25,
+        card=card,
+        config="b",
+        R=GPR_R,
+        npart=TRAIN_NPART,
+        nrep=GPR_NREP,
+        launches_K1_K2=[path_launches["gpr_b"]["K1"], path_launches["gpr_b"]["K2"]],
+        states_made_ms=make_b_ms,
+        staging_ms=stage_b_ms,
+        fit_ms=fit_b_ms,
+        fit_evaluations=int(res_b.nfev) + 2,
+        fit_host_reads=int(res_b.nfev) + 2,
+        predict_200_ms=predict_b_ms,
+        nll=float(res_b.fun),
+        max_err_from_x_ave=err_b,
+        max_err_over_bar=ratio_b,
+    )
+
+    # (c) two outputs (x, x^2): K1 with V = 2
+    states_c = counted(
+        "gpr_c",
+        lambda: [
+            gau.input_GP_from_state(ig_active.multiOutput_extrap_IG(b, rng=torch.Generator(device=dev).manual_seed(SEED + 200 + k)))
+            for k, b in enumerate((1.0, 2.0))
+        ],
+    )
+    held_launches("gpr_c", 2)
+    gpr_c = gau.create_GPR([lambda d=d: d for d in states_c])
+    mean_c, var_c = gpr_c.predict_f(gp_rows([1.5], 0))
+    if not (tuple(mean_c.shape) == (1, 2) and bool(torch.isfinite(mean_c).all())):
+        raise AssertionError(f"gpr (c): mean {mean_c}")
+    err_c, _ = accurate("gpr (c)", mean_c[:, :1], var_c[:, :1], np.array([1.5]))
+
+    # (d) the kernels without sympy: the closed form against nested torch.func.grad
+    def rbf_fn(x1, x2, ell, var):
+        return var * torch.exp(-0.5 * ((x1[0] - x2[0]) / ell) ** 2)
+
+    locs = np.linspace(-1.0, 1.5, 30)
+    xk = np.vstack([gp_rows(locs, d) for d in range(GPR_ORDER + 1)])
+    kpar = {"l": 0.8, "var": 1.4}
+    k_closed = counted("gpr_kernels", lambda: RBFDerivKernel().K(xk, params=kpar))
+    k_call = CallableDerivativeKernel(rbf_fn, kernel_params=kpar).K(xk)
+    kernel_gap = float((k_closed - k_call).abs().max()) / float(k_call.abs().max())
+    diag_gap = float((RBFDerivKernel().K_diag(xk, params=kpar) - torch.diagonal(k_closed)).abs().max()) / float(k_call.abs().max())
+    if not k_closed.is_cuda or kernel_gap > 1e-10 or diag_gap > 1e-12 or path_launches["gpr_kernels"] != full_counts({}):
+        raise AssertionError(f"gpr kernels: closed form against callable {kernel_gap}, K_diag {diag_gap}")
+    torch.set_num_threads(cpu_threads)
+    say(
+        25,
+        card=card,
+        config="c_d",
+        launches_K1_K2=[path_launches["gpr_c"]["K1"], path_launches["gpr_c"]["K2"]],
+        two_output_mean_at_1_5=host_numpy(mean_c)[0].tolist(),
+        x_ave_at_1_5=float(idealgas.x_ave(1.5)),
+        two_output_err=err_c,
+        rbf_closed_vs_callable=kernel_gap,
+        k_diag_vs_diag_k=diag_gap,
+        phase25_s=time.perf_counter() - t25,
+    )
+    del gpr, gpr_b, gpr_c, cpu, cpu_fit, fit64, model32
 
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0

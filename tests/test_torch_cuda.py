@@ -1134,3 +1134,63 @@ def test_native_engine_refuses_card_tensors(cuda_device):
         out = dispatch.reduce_central(u, u[:, None], 3)
     torch.cuda.synchronize()
     assert out[0].is_cuda and mc.LAUNCHES["K1"] == 1
+
+
+# -- the derivative GPR on the card ----------------------------------------------------
+
+
+def _gpr_sine_data():
+    """Noisy sine and derivative data (tests/test_gps.py:256-282's shape)."""
+    rng = np.random.default_rng(0)
+    xs = np.linspace(0.0, 2.0 * np.pi, 8)
+    X = np.concatenate([np.stack([xs, np.zeros(8)], axis=1), np.stack([xs, np.ones(8)], axis=1)])
+    Y = np.concatenate([np.sin(xs) + rng.normal(0, 0.02, 8), np.cos(xs) + rng.normal(0, 0.05, 8)])[:, None]
+    cov = np.diag(np.concatenate([np.full(8, 0.02**2), np.full(8, 0.05**2)]))
+    return X, Y, cov
+
+
+def test_gpr_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    """The GPR core runs on the card in float64 (the default device) and
+    agrees with the same model under ``host_f64``: the LML and its gradient,
+    and ``predict_f``, to 1e-8 of their largest entry (the gradient against
+    the value's magnitude as well, since it vanishes at the optimum); the
+    two fits' NLL to 1e-6 relative."""
+    from thermoextrap_tpu_torch.gpr_active import gp_models, kernels
+    from thermoextrap_tpu_torch.utils import device as tdevice
+    from thermoextrap_tpu_torch.utils.compute import host_f64
+
+    monkeypatch.setattr(tdevice, "_DEVICE", cuda_device)
+    data = _gpr_sine_data()
+    card = gp_models.HeteroscedasticGPR(data, kernel=kernels.RBFDerivKernel(), likelihood_kwargs={"p": 1.0})
+    res = card.train()
+    with host_f64():
+        cpu = gp_models.HeteroscedasticGPR(data, kernel=kernels.RBFDerivKernel(), likelihood_kwargs={"p": 1.0})
+        cpu_res = cpu.train()
+        cpu.set_parameters(card.parameters())
+        cval, cgrad = cpu._lml_fns()["neg_vag"](torch.as_tensor(res.x), *cpu._bound_args())
+        cmean, cvar = cpu.predict_f(data[0])
+    assert res.fun == pytest.approx(cpu_res.fun, rel=1e-6)
+    val, grad = card._lml_fns()["neg_vag"](torch.as_tensor(res.x), *card._bound_args())
+    mean, var = card.predict_f(data[0])
+    assert val.is_cuda and mean.is_cuda and mean.dtype == torch.float64
+    assert abs(float(val) - float(cval)) <= 1e-8 * abs(float(cval))
+    assert float((grad.cpu() - cgrad).abs().max()) <= 1e-8 * max(float(cgrad.abs().max()), abs(float(cval)))
+    assert float((mean.cpu() - cmean).abs().max()) <= 1e-8 * float(cmean.abs().max())
+    assert float((var.cpu() - cvar).abs().max()) <= 1e-8 * card.parameters()["kernel/var"]
+
+
+def test_gpr_staging_launches_k1_and_k2(cuda_device, monkeypatch):
+    """An ideal-gas state made on the card reduces through K1 and its
+    bootstrap through K2, once each, in ``input_GP_from_state``."""
+    from thermoextrap_tpu_torch.gpr_active import active_utils, ig_active
+    from thermoextrap_tpu_torch.utils import device as tdevice
+
+    monkeypatch.setattr(tdevice, "_DEVICE", cuda_device)
+    state = ig_active.extrap_IG(1.2, rng=3, nconfig=20_000, npart=100)
+    assert state.data.uv.is_cuda
+    mc.reset_launches()
+    x, y, cov = active_utils.input_GP_from_state(state, n_rep=50)
+    torch.cuda.synchronize()
+    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 1, "K2": 1, "head_shift": 2, "finalize": 2}
+    assert mc.LAUNCHES == want
+    assert y.shape == (4, 1) and cov.shape == (1, 4, 4) and np.all(np.isfinite(cov))

@@ -239,9 +239,10 @@ def test_port_never_imports_jax():
     """``import thermoextrap_tpu_torch`` (with the CUDA wrappers and their
     backward route, the checkpoint and tree modules, MBAR, the ingest
     runtime, the native engines, the trainers, the GPR staging, the
-    labeled-array adapter, the random seam and the type aliases) pulls in
-    neither jax, nor the JAX package, nor orbax, nor sympy (imported only
-    inside ``Derivatives.from_sympy``)."""
+    labeled-array adapter, the random seam, the type aliases, and the GPR
+    modules with their compute device) pulls in neither jax, nor the JAX
+    package, nor orbax, nor sympy (imported only inside
+    ``Derivatives.from_sympy`` and the sympy-expression kernels)."""
     code = (
         "import sys; before = set(sys.modules); "
         "import thermoextrap_tpu_torch, thermoextrap_tpu_torch.ops.moments_cuda; "
@@ -252,6 +253,9 @@ def test_port_never_imports_jax():
         "import thermoextrap_tpu_torch.stack, thermoextrap_tpu_torch.adaptive_interp; "
         "import thermoextrap_tpu_torch.recursive_interp, thermoextrap_tpu_torch.compat; "
         "import thermoextrap_tpu_torch.random, thermoextrap_tpu_torch.typing; "
+        "import thermoextrap_tpu_torch.gpr_active, thermoextrap_tpu_torch.gpr_active.gp_models; "
+        "import thermoextrap_tpu_torch.gpr_active.kernels, thermoextrap_tpu_torch.gpr_active.active_utils; "
+        "import thermoextrap_tpu_torch.gpr_active.ig_active, thermoextrap_tpu_torch.utils.compute; "
         "new = set(sys.modules) - before; "
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'thermoextrap_tpu', 'orbax', 'sympy')); "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -371,12 +371,6 @@ def test_gprdata_staging():
     assert gd.resample({"nrep": 3}).kws == {"order": None, "nrep": 20}
 
 
-def test_gprdata_to_gpr_data_waits_for_the_gpr_port():
-    gd = stack.GPRData([_ig_state(tx, 0.8, 0, 100, 10)], nrep=5)
-    with pytest.raises(ImportError, match="Queue 1 item 3"):
-        gd.to_gpr_data()
-
-
 def test_states_derivs_concat():
     got = stack.states_derivs_concat([_ig_state(tx, b, i, 500, 100) for i, b in enumerate([0.9, 1.4])])
     ref = jstack.states_derivs_concat([_ig_state(jx, b, i, 500, 100) for i, b in enumerate([0.9, 1.4])])
@@ -408,7 +402,8 @@ def test_stack_multidim_semantics(rng_np):
 
 def test_multidim_observable_staging():
     """A (rec, 2, 3) observable stages into 6 output columns (the staging
-    half of tests/test_stack.py:92; the GP fit waits for the GPR port)."""
+    half of tests/test_stack.py:92; tests/test_torch_gpr_active.py holds the
+    GP half)."""
 
     def mk(b, seed):
         rng = np.random.default_rng(seed)

@@ -35,7 +35,11 @@ interpolation models and the streaming pipelines:
   random-number seam (:mod:`.random`);
 - gradients through the kernels K1, K2, K4 and K6
   (:mod:`.ops.moments_autograd`, taken by :mod:`.ops.dispatch` for inputs
-  that require grad).
+  that require grad);
+- derivative-informed GPR (:mod:`.gpr_active`, loaded on first use: the
+  kernels, the heteroscedastic GP models in float64 on the card, the GP
+  staging and builders, the ideal-gas harness) and its serving pipeline
+  (``pipeline.make_gpr_pipeline``).
 
 Arrays that are not tensors go to :func:`default_device`: the CUDA card when
 there is one, unless :func:`set_default_device` says otherwise.  Importing
@@ -80,6 +84,19 @@ from .models.extrap import (
 from .utils.device import default_device, set_default_device
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the GPR stack loads on first use, as in the JAX package
+    if name == "gpr_active":
+        import importlib
+
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    msg = f"module {__name__!r} has no attribute {name!r}"
+    raise AttributeError(msg)
+
 
 __all__ = [
     "DataCallback",

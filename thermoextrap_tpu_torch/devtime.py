@@ -27,9 +27,13 @@ file-fed streaming update (a 1e7-row ``.npy`` file through
 ``read_npy_chunks`` onto the card and ``ingest_stream``), one
 ``train_iterative`` at ``chip_smoke.py`` phase 23's size (41 beta in [1, 5],
 maxiter 6, each state 1e7 float32 configurations of 100 particles made on
-the card, order 4, 100 replicates through K2), and K1's forward and backward
+the card, order 4, 100 replicates through K2), K1's forward and backward
 through ``ops.dispatch`` at R = 1e8 (order 6, one value column, the
-closed-form backward in float64); with names, only those calls.
+closed-form backward in float64), and the derivative GPR at
+``chip_smoke.py`` phase 25 (a)'s configuration (``benches/bench_gpr.py``'s
+five ideal-gas states, staged once): one fit (``create_GPR`` on the staged
+inputs, float64 on the card) and one ``make_gpr_pipeline`` predict on 200
+beta; with names, only those calls.
 Each line holds
 
 - ``wall_ms``: mean of 5 warm calls, CUDA events around each call;
@@ -308,6 +312,19 @@ def main() -> int:
         out = dispatch.reduce_central(ug, x1g, ORDER)
         return torch.autograd.grad(sum((o * o).sum() for o in out), (ug, x1g))
 
+    from .gpr_active.active_utils import create_GPR, input_GP_from_state
+    from .gpr_active.ig_active import extrap_IG
+    from .pipeline import make_gpr_pipeline
+
+    gpr_inputs = [
+        lambda d=input_GP_from_state(
+            extrap_IG(b, rng=torch.Generator(device=dev).manual_seed(SEED + k), nconfig=10_000, npart=1_000, order=4)
+        ): d
+        for k, b in enumerate((0.5, 1.0, 1.5, 2.0, 2.5))
+    ]
+    _, gpr_predict = make_gpr_pipeline(gpr_inputs)
+    gpr_grid = np.linspace(0.5, 2.5, 200)
+
     calls = {
         "main_pipeline": lambda: run(u, x, betas, seed=SEED),
         "u_pipeline": lambda: run_u(u, betas, seed=SEED),
@@ -342,6 +359,8 @@ def main() -> int:
         "ingest_update": lambda: ingest_stream(update, state0, read_npy_chunks([npy_path], columns=(0, 1), device=dev)),
         "trainer_iterative": lambda: train_iterative(np.linspace(1.0, 5.0, 41), train_state, InterpModel, maxiter=6, tol=3e-4),
         "k1_backward": k1_backward,
+        "gpr_fit": lambda: create_GPR(gpr_inputs),
+        "gpr_predict": lambda: gpr_predict(gpr_grid),
     }
     wanted = sys.argv[1:] or list(calls)
     for name in wanted:

@@ -5,8 +5,9 @@ Counterpart of ``thermoextrap_tpu/pipeline.py`` without a mesh: the one-shot
 and ``make_perturb_pipeline``, their streaming forms
 (``make_streaming_{extrap,lnpi,volume,perturb}_pipeline``), the streaming
 interpolation between states (``make_streaming_interp_pipeline``),
-``streaming_jackknife`` and the bucketed serving runner
-(``make_bucketed_extrap_runner``).  The GPR pipeline is not ported yet.
+``streaming_jackknife``, the bucketed serving runner
+(``make_bucketed_extrap_runner``) and the GPR pipeline
+(``make_gpr_pipeline``, float64 GP linear algebra on the GPR device).
 Arrays that are not tensors go to the package's default
 device (:func:`.utils.device.default_device`); the path then runs by the
 device of the samples, decided per call:
@@ -39,13 +40,14 @@ from .models.derivatives import central_u_ave_coefs, central_x_ave_coefs, centra
 from .models.extrap import _interp_eval, _interp_fit, _poly_eval, _weighted_sums
 from .ops import dispatch, moments_cuda, resample
 from .ops.series import derivs_from_coefs, series_neg_log
-from .utils.device import default_device
+from .utils.device import default_device, host_numpy
 from .utils.random import validate_rng
 
 __all__ = [
     "bucket_pad",
     "make_bucketed_extrap_runner",
     "make_extrap_pipeline",
+    "make_gpr_pipeline",
     "make_lnpi_pipeline",
     "make_perturb_pipeline",
     "make_streaming_extrap_pipeline",
@@ -986,6 +988,71 @@ def streaming_jackknife(states, predict, *args):
     theta = torch.stack([predict(s, *args) for s in loo])
     var = (c - 1) / c * ((theta - theta.mean(dim=0)) ** 2).sum(dim=0)
     return predict(prefix[c], *args), torch.sqrt(var)
+
+
+def make_gpr_pipeline(
+    states,
+    *,
+    log_scale: bool = False,
+    base_kwargs=None,
+    start_params=None,
+    orders=(0,),
+    bucket: int = 64,
+):
+    """Train a derivative-informed GPR on extrapolation states and return
+    ``(gpr, predict)``, a posterior serving closure.
+
+    The GP runs in float64 on the GPR device
+    (:func:`.utils.compute.compute_device`: the card when there is one).
+    The JAX package pads each query grid to a multiple of ``bucket`` so that
+    a stream of ragged grids reuses a few compiled programs; torch compiles
+    nothing, and each query point's posterior is independent of the others,
+    so the padding is dropped here and the outputs are those of the padded
+    call.  ``bucket`` keeps its check (a positive integer).
+
+    Parameters
+    ----------
+    states : sequence of ``ExtrapModel`` (or callables returning
+        ``(x, y, cov)``) — the training states, as for ``create_GPR``.
+    log_scale : train on log10-transformed locations/derivatives
+        (``gpr_active.active_utils.input_GP_from_state``); ``predict``
+        applies the same location transform, and its outputs stay in the
+        transformed y-space.
+    base_kwargs, start_params : forwarded to ``create_GPR``.
+    orders : derivative orders ``predict`` may be asked for (order 0 = the
+        observable itself).
+    bucket : the JAX package's query-grid quantum, checked and not used.
+
+    Returns
+    -------
+    ``(gpr, predict)`` with ``predict(alphas, order=0) -> (mean, var)``,
+    each ``(len(alphas), out_dim)`` float64 numpy arrays.
+    """
+    import numpy as np
+
+    from .gpr_active.active_utils import create_GPR
+
+    if int(bucket) != bucket or bucket < 1:
+        msg = f"bucket must be a positive integer, got {bucket!r}"
+        raise ValueError(msg)
+    orders = tuple(int(o) for o in orders)
+    gpr = create_GPR(list(states), log_scale=log_scale, start_params=start_params, base_kwargs=base_kwargs)
+
+    def predict(alphas, order: int = 0):
+        if order not in orders:
+            msg = f"{order=} not in the pipeline's static {orders=}"
+            raise ValueError(msg)
+        locs = np.atleast_1d(np.asarray(host_numpy(alphas), dtype=np.float64))
+        if locs.shape[0] == 0:
+            empty = np.zeros((0, int(gpr.out_dim)), dtype=np.float64)
+            return empty, empty.copy()
+        if log_scale:
+            locs = np.log10(locs)
+        x_new = np.column_stack([locs, np.full(locs.shape[0], order, np.float64)])
+        mean, var = gpr.predict_f(x_new)
+        return host_numpy(mean), host_numpy(var)
+
+    return gpr, predict
 
 
 # ---------------------------------------------------------------------------

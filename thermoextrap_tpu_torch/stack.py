@@ -7,9 +7,8 @@ out: a state's derivatives, computed where its data lives (the card, for
 data on the card), are read back to the host once per state.
 
 The bootstrap covariance and the block-diagonal noise of
-:meth:`GPRData.to_gpr_data` belong to the GPR module
-``gpr_active.active_utils``, which is not ported yet (ROADMAP Queue 1 item
-3): until it is, that method raises ``ImportError``.
+:meth:`GPRData.to_gpr_data` come from the GPR staging
+(``gpr_active.active_utils.input_GP_from_state``).
 """
 
 from __future__ import annotations
@@ -259,15 +258,9 @@ class GPRData(StateCollection):
 
     def to_gpr_data(self, log_scale: bool = False):
         """Full (X, Y, block-diag noise cov) via the active-learning staging."""
-        try:
-            from .gpr_active.active_utils import input_GP_from_state
-        except ImportError as err:
-            msg = (
-                "GPRData.to_gpr_data needs thermoextrap_tpu_torch.gpr_active, "
-                "which is not ported yet (ROADMAP Queue 1 item 3)"
-            )
-            raise ImportError(msg) from err
         from scipy import linalg
+
+        from .gpr_active.active_utils import input_GP_from_state
 
         xs, ys, covs = [], [], []
         for s in self.states:
