@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port's main path, its ensembles, the perturbation path, the
 streaming pipelines, the interpolation between states, MBAR, the file-fed
-ingest runtime, the trainers and the derivative GPR once on an NVIDIA GPU.
+ingest runtime, the trainers, the derivative GPR and its active-learning loop
+once on an NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -145,11 +146,39 @@ on any failure, without printing a result.  Phases, one line each:
     (states, staging, fit with its evaluations and host reads, predict);
     (c) the two-output state (K1 with V = 2) through ``create_GPR``; (d) the
     closed-form RBF against nested ``torch.func.grad`` at orders 0-4 on 30
-    locations (1e-10), and ``K_diag`` against ``diag(K)``.
+    locations (1e-10), and ``K_diag`` against ``diag(K)``;
+26. the reference's active-learning loop on the card
+    (``examples/gpr_active_learning.py``'s ``run_active_IG`` and
+    ``benches/bench_active_loop.py``'s size): ``SimulateIG`` at 1e4 x 1e3
+    from beta [0.5, 2.5], ``UpdateALMbrute`` on 1000 grid points,
+    ``StopCriteria`` of ``MaxRelGlobalVar``, ``MaxVar`` and ``MaxIter``,
+    order 3, 5 iterations: (a) K1 = K2 = the states of each fit summed over
+    the fits, no other kernel; the last fit's states staged a second time
+    through the float64 plain route on the same samples and bootstrap table,
+    the card's staged y within 1e-3 of each row's bootstrap sigma and its
+    noise covariance within 2e-4 of sqrt(c_ii c_jj); the final GP within
+    max(4 sigma, 1e-3) of ``x_ave`` at 7 beta; the last fit rebuilt from its
+    staged inputs under ``host_f64`` (LML 1e-8 relative, means 1e-8 of
+    max(|mean|, sigma)); the loop's wall time, host reads and each
+    iteration's build, staging, fit, stop and acquire times; (b) the same
+    loop with ``gp_on_device=True`` (every fit in float32 on the card, warm
+    started from its own float32 chain; K1 = K2 as in (a)), its last fit's
+    NLL in float64 within 0.05 nats of the float64 optimum on the same data,
+    the first (cold) fit's gap printed; (c) one ``UpdateALCbrute`` (20
+    candidates) and one ``ErrorStability`` on the final model, timed, each
+    equal to the CPU's (the same beta; the metric within 3 times its change
+    when the CPU's posterior covariance moves by noise of the two devices'
+    covariance gap, both measured in the run); (d) ``freeze_predictor`` on the
+    final model: float32 serving of the 1000-point grid against float64
+    ``predict_f`` (tests/test_gpr_serving.py:64-92's bars) and a float64
+    freeze to 1e-12, with the time of one call; (e)
+    ``FullyHeteroscedasticGPR`` on ``sine_active.make_data`` data (14
+    points) fit on the card, its LML and predictions equal to the CPU's to
+    1e-8.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
-kernel once; phases 6, 11, 16, 20, 22, 23, 24 and 25 hold every path to that
+kernel once; phases 6, 11, 16, 20, 22, 23, 24, 25 and 26 hold every path to that
 (MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel).  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
@@ -237,6 +266,33 @@ GPR_GRID = 200
 GPR_R = 10_000_000
 GPR_FLOOR = 1e-3
 GPR_CORE_BAR, GPR_NLL_RTOL = 1e-8, 1e-6
+# phase 26: the reference's active-learning loop (examples/gpr_active_learning.py's
+# run_active_IG, benches/bench_active_loop.py:53-56): its simulator size, start,
+# grid, order and iterations; 7 accuracy beta; ALC's candidates; the float32
+# loop's NLL bar (phase 25's); the serving bars of tests/test_gpr_serving.py:64-92
+# (mean rtol / atol, variance atol in k(x, x) and rtol); the float64 freeze's bar
+# and the noise GP's size (tests/test_experimental_gps.py: 14 points)
+AL_NCONFIG, AL_NPART = 10_000, 1_000
+AL_START = (0.5, 2.5)
+AL_GRID, AL_ORDER, AL_MAX_ITER = 1000, 3, 5
+AL_EVAL = 7
+AL_ALC_CANDIDATES = 20
+AL_F32_NLL_GAP = 0.05
+# K1 and K2 at the loop's shapes against the float64 plain route, at float32
+# rounding: each staged y within a thousandth of its row's bootstrap sigma
+# (about 2e-7 of the order-0 value; a relative bar cannot hold at orders 2-3,
+# whose values pass through 0 between states), each noise covariance entry
+# within STAGE_COV_RTOL of sqrt(c_ii c_jj)
+STAGE_SIGMA_BAR, STAGE_COV_RTOL = 1e-3, 2e-4
+# ErrorStability's bar, card against CPU: its KL terms nearly cancel between two
+# close posteriors, so it magnifies the two devices' rounding of the posterior
+# covariance; the bar is ESTAB_MARGIN times the CPU metric's largest change when
+# its covariance moves by noise of the size of that rounding gap (measured in the
+# run, over ESTAB_PERTURBATIONS draws), and no less than ESTAB_FLOOR
+ESTAB_MARGIN, ESTAB_PERTURBATIONS, ESTAB_FLOOR = 3.0, 8, 1e-12
+SERVE_MEAN_RTOL, SERVE_MEAN_ATOL, SERVE_VAR_ATOL, SERVE_VAR_RTOL = 3e-4, 3e-5, 5e-6, 3e-3
+SERVE_F64_BAR = 1e-12
+HET_POINTS = 14
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -2189,6 +2245,317 @@ def main() -> int:
         phase25_s=time.perf_counter() - t25,
     )
     del gpr, gpr_b, gpr_c, cpu, cpu_fit, fit64, model32
+
+    # -- phase 26: the reference's active-learning loop on the card, with fresh launch counts --
+    t26 = time.perf_counter()
+    from thermoextrap_tpu_torch.gpr_active import experimental, serving, sine_active
+    from thermoextrap_tpu_torch.utils import device as tdevice
+
+    torch.set_num_threads(1)
+    # (a) the loop, each stage of each iteration timed: wall clock around the host
+    # code, CUDA events around the same span (synchronized at its end)
+    fits, staged_all, loop_times = [], [], {}
+
+    def clock(stage, it, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        wall = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        acc = loop_times.setdefault(stage, {}).setdefault(it, [0.0, 0.0])
+        acc[0] += (time.perf_counter() - wall) * 1e3
+        acc[1] += start.elapsed_time(end)
+        return out
+
+    built = []  # (beta, (u, x, w)) of every state the loop built, in order
+
+    class TimedSim(ig_active.SimulateIG):
+        def run_sim(self, unused, beta_, n_repeats=None, **kws):
+            dw = super().run_sim(unused, beta_, n_repeats, **kws)
+            build = dw.build_state
+
+            def build_recorded(max_order=6):
+                def make():
+                    built.append((dw.beta, dw.get_data()))
+                    return build(built[-1][1], max_order=max_order)
+
+                return clock("build", len(fits), make)
+
+            dw.build_state = build_recorded
+            return dw
+
+    class TimedStop(gau.StopCriteria):
+        def __call__(self, gpr_, alpha_list):
+            return clock("stop", len(fits) - 1, lambda: super(TimedStop, self).__call__(gpr_, alpha_list))
+
+    class TimedALM(gau.UpdateALMbrute):
+        def __call__(self, gpr_, alpha_list):
+            return clock("acquire", len(fits) - 1, lambda: super(TimedALM, self).__call__(gpr_, alpha_list))
+
+    real = {name: getattr(gau, name) for name in ("create_GPR", "input_GP_from_state", "train_GPR")}
+
+    def create_recorded(state_list, **kw):
+        gp = real["create_GPR"](state_list, **kw)
+        fits.append((len(state_list), gp))
+        return gp
+
+    def stage_recorded(*a, **k):
+        staged_all.append(clock("stage", len(fits), lambda: real["input_GP_from_state"](*a, **k)))
+        return staged_all[-1]
+
+    def train_timed(*a, **k):
+        return clock("fit", len(fits), lambda: real["train_GPR"](*a, **k))
+
+    update = TimedALM(rng=0, n_grid=AL_GRID)
+    stop = TimedStop([gau.MaxRelGlobalVar(tol=1e-12), gau.MaxVar(tol=1e-12), gau.MaxIter()], n_grid=AL_GRID)
+    gau.create_GPR, gau.input_GP_from_state, gau.train_GPR = create_recorded, stage_recorded, train_timed
+    try:
+        tdevice.HOST_READS["n"] = 0
+        wall = time.perf_counter()
+        data_list, al_hist = counted(
+            "active_loop",
+            lambda: gau.active_learning(
+                list(AL_START),
+                TimedSim(nconfig=AL_NCONFIG, npart=AL_NPART),
+                update,
+                stop_criteria=stop,
+                max_iter=AL_MAX_ITER,
+                max_order=AL_ORDER,
+            ),
+        )
+        loop_s = time.perf_counter() - wall
+        loop_reads = tdevice.HOST_READS["n"]
+    finally:
+        for name, fn in real.items():
+            setattr(gau, name, fn)
+    states_per_fit = [n for n, _ in fits]
+    if not (
+        len(fits) == len(al_hist["loss"]) == AL_MAX_ITER + 1
+        and states_per_fit[0] == len(AL_START)
+        and states_per_fit[-1] == len(data_list)
+        and all(b - a in (0, 1) for a, b in zip(states_per_fit, states_per_fit[1:]))
+    ):
+        raise AssertionError(f"active loop: {len(fits)} fits of {states_per_fit} states, {len(data_list)} states at the end")
+    held_launches("active_loop", sum(states_per_fit))
+
+    # K1 and K2 at the loop's shapes: the last fit's states staged a second time
+    # through the float64 plain route (the same samples; the same bootstrap table,
+    # drawn by the default-seed generator on the card) against the card's staging
+    stage_gaps = {"y_over_sigma": 0.0, "cov_over_sqrt_cii_cjj": 0.0}
+    last = slice(-states_per_fit[-1], None)
+    for (b_, data_), (_, y_card, c_card) in zip(built[last], staged_all[last]):
+        with dispatch.use_impl("torch"):
+            _, y_plain, c_plain = gau.input_GP_from_state(ig_active.IG_DataWrapper(b_).build_state(data_, max_order=AL_ORDER))
+        sig_ = np.sqrt(np.diagonal(c_plain, axis1=-2, axis2=-1))  # (Dy, order + 1)
+        stage_gaps["y_over_sigma"] = max(stage_gaps["y_over_sigma"], float(np.max(np.abs(y_card - y_plain) / sig_.T)))
+        cov_gap_ = np.abs(c_card - c_plain) / (sig_[:, :, None] * sig_[:, None, :])
+        stage_gaps["cov_over_sqrt_cii_cjj"] = max(stage_gaps["cov_over_sqrt_cii_cjj"], float(np.max(cov_gap_)))
+    if not (stage_gaps["y_over_sigma"] <= STAGE_SIGMA_BAR and stage_gaps["cov_over_sqrt_cii_cjj"] <= STAGE_COV_RTOL):
+        raise AssertionError(f"active loop: K1 / K2 staging against the float64 plain route: {stage_gaps}")
+    gpr_al = fits[-1][1]
+    al_betas = [d.beta for d in data_list]
+    eval_betas = np.linspace(0.6, 2.4, AL_EVAL)
+    mean_e, var_e = gpr_al.predict_f(gp_rows(eval_betas, 0))
+    err_al, ratio_al = accurate("active loop", mean_e, var_e, eval_betas)
+
+    # the last fit rebuilt from its staged inputs on the CPU, at the card's parameters
+    data_al = stacked(staged_all[-states_per_fit[-1] :])
+    grid_al = gp_rows(np.linspace(*AL_START, AL_GRID), 0)
+    lml_card = float(host_numpy(gpr_al.log_marginal_likelihood()))
+    mean_card, var_card = (host_numpy(a) for a in gpr_al.predict_f(grid_al))
+    with host_f64():
+        cpu_al = gau.create_base_GP_model(data_al)
+        cpu_al.set_parameters(gpr_al.parameters())
+        lml_cpu = float(cpu_al.log_marginal_likelihood())
+        mean_cpu, var_cpu = (a.numpy() for a in cpu_al.predict_f(grid_al))
+    al_gaps = {
+        "lml": abs(lml_card - lml_cpu) / abs(lml_cpu),
+        "mean": float(np.max(np.abs(mean_card - mean_cpu) / np.maximum(np.abs(mean_cpu), np.sqrt(var_cpu)))),
+        "var": float(np.max(np.abs(var_card - var_cpu) / var_cpu)),
+    }
+    if not (al_gaps["lml"] <= GPR_CORE_BAR and al_gaps["mean"] <= GPR_CORE_BAR):
+        raise AssertionError(f"active loop card against CPU: {al_gaps}")
+    per_iteration = {
+        stage: [[round(v, 3) for v in times_.get(i, [0.0, 0.0])] for i in range(len(fits))]
+        for stage, times_ in loop_times.items()
+    }
+    say(
+        26,
+        card=card,
+        config="a_loop",
+        nconfig=AL_NCONFIG,
+        npart=AL_NPART,
+        grid=AL_GRID,
+        betas=al_betas,
+        states_per_fit=states_per_fit,
+        launches_K1_K2=[path_launches["active_loop"]["K1"], path_launches["active_loop"]["K2"]],
+        staging_vs_float64_plain=stage_gaps,
+        loop_s=loop_s,
+        host_reads=loop_reads,
+        # [wall ms, CUDA-event ms] of each stage in each iteration
+        per_iteration_ms=per_iteration,
+        losses=al_hist["loss"],
+        stop_metrics={k: [float(v) for v in al_hist[k]] for k in ("MaxRelGlobalVar", "MaxVar")},
+        max_err_from_x_ave=err_al,
+        max_err_over_bar=ratio_al,
+        card_vs_cpu_gaps=al_gaps,
+    )
+
+    # (b) the same loop with gp_on_device=True: every fit in float32 on the card, each
+    # warm-started from its own float32 predecessor; the last fit's NLL, taken in
+    # float64 at its parameters, against the float64 optimum of the same data (the
+    # better of a cold start and a start from the float32 parameters). The first
+    # fit, a cold start, is printed beside it
+    fits32 = []
+
+    def create_recorded32(state_list, **kw):
+        fits32.append(real["create_GPR"](state_list, **kw))
+        return fits32[-1]
+
+    gau.create_GPR = create_recorded32
+    try:
+        (data_list32, al_hist32), loop32_ms = timed(
+            lambda: counted(
+                "active_loop_f32",
+                lambda: gau.active_learning(
+                    list(AL_START),
+                    ig_active.SimulateIG(nconfig=AL_NCONFIG, npart=AL_NPART),
+                    gau.UpdateALMbrute(rng=0, n_grid=AL_GRID),
+                    stop_criteria=gau.StopCriteria(
+                        [gau.MaxRelGlobalVar(tol=1e-12), gau.MaxVar(tol=1e-12), gau.MaxIter()], n_grid=AL_GRID
+                    ),
+                    max_iter=AL_MAX_ITER,
+                    max_order=AL_ORDER,
+                    gp_on_device=True,
+                ),
+            )
+        )
+    finally:
+        gau.create_GPR = real["create_GPR"]
+    held_launches("active_loop_f32", sum(int(gp.X.shape[0]) // (AL_ORDER + 1) for gp in fits32))
+
+    def f32_gap(gp32):
+        """The float32 fit's NLL in float64, less the float64 optimum on its data."""
+        model64 = gau.create_base_GP_model(gau._original_units(gp32))
+        res64 = gau.train_GPR(model64, record_loss=True, start_params=gp32.parameters())
+        return float(host_numpy(model64.neg_lml(gp32.get_unconstrained()))) - float(res64.fun)
+
+    f32_gaps = [f32_gap(fits32[0]), f32_gap(fits32[-1])]
+    if not (len(fits32) == AL_MAX_ITER + 1 and np.isfinite(f32_gaps[-1]) and f32_gaps[-1] < AL_F32_NLL_GAP):
+        raise AssertionError(f"active loop in float32: {len(fits32)} fits, NLL gaps (first, last) {f32_gaps}")
+
+    # (c) one ALC update and one ErrorStability value on the final model, against the CPU's
+    alc = gau.UpdateALCbrute(n_candidates=AL_ALC_CANDIDATES, n_grid=AL_GRID)
+    alc_card, alc_ms = timed(lambda: alc(gpr_al, al_betas))
+    estab = gau.ErrorStability(tol=0.1)
+    _, estab_ms = timed(lambda: estab.calc_metric(None, None, gpr_al))
+
+    # the posterior covariance that ErrorStability reads, at the model's order-0 rows,
+    # on each device: the largest difference is the rounding gap the metric sees
+    rows0 = gpr_al.X[gpr_al.X[:, 1] == 0]
+    cov_card = gpr_al.predict_f(rows0, full_cov=True)[1].cpu()
+    with host_f64():
+        alc_cpu = gau.UpdateALCbrute(n_candidates=AL_ALC_CANDIDATES, n_grid=AL_GRID)(cpu_al, al_betas)
+        # the card's value defined the normalization: the CPU's must come out 1
+        estab_cpu = float(estab.calc_metric(None, None, cpu_al))
+        cov_cpu = cpu_al.predict_f(rows0, full_cov=True)[1]
+        cov_gap = float((cov_card - cov_cpu).abs().max())
+        # the metric's sensitivity to that gap: the CPU's value with its posterior
+        # covariance moved by symmetric noise of the gap's size
+        predict_cpu, noise = cpu_al.predict_f, np.random.default_rng(SEED)
+
+        def predict_moved(xq, full_cov=False):
+            m_, v_ = predict_cpu(xq, full_cov=full_cov)
+            e_ = torch.tensor(noise.normal(size=tuple(v_.shape))) * cov_gap
+            return m_, v_ + 0.5 * (e_ + e_.mT)
+
+        cpu_al.predict_f = predict_moved
+        estab_sensitivity = max(abs(float(estab.calc_metric(None, None, cpu_al)) - estab_cpu) for _ in range(ESTAB_PERTURBATIONS))
+        del cpu_al.predict_f
+    estab_bar = max(ESTAB_MARGIN * estab_sensitivity, ESTAB_FLOOR)
+    if alc_card[0] != alc_cpu[0] or abs(estab_cpu - 1.0) > estab_bar:
+        raise AssertionError(
+            f"ALC chose {alc_card[0]} on the card, {alc_cpu[0]} on the CPU; ErrorStability CPU / card {estab_cpu} "
+            f"beyond {estab_bar} (the covariances differ by {cov_gap}, which moves it by {estab_sensitivity})"
+        )
+
+    # (d) the final model frozen for serving, float32 and float64, on the 1000-point grid
+    mean_ref, var_ref = gpr_al.predict_f(grid_al)
+    kxx = gpr_al.parameters()["kernel/var"] * float(gpr_al._scale_np.max()) ** 2  # k(x, x) in the served units
+    pred32 = serving.freeze_predictor(gpr_al)
+    grid_t = torch.tensor(grid_al[:, 0], device=dev)
+    (mean32, var32), serve32_ms = timed(lambda: pred32(grid_t))
+    serve32_ms = min([serve32_ms] + [timed(lambda: pred32(grid_t))[1] for _ in range(4)])
+    pred64 = serving.freeze_predictor(gpr_al, dtype=torch.float64)
+    mean64, var64 = pred64(grid_t)
+    if not (mean32.is_cuda and mean32.dtype == torch.float32 and bool((var32 >= 0).all())):
+        raise AssertionError(f"freeze_predictor: {mean32.device} {mean32.dtype}, min var {float(var32.min())}")
+    serve_err = {
+        "mean32": compare("serve mean f32", [mean32], [mean_ref], SERVE_MEAN_RTOL, SERVE_MEAN_ATOL),
+        "var32": compare("serve var f32", [var32], [var_ref], SERVE_VAR_RTOL, SERVE_VAR_ATOL * kxx),
+        "mean64": float((mean64 - mean_ref).abs().max()) / float(mean_ref.abs().max()),
+        "var64": float((var64 - var_ref).abs().max()) / kxx,
+    }
+    if max(serve_err["mean64"], serve_err["var64"]) > SERVE_F64_BAR:
+        raise AssertionError(f"float64 freeze against predict_f: {serve_err}")
+
+    # (e) the fully heteroscedastic noise GP on the sine data, fit on the card
+    xs_het, ys_het, yerr_het = sine_active.make_data(
+        np.linspace(0.0, 3.0, HET_POINTS), max_order=0, rng=torch.Generator(device=dev).manual_seed(SEED + 300)
+    )
+    nsamp = np.random.default_rng(SEED).integers(50, 200, (HET_POINTS, 1)).astype(float)
+    het_data = (xs_het[:, :1], np.hstack([ys_het, yerr_het, nsamp]))
+
+    def het_model():
+        return experimental.FullyHeteroscedasticGPR(
+            het_data, experimental.StationaryKernel(1, "rbf"), noise_kernel=experimental.StationaryKernel(1, "matern52")
+        )
+
+    het = het_model()
+    het_res, het_fit_ms = timed(lambda: het.train(max_iter=120))
+    het_new = np.linspace(0.0, 3.0, 50)[:, None]
+    het_card = [het.log_marginal_likelihood(), *het.predict_f(het_new), *het.predict_noise(het_new)]
+    with host_f64():
+        het_cpu_model = het_model()
+        het_cpu_model.set_parameters(het.parameters())
+        het_cpu = [het_cpu_model.log_marginal_likelihood(), *het_cpu_model.predict_f(het_new), *het_cpu_model.predict_noise(het_new)]
+    if not all(a.is_cuda and a.dtype == torch.float64 for a in het_card):
+        raise AssertionError("FullyHeteroscedasticGPR did not run on the card in float64")
+    het_gaps = [float((a.cpu() - b).abs().max()) / float(b.abs().max()) for a, b in zip(het_card, het_cpu)]
+    if not (np.isfinite(het_res.fun) and max(het_gaps) <= GPR_CORE_BAR):
+        raise AssertionError(f"FullyHeteroscedasticGPR card against CPU: {het_gaps} (NLL {het_res.fun})")
+    torch.set_num_threads(cpu_threads)
+    say(
+        26,
+        card=card,
+        config="b_e",
+        f32_loop_ms=loop32_ms,
+        f32_betas=[d.beta for d in data_list32],
+        f32_launches_K1_K2=[path_launches["active_loop_f32"]["K1"], path_launches["active_loop_f32"]["K2"]],
+        f32_losses=al_hist32["loss"],
+        # the float64 NLL at the float32 fit's parameters less the float64 optimum
+        f32_nll_gap_first_last_fit=f32_gaps,
+        alc_beta=[float(alc_card[0]), float(alc_cpu[0])],
+        alc_ms=alc_ms,
+        error_stability_ms=estab_ms,
+        error_stability_r1=float(estab.r1),
+        error_stability_cpu_over_card=estab_cpu,
+        # the card's and the CPU's posterior covariance at the order-0 rows: the
+        # largest difference, relative to the largest variance there, the CPU
+        # metric's change when its covariance moves by that much, and the bar
+        error_stability_cov_gap=cov_gap / float(torch.diagonal(cov_cpu, dim1=-2, dim2=-1).max()),
+        error_stability_change_under_gap=estab_sensitivity,
+        error_stability_bar=estab_bar,
+        serve_1000_f32_ms=serve32_ms,
+        serve_errors=serve_err,
+        serve_kxx=kxx,
+        het_fit_ms=het_fit_ms,
+        het_nll=float(het_res.fun),
+        het_gaps=het_gaps,
+        phase26_s=time.perf_counter() - t26,
+    )
+    del gpr_al, cpu_al, fits, fits32, staged_all, built, het, het_cpu_model
 
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0

@@ -1194,3 +1194,124 @@ def test_gpr_staging_launches_k1_and_k2(cuda_device, monkeypatch):
     want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 1, "K2": 1, "head_shift": 2, "finalize": 2}
     assert mc.LAUNCHES == want
     assert y.shape == (4, 1) and cov.shape == (1, 4, 4) and np.all(np.isfinite(cov))
+
+
+# -- the active-learning half of the GPR on the card ---------------------------------------
+
+
+def test_active_loop_on_the_card(cuda_device, monkeypatch, tmp_path):
+    """The reference's loop at phase 26's grid, start and order (two
+    iterations, smaller states): K1 = K2 = the states of each fit summed,
+    no other kernel; the final fit rebuilt on the CPU from its staged inputs
+    agrees to 1e-8; ALC and ``ErrorStability`` on the card equal the CPU's
+    (the same beta; the metric to 1e-5: its KL terms nearly cancel, so it
+    magnifies the two devices' rounding of the posterior covariance)."""
+    from scipy import linalg
+
+    from thermoextrap_tpu_torch.gpr_active import active_utils, ig_active
+    from thermoextrap_tpu_torch.utils import device as tdevice
+    from thermoextrap_tpu_torch.utils.compute import host_f64
+
+    monkeypatch.setattr(tdevice, "_DEVICE", cuda_device)
+    fits, staged = [], []
+    real_create, real_stage = active_utils.create_GPR, active_utils.input_GP_from_state
+
+    def create(states, **kw):
+        fits.append(len(states))
+        return real_create(states, **kw)
+
+    def stage(*a, **k):
+        staged.append(real_stage(*a, **k))
+        return staged[-1]
+
+    monkeypatch.setattr(active_utils, "create_GPR", create)
+    monkeypatch.setattr(active_utils, "input_GP_from_state", stage)
+    stop = active_utils.StopCriteria([active_utils.MaxRelGlobalVar(tol=1e-12), active_utils.MaxIter()], n_grid=1000)
+    mc.reset_launches()
+    data_list, hist = active_utils.active_learning(
+        [0.5, 2.5],
+        ig_active.SimulateIG(nconfig=2_000, npart=200),
+        active_utils.UpdateALMbrute(rng=0, n_grid=1000),
+        base_dir=str(tmp_path),
+        stop_criteria=stop,
+        max_iter=2,
+        max_order=3,
+    )
+    torch.cuda.synchronize()
+    n = sum(fits)
+    assert fits[0] == 2 and fits[-1] == len(data_list) and len(fits) == len(hist["loss"]) == 3
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K1": n, "K2": n, "head_shift": 2 * n, "finalize": 2 * n}
+    assert all(type(v) is float for v in hist["loss"])
+
+    last = staged[-fits[-1] :]
+    x = np.vstack([d[0] for d in last])
+    y = np.vstack([d[1] for d in last])
+    cov = np.array([linalg.block_diag(*[d[2][0] for d in last])])
+    card = active_utils.create_base_GP_model((x, y, cov))
+    card.set_parameters(hist["params"][-1])
+    grid = np.column_stack([np.linspace(0.5, 2.5, 1000), np.zeros(1000)])
+    mean, var = card.predict_f(grid)
+    assert mean.is_cuda and mean.dtype == torch.float64
+    betas = [d.beta for d in data_list]
+    alc = active_utils.UpdateALCbrute(n_candidates=20, n_grid=1000)(card, betas)
+    estab = active_utils.ErrorStability(tol=0.1)
+    estab.calc_metric(None, None, card)
+    with host_f64():
+        cpu = active_utils.create_base_GP_model((x, y, cov))
+        cpu.set_parameters(hist["params"][-1])
+        cmean, cvar = cpu.predict_f(grid)
+        assert abs(float(card.log_marginal_likelihood()) - float(cpu.log_marginal_likelihood())) <= 1e-8 * abs(float(cpu.log_marginal_likelihood()))
+        assert alc[0] == active_utils.UpdateALCbrute(n_candidates=20, n_grid=1000)(cpu, betas)[0]
+        assert abs(float(estab.calc_metric(None, None, cpu)) - 1.0) <= 1e-5
+    assert float(((mean.cpu() - cmean).abs() / torch.maximum(cmean.abs(), cvar.sqrt())).max()) <= 1e-8
+
+
+def test_freeze_predictor_on_the_card(cuda_device, monkeypatch):
+    """The freeze runs in float64 on the card; float32 serving holds the
+    bars of tests/test_gpr_serving.py:64-92 against ``predict_f`` there, and
+    a float64 freeze equals it to 1e-12 of the largest entry."""
+    from thermoextrap_tpu_torch.gpr_active import gp_models, kernels, serving
+    from thermoextrap_tpu_torch.utils import device as tdevice
+
+    monkeypatch.setattr(tdevice, "_DEVICE", cuda_device)
+    X, Y, cov = _gpr_sine_data()
+    model = gp_models.HeteroscedasticGPR((X, Y, cov), kernel=kernels.RBFDerivKernel(), likelihood_kwargs={"p": 1.0})
+    model.train()
+    xt = np.linspace(0.5, 5.5, 1000)
+    mean_ref, var_ref = model.predict_f(np.stack([xt, np.zeros_like(xt)], 1))
+    mean, var = serving.freeze_predictor(model)(xt)
+    assert mean.is_cuda and mean.dtype == torch.float32 and bool((var >= 0).all())
+    kvar = model.parameters()["kernel/var"]
+    assert bool(((mean.double() - mean_ref).abs() <= 3e-5 + 3e-4 * mean_ref.abs()).all())
+    assert bool(((var.double() - var_ref).abs() <= 5e-6 * kvar + 3e-3 * var_ref.abs()).all())
+    mean64, var64 = serving.freeze_predictor(model, dtype=torch.float64)(torch.tensor(xt, device=cuda_device))
+    assert float((mean64 - mean_ref).abs().max()) <= 1e-12 * float(mean_ref.abs().max())
+    assert float((var64 - var_ref).abs().max()) <= 1e-12 * kvar
+
+
+def test_fully_heteroscedastic_gpr_on_the_card(cuda_device, monkeypatch):
+    """``FullyHeteroscedasticGPR`` on ``sine_active.make_data`` data (14
+    points, drawn on the card) fits on the card, and its LML and
+    predictions equal the CPU model's at its parameters to 1e-8."""
+    from thermoextrap_tpu_torch.gpr_active import experimental, sine_active
+    from thermoextrap_tpu_torch.utils import device as tdevice
+    from thermoextrap_tpu_torch.utils.compute import host_f64
+
+    monkeypatch.setattr(tdevice, "_DEVICE", cuda_device)
+    xs, ys, yerr = sine_active.make_data(np.linspace(0.0, 3.0, 14), max_order=0, rng=3)
+    data = (xs[:, :1], np.hstack([ys, yerr, np.full_like(ys, 100.0)]))
+
+    def model():
+        return experimental.FullyHeteroscedasticGPR(data, experimental.StationaryKernel(1, "rbf"))
+
+    card = model()
+    res = card.train(max_iter=120)
+    xnew = np.linspace(0.0, 3.0, 50)[:, None]
+    got = [card.log_marginal_likelihood(), *card.predict_f(xnew), *card.predict_noise(xnew)]
+    assert np.isfinite(res.fun) and all(g.is_cuda for g in got)
+    with host_f64():
+        cpu = model()
+        cpu.set_parameters(card.parameters())
+        ref = [cpu.log_marginal_likelihood(), *cpu.predict_f(xnew), *cpu.predict_noise(xnew)]
+    for g, r in zip(got, ref):
+        assert float((g.cpu() - r).abs().max()) <= 1e-8 * float(r.abs().max())

@@ -465,9 +465,12 @@ def test_mean_functions_match_jax(rng_np, kind):
 
 
 def test_not_ported_names_raise():
+    """The two noise-GP names resolve from ``experimental``, as in the JAX
+    package (they raised until it was ported); other names raise."""
+    from thermoextrap_tpu_torch.gpr_active import experimental
+
     for name in ("HetGaussianNoiseGP", "FullyHeteroscedasticGPR"):
-        with pytest.raises(ImportError, match="Queue 1 item 3"):
-            getattr(gm, name)
+        assert getattr(gm, name) is getattr(experimental, name)
     with pytest.raises(AttributeError):
         gm.no_such_name  # noqa: B018
 
@@ -652,6 +655,44 @@ class TestHeteroscedasticGPR:
         assert np.isfinite(res.fun)
         assert not np.array_equal(np.asarray(res.x), x0)  # not rolled back
         assert nll64_at <= float(res64.fun) + 0.05
+
+    def test_on_device_f32_train_is_float32_as_jax(self):
+        """The float32 fit computes in float32 throughout, as the JAX
+        package's: the closed-form RBF block of float32 locations is float32
+        (its derivative orders took float64 and promoted the block, so the
+        fit factored W in float64), and on data where the float32 objective
+        stops L-BFGS-B early both packages stop at the same point."""
+        from scipy import linalg
+
+        from thermoextrap_tpu.gpr_active import active_utils as jau
+        from thermoextrap_tpu_torch.gpr_active import active_utils as au
+        from thermoextrap_tpu_torch.gpr_active import ig_active
+
+        locs = torch.linspace(0.0, 1.0, 4, dtype=torch.float32)[:, None]
+        gid = torch.tensor([0, 1, 0, 1])
+        block = RBFDerivKernel()._pair_matrix(locs, gid, ((0,), (1,)), locs, gid, ((0,), (1,)), [torch.tensor(0.8), torch.tensor(1.3)])
+        assert block.dtype == torch.float32
+        staged = [
+            au.input_GP_from_state(ig_active.extrap_IG(b, rng=torch.Generator().manual_seed(10 + k), nconfig=10_000, npart=1_000, order=4))
+            for k, b in enumerate((0.5, 1.0, 1.5, 2.0, 2.5))
+        ]
+        data = (
+            np.vstack([d[0] for d in staged]),
+            np.vstack([d[1] for d in staged]),
+            np.array([linalg.block_diag(*[d[2][0] for d in staged])]),
+        )
+        model = au.create_base_GP_model(data)
+        bound32 = [b.float() if b.is_floating_point() else b for b in model._bound_args()]
+        assert model._lml_fns()["lml_logw"](model.get_unconstrained().float(), *bound32).dtype == torch.float32
+        res = model.train(on_device=True)
+        jmodel = jau.create_base_GP_model(data)
+        jres = jmodel.train(on_device=True)
+        model64 = au.create_base_GP_model(data)
+        res64 = model64.train()
+        gap = float(model64.neg_lml(model.get_unconstrained())) - res64.fun
+        jgap = float(model64.neg_lml(torch.as_tensor(np.array(jmodel.get_unconstrained())))) - res64.fun
+        assert gap > 1.0 and jgap > 1.0  # this data stops both float32 fits early
+        assert gap == pytest.approx(jgap, abs=1e-3) and res.nfev == jres.nfev
 
     def test_prediction_accuracy(self, sine_fit):
         model, _ = sine_fit

@@ -330,6 +330,20 @@ for make in (kernels.make_rbf_expr, lambda: gp_models.DerivativeKernel(None)):
         assert "RBFDerivKernel" in str(err) and "CallableDerivativeKernel" in str(err), err
     else:
         raise AssertionError("a sympy constructor ran without sympy")
+# the default active loop (ALM), the frozen predictor and the noise GPs need no sympy either
+from thermoextrap_tpu_torch.gpr_active import experimental, serving, sine_active
+sim = ig_active.SimulateIG(nconfig=400, npart=50)
+data_list, hist = active_utils.active_learning(
+    [0.8, 2.0], sim, active_utils.UpdateALMbrute(n_grid=40), stop_criteria=active_utils.StopCriteria([active_utils.MaxVar(1e-12)], n_grid=40),
+    max_iter=1, max_order=2,
+)
+assert len(data_list) >= 2 and len(hist["loss"]) == 2 and np.isfinite(hist["loss"]).all()
+fm, fv = serving.freeze_predictor(gpr)(np.array([1.5]))
+assert np.isfinite(fm.numpy()).all() and (fv.numpy() >= 0).all()
+X, Y, Yerr = sine_active.make_data(np.linspace(0.0, 3.0, 6), max_order=0, rng=1)
+het = experimental.FullyHeteroscedasticGPR((X[:, :1], np.hstack([Y, Yerr, np.full_like(Y, 50.0)])), experimental.StationaryKernel(1, "rbf"))
+assert np.isfinite(float(het.log_marginal_likelihood()))
+assert "sympy" not in sys.modules or sys.modules["sympy"] is None
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "thermoextrap_tpu") and sys.modules[m] is not None)
 assert not bad, bad
 print("ok")
@@ -340,26 +354,28 @@ print("ok")
 
 
 def test_all_names_but_the_active_learning_half():
-    """Every public name of the JAX modules is here, except the
-    active-learning half, and those raise the ``ImportError`` that says
-    where they come from."""
+    """Every public name of the JAX package's ``gpr_active`` and of its
+    modules (the active-learning half of ``active_utils``, ``experimental``,
+    ``serving`` and ``sine_active`` among them) is in the port; nothing is
+    left to reject."""
     from thermoextrap_tpu import gpr_active as jgpr
+    from thermoextrap_tpu.gpr_active import experimental as jexp
     from thermoextrap_tpu.gpr_active import gp_models as jgm
     from thermoextrap_tpu.gpr_active import ig_active as jig
     from thermoextrap_tpu.gpr_active import kernels as jkern
+    from thermoextrap_tpu.gpr_active import serving as jserving
+    from thermoextrap_tpu.gpr_active import sine_active as jsine
+    from thermoextrap_tpu_torch.gpr_active import experimental, serving, sine_active
 
-    assert set(jgpr.__all__) - set(gpr_active.__all__) == set(gpr_active._NOT_PORTED)
-    assert set(jau.__all__) - set(au.__all__) == set(au._NOT_PORTED)
-    for mod, jmod in ((gp_models, jgm), (kernels, jkern), (ig_active, jig)):
-        assert set(mod.__all__) == set(jmod.__all__)
-    for mod in (gpr_active, au):
-        for name in mod._NOT_PORTED:
-            with pytest.raises(ImportError, match="Queue 1 item 3"):
-                getattr(mod, name)
+    pairs = ((gpr_active, jgpr), (au, jau), (gp_models, jgm), (kernels, jkern), (ig_active, jig))
+    for mod, jmod in (*pairs, (experimental, jexp), (serving, jserving), (sine_active, jsine)):
+        assert set(mod.__all__) == set(jmod.__all__), mod.__name__
+        for name in mod.__all__:
+            assert getattr(mod, name) is not None
+        assert not hasattr(mod, "_NOT_PORTED")
         with pytest.raises(AttributeError):
             mod.no_such_name  # noqa: B018
-    with pytest.raises(ImportError, match="Queue 1 item 3"):
-        from thermoextrap_tpu_torch.gpr_active import experimental  # noqa: F401
+    assert gp_models.FullyHeteroscedasticGPR is experimental.FullyHeteroscedasticGPR
     assert tx.gpr_active is gpr_active
 
 

@@ -854,6 +854,7 @@ class HeteroscedasticGPR(TrainableGPModel):
         scale_fac = np.asarray(host_numpy(scale_fac), dtype=np.float64)
         if scale_fac.ndim == 0:
             scale_fac = scale_fac * np.ones(self.out_dim)
+        self._scale_np = scale_fac
         self.scale_fac = _f64(scale_fac)
 
         if noise_cov.ndim == 1:
@@ -1119,17 +1120,16 @@ class HeteroscedasticGPRAnalyticalScale(HeteroscedasticGPR):
         return _concentrated(chol, y - mean_x)[0]
 
 
-# reference-name parity: the reference defines the snake_case class name
+# reference-name parity: the reference defines the snake_case class name and
+# hosts the experimental noise-GP pair in this module; here they live in
+# .experimental, re-exported lazily (PEP 562) to avoid a circular import
 HeteroscedasticGPR_analytical_scale = HeteroscedasticGPRAnalyticalScale  # noqa: N816
 
 
 def __getattr__(name: str):
     if name in ("HetGaussianNoiseGP", "FullyHeteroscedasticGPR"):
-        msg = (
-            f"{__name__}.{name} lives in gpr_active.experimental, which is not "
-            "ported yet: it comes with the active-learning half of ROADMAP "
-            "Queue 1 item 3"
-        )
-        raise ImportError(msg)
+        from . import experimental
+
+        return getattr(experimental, name)
     msg = f"module {__name__!r} has no attribute {name!r}"
     raise AttributeError(msg)

@@ -96,9 +96,10 @@ def _rbf_hermite(x1, a, x2, b, ell, var, nmax: int):
     return var * ell ** (-n) * sign * he_n * torch.exp(-0.5 * z * z)
 
 
-def _orders(groups, gid):
-    """Each row's derivative order (1-D kernels) from its group id."""
-    table = torch.tensor([g[0] for g in groups], dtype=torch.float64, device=gid.device)
+def _orders(groups, gid, dtype):
+    """Each row's derivative order (1-D kernels) from its group id, in the
+    locations' dtype (so a float32 block stays float32)."""
+    table = torch.tensor([g[0] for g in groups], dtype=dtype, device=gid.device)
     return table[gid]
 
 
@@ -128,11 +129,11 @@ class RBFDerivKernel(DerivativeKernel):
 
     def _pair_matrix(self, x1, gid1, groups1, x2, gid2, groups2, pvals):
         nmax = max(g[0] for g in groups1) + max(g[0] for g in groups2)
-        a, b = _orders(groups1, gid1), _orders(groups2, gid2)
+        a, b = _orders(groups1, gid1, x1.dtype), _orders(groups2, gid2, x2.dtype)
         return _rbf_hermite(x1[:, 0, None], a[:, None], x2[None, :, 0], b[None, :], *pvals, nmax)
 
     def _pair_diag(self, x, gid, groups, pvals):
-        a = _orders(groups, gid)
+        a = _orders(groups, gid, x.dtype)
         return _rbf_hermite(x[:, 0], a, x[:, 0], a, *pvals, 2 * max(g[0] for g in groups))
 
 

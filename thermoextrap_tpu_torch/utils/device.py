@@ -11,9 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["default_device", "host_numpy", "set_default_device"]
+__all__ = ["HOST_READS", "default_device", "host_numpy", "set_default_device"]
 
 _DEVICE: torch.device | None = None  # None = by availability
+
+# reads back to the host of tensors on another device than the CPU, through
+# host_numpy (the loops that read predictions back count theirs here)
+HOST_READS = {"n": 0}
 
 
 def default_device() -> torch.device:
@@ -31,7 +35,9 @@ def set_default_device(device) -> None:
 
 def host_numpy(a) -> np.ndarray:
     """A tensor (on any device) or array-like as a numpy array: one read
-    back from the card for a tensor there."""
+    back from the card for a tensor there, counted in ``HOST_READS``."""
     if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            HOST_READS["n"] += 1
         return a.detach().cpu().numpy()
     return np.asarray(a)
