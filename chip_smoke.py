@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port's main path, its ensembles, the perturbation path, the
 streaming pipelines, the interpolation between states, MBAR, the file-fed
-ingest runtime, the trainers, the derivative GPR and its active-learning loop
-once on an NVIDIA GPU.
+ingest runtime, the trainers, the derivative GPR, its active-learning loop
+and the sharded path on a one-rank mesh once on an NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -174,12 +174,28 @@ on any failure, without printing a result.  Phases, one line each:
     freeze to 1e-12, with the time of one call; (e)
     ``FullyHeteroscedasticGPR`` on ``sine_active.make_data`` data (14
     points) fit on the card, its LML and predictions equal to the CPU's to
-    1e-8.
+    1e-8;
+27. the mesh on the card: a world of one NCCL rank (``parallel.make_mesh(1,
+    ("rep", "rec"))`` on a ``file://`` store), every mesh call with fresh
+    launch counts and none launching a kernel: (a) ``make_extrap_pipeline(...,
+    mesh=)`` on the main path's R = 1e8 data within 0.1 sigma of the float64
+    plain route and of the kernel route (K1); (b) its bootstrap at R = 1e7,
+    nrep 100 (peak memory printed), and the sharded bootstrap's replicate
+    predictions within 0.1 sigma of the port's plain
+    ``resample_central_comoments`` in float64 on the same table, sigma within
+    1%; (c) ``mbar_solve_sharded`` on phase 21's K = 4, N = 1e8 float32
+    ``u_kn`` within 1e-4 of the unsharded solve, and
+    ``mbar_expectations_grid_sharded`` at its 256 targets (8 at a time) within
+    1e-6 of the unsharded grid, with the float32 covariance against float64;
+    (d) phase 26's float32 frozen predictor on its 1000 queries sharded over
+    ``rec``, equal to the whole call to 1e-6; (e) each mesh call's time and its
+    unsharded counterpart's, by CUDA events.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
 kernel once; phases 6, 11, 16, 20, 22, 23, 24, 25 and 26 hold every path to that
-(MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel).  Each kernel's bound is the
+(MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel), and phase
+27 every mesh call to no launch at all.  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
@@ -293,6 +309,10 @@ ESTAB_MARGIN, ESTAB_PERTURBATIONS, ESTAB_FLOOR = 3.0, 8, 1e-12
 SERVE_MEAN_RTOL, SERVE_MEAN_ATOL, SERVE_VAR_ATOL, SERVE_VAR_RTOL = 3e-4, 3e-5, 5e-6, 3e-3
 SERVE_F64_BAR = 1e-12
 HET_POINTS = 14
+# phase 27: the bootstrap under mesh= at this R and nrep (its global count table is
+# (nrep, R); at the main path's R = 1e8 it could not exist on one card)
+MESH_BOOT_R = 10_000_000
+MESH_BOOT_NREP = 100
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -2556,6 +2576,159 @@ def main() -> int:
         phase26_s=time.perf_counter() - t26,
     )
     del gpr_al, cpu_al, fits, fits32, staged_all, built, het, het_cpu_model
+
+    # -- phase 27: the mesh on the card, a world of one NCCL rank, each call with fresh launch counts --
+    # The mesh= route and the sharded functions are plain torch, as the reference's mesh route
+    # runs no Pallas kernel: every mesh call must launch none.
+    t27 = time.perf_counter()
+    import torch.distributed as dist
+
+    from thermoextrap_tpu_torch import parallel
+    from thermoextrap_tpu_torch.models.derivatives import central_x_ave_coefs
+    from thermoextrap_tpu_torch.models.extrap import _poly_eval
+    from thermoextrap_tpu_torch.parallel import sharded as psh
+    from thermoextrap_tpu_torch.pipeline import _multinomial_freq
+
+    t_mesh = time.perf_counter()
+    mesh = parallel.make_mesh(1, ("rep", "rec"), device="cuda")
+    mesh_s = time.perf_counter() - t_mesh
+    if not (dist.get_backend() == "nccl" and dist.get_world_size() == 1 and mesh.device_type == "cuda"):
+        raise AssertionError(f"the mesh is not a world of one NCCL rank: {dist.get_backend()}, {dist.get_world_size()}, {mesh}")
+    mesh_ms, mesh_err = {}, {}
+
+    def mesh_call(path, fn, reps=3):
+        """``(result, best ms)`` of ``reps`` calls by CUDA events, each with
+        fresh launch counts; a mesh call that launches a kernel fails."""
+        best = math.inf
+        for _ in range(reps):
+            out, ms = timed(lambda: counted(path, fn))
+            if any(path_launches[path].values()):
+                raise AssertionError(f"{path}: the mesh route launched kernels: {path_launches[path]}")
+            best = min(best, ms)
+        return out, best
+
+    def best_ms(fn, reps=3):
+        return min(timed(fn)[1] for _ in range(reps))
+
+    # (a) the main path's data (R = 1e8 float32, order 6, nrep 0) against the kernel route
+    # (K1) and the float64 plain route, within 0.1 sigma of the main path's bootstrap
+    run_mesh = make_extrap_pipeline(order=ORDER, beta0=BETA0, mesh=mesh)
+    run_k1 = make_extrap_pipeline(order=ORDER, beta0=BETA0)
+    pred_mesh, mesh_ms["extrap_1e8"] = mesh_call("mesh_extrap", lambda: run_mesh(u, x, betas))
+    pred_k1 = run_k1(u, x, betas)
+    mesh_ms["extrap_1e8_kernel_route"] = best_ms(lambda: run_k1(u, x, betas))
+    with dispatch.use_impl("torch"):
+        pred_f64 = run_k1(u.double(), x.double(), betas)
+    _, std_main = make_extrap_pipeline(order=ORDER, beta0=BETA0, nrep=NREP_MAIN)(u, x, betas, seed=SEED)
+    mesh_err["extrap_vs_f64_plain"] = within("mesh pipeline vs float64 plain", pred_mesh, std_main, pred_f64, 0.1)
+    mesh_err["extrap_vs_kernel_route"] = within("mesh pipeline vs K1", pred_mesh, std_main, pred_k1, 0.1)
+
+    # (b) the bootstrap under mesh= at R = 1e7, nrep 100 (the (nrep, R) index table is 8 GB
+    # and its counts 4 GB: at R = 1e8 the reference's global table could not exist on the
+    # card), against the port's plain resample_central_comoments on the same table
+    ub, xb = u[:MESH_BOOT_R], x[:MESH_BOOT_R]
+    run_mesh_b = make_extrap_pipeline(order=ORDER, beta0=BETA0, nrep=MESH_BOOT_NREP, mesh=mesh)
+    ((_, bstd_mesh), mesh_ms["extrap_1e7_nrep100"]), boot_gb = peak_gb(
+        lambda: mesh_call("mesh_boot", lambda: run_mesh_b(ub, xb, betas, seed=SEED), reps=2)
+    )
+    run_k3 = make_extrap_pipeline(order=ORDER, beta0=BETA0, nrep=MESH_BOOT_NREP)
+    mesh_ms["extrap_1e7_nrep100_kernel_route"] = best_ms(lambda: run_k3(ub, xb, betas, seed=SEED), reps=2)
+    table_b = _multinomial_freq(SEED, MESH_BOOT_NREP, MESH_BOOT_R, dev)  # the table the mesh call drew
+    xb1 = xb[:, None]
+    boot_mesh, mesh_ms["resample_1e7_nrep100"] = mesh_call(
+        "mesh_resample", lambda: psh._full(*parallel.resample_central_comoments_sharded(ub, xb1, table_b, ORDER, mesh)), reps=2
+    )
+    boot_plain32, _ = timed(lambda: resample.resample_central_comoments(ub, xb1, table_b, ORDER))
+    mesh_ms["resample_1e7_nrep100_plain_f32"] = best_ms(lambda: resample.resample_central_comoments(ub, xb1, table_b, ORDER), reps=2)
+    boot_ref = resample.resample_central_comoments(ub.double(), xb1.double(), table_b, ORDER)
+
+    def boot_pred(boot):
+        """Replicate predictions ``(A, nrep, 1)`` in float64."""
+        bx, _bu, bdu, bdxdu = (t.double() for t in boot)
+        return _poly_eval(central_x_ave_coefs(bx, bdu[:, :, None], bdxdu, ORDER), betas.to(dev) - BETA0)
+
+    bp_mesh, bp_ref = boot_pred(boot_mesh), boot_pred(boot_ref)
+    sig_ref = bp_ref.std(dim=1, correction=0)
+    gap = (bp_mesh - bp_ref).abs().amax(dim=1)
+    mesh_err["boot_replicates_vs_f64_plain_in_sigma"] = float((gap / sig_ref).max())
+    if not mesh_err["boot_replicates_vs_f64_plain_in_sigma"] <= 0.1:
+        raise AssertionError(f"mesh bootstrap replicates differ from the float64 plain ones by {gap.tolist()} (sigma {sig_ref.tolist()})")
+    mesh_err["boot_sigma_vs_f64_plain_rel"] = rel_close("mesh bootstrap sigma vs float64 plain", bstd_mesh, sig_ref.reshape(bstd_mesh.shape), 1e-2)
+    # the plain float32 bootstrap (one matrix product over the 1e7 samples) on the same scale
+    mesh_err["boot_plain_f32_replicates_vs_f64_in_sigma"] = float(((boot_pred(boot_plain32) - bp_ref).abs().amax(dim=1) / sig_ref).max())
+    del table_b, boot_mesh, boot_ref, boot_plain32, bp_mesh, bp_ref
+
+    # (c) MBAR on phase 21's K = 4, N = 1e8 float32 u_kn, solve and 256 targets against the
+    # unsharded port; (256, 1e8) float32 targets would be 102 GB, so the grid goes 8 at a time
+    msig = torch.linspace(1.0, 3.0, MBAR_K, dtype=torch.float64)
+    mgen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    xs_m = torch.cat([float(s) * torch.randn(MBAR_N // MBAR_K, generator=mgen, device=dev) for s in msig])
+    u_kn = xs_m[None] ** 2 / (2.0 * msig.float().to(dev)[:, None] ** 2)
+    n_km = torch.full((MBAR_K,), float(MBAR_N // MBAR_K), device=dev)
+    (f_mesh, it_mesh, res_mesh), mesh_ms["mbar_solve"] = mesh_call(
+        "mesh_mbar_solve", lambda: parallel.mbar_solve_sharded(u_kn, n_km, mesh, max_iter=MBAR_MAX_ITER), reps=2
+    )
+    (f_one, it_one, res_one), _ = timed(lambda: mb.mbar_solve_info(u_kn, n_km, max_iter=MBAR_MAX_ITER))
+    mesh_ms["mbar_solve_unsharded"] = best_ms(lambda: mb.mbar_solve_info(u_kn, n_km, max_iter=MBAR_MAX_ITER), reps=2)
+    mesh_err["mbar_f_vs_unsharded"] = float((f_mesh.double() - f_one.double()).abs().max())
+    if not (float(res_mesh) <= 1e-5 and mesh_err["mbar_f_vs_unsharded"] <= 1e-4):
+        raise AssertionError(f"sharded MBAR solve: residual {float(res_mesh)}, |f - f_unsharded| {mesh_err['mbar_f_vs_unsharded']}")
+    sig_a = torch.linspace(1.0, 3.0, MBAR_A, dtype=torch.float64, device=dev)
+    alphas_m = (1.0 / sig_a**2).float()
+    u_base = xs_m**2 / 2.0
+    x_nm = torch.stack([xs_m, xs_m**2], dim=1)
+
+    def grid_chunks(grid):
+        return torch.cat([grid(blk[:, None] * u_base[None]) for blk in alphas_m.split(MBAR_CHUNK)])
+
+    grid_mesh, mesh_ms["mbar_grid_256"] = mesh_call(
+        "mesh_mbar_grid", lambda: grid_chunks(lambda t: parallel.mbar_expectations_grid_sharded(u_kn, n_km, f_mesh, t, x_nm, mesh)), reps=1
+    )
+    grid_one, mesh_ms["mbar_grid_256_unsharded"] = timed(lambda: grid_chunks(lambda t: mb.mbar_expectations_grid(u_kn, n_km, f_mesh, t, x_nm)))
+    mesh_err["mbar_grid_vs_unsharded_rel"] = rel_close("sharded MBAR grid vs unsharded", grid_mesh.double(), grid_one.double(), 1e-6)
+    mesh_err["mbar_grid_x2_vs_sigma2_rel"] = rel_close("sharded MBAR <x^2> vs sigma_a^2", grid_mesh[:, 1].double(), sig_a**2, 1e-3)
+    # the float32 covariance against float64 on the same u_kn (each at its own solve)
+    theta32 = mb.mbar_covariance(u_kn, n_km, f_one)
+    u_kn64 = u_kn.double()
+    f64_f, _, _ = mb.mbar_solve_info(u_kn64, n_km.double(), max_iter=MBAR_MAX_ITER)
+    theta64 = mb.mbar_covariance(u_kn64, n_km.double(), f64_f)
+    del u_kn64
+    dfe32, dfe64 = mb.mbar_fe_uncertainties(theta32), mb.mbar_fe_uncertainties(theta64)
+    off = ~np.eye(MBAR_K, dtype=bool)
+    if not (bool(torch.isfinite(theta32).all()) and np.isfinite(dfe32).all()):
+        raise AssertionError(f"float32 MBAR covariance: theta {theta32.tolist()}")
+    cov32 = {
+        "dfe_f32_vs_f64_max_rel": float(np.max(np.abs(dfe32[off] - dfe64[off]) / dfe64[off])),
+        "theta_f32_vs_f64_max_abs_over_max": float((theta32 - theta64).abs().max() / theta64.abs().max()),
+        "dfe_f64_row0": dfe64[0].tolist(),
+        "dfe_f32_row0": dfe32[0].tolist(),
+    }
+    del u_kn, xs_m, u_base, x_nm, grid_mesh, grid_one
+
+    # (d) phase 26's float32 frozen predictor on its 1000 queries, sharded over rec
+    locs_s = parallel.shard_rec(grid_t[:, None], mesh)
+    (qmean, qvar), mesh_ms["gpr_1000_sharded"] = mesh_call("mesh_gpr", lambda: psh._full(*pred32(locs_s)))
+    wmean, wvar = pred32(grid_t)
+    mesh_ms["gpr_1000"] = best_ms(lambda: pred32(grid_t))
+    mesh_err["gpr_mean"] = compare("sharded GPR mean", [qmean], [wmean], 1e-6, 1e-6 * float(wmean.abs().max()))
+    mesh_err["gpr_var"] = compare("sharded GPR variance", [qvar], [wvar], 1e-6, 1e-6 * float(wvar.abs().max()))
+    dist.destroy_process_group()
+    say(
+        27,
+        card=card,
+        world=1,
+        backend="nccl",
+        mesh_shape=list(mesh.shape),
+        make_mesh_s=mesh_s,
+        launches=sum(sum(path_launches[p].values()) for p in path_launches if p.startswith("mesh_")),
+        ms=mesh_ms,
+        max_diff=mesh_err,
+        boot_peak_gb=boot_gb,
+        mbar_iterations=[it_mesh, it_one],
+        mbar_residuals=[float(res_mesh), float(res_one)],
+        mbar_f32_covariance=cov32,
+        phase27_s=time.perf_counter() - t27,
+    )
 
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0

@@ -18,7 +18,9 @@ at 1e-6 relative (both recentre in float64, then cast), the head-shift kernel
 at 1e-6 relative (float32 sums in another order).  K7 and K8 sum positive
 float32 terms (a few hundred per thread, then float64): rtol 2e-5 / atol 1e-5,
 the bar of tests/test_parallel.py:716-818; K8 against K7 on its own table,
-and its weight sums at e = 1 against K3's, exactly.
+and its weight sums at e = 1 against K3's, exactly.  The sharded path runs on
+a world of one NCCL rank (``parallel.make_mesh(1, ...)``, ended with the
+module): no kernel launch, the unsharded calls at the float32 bars.
 """
 
 import numpy as np
@@ -1315,3 +1317,63 @@ def test_fully_heteroscedastic_gpr_on_the_card(cuda_device, monkeypatch):
         ref = [cpu.log_marginal_likelihood(), *cpu.predict_f(xnew), *cpu.predict_noise(xnew)]
     for g, r in zip(got, ref):
         assert float((g.cpu() - r).abs().max()) <= 1e-8 * float(r.abs().max())
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """A world of one NCCL rank on the card, 2-D ``(rep, rec)``; the process
+    group ends with the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import torch.distributed as dist
+
+    from thermoextrap_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, ("rep", "rec"), device="cuda")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_mesh_pipelines_on_the_card(rng, cuda_device, card_mesh):
+    """The mesh= route on a world of one NCCL rank: no kernel launch, the
+    unsharded call's prediction (K1 / K4) at the float32 bar, the bootstrap
+    on the card's count table equal to the plain bootstrap of that table,
+    and the perturbation route equal to its unsharded table mode."""
+    from thermoextrap_tpu_torch.ops import resample
+    from thermoextrap_tpu_torch.parallel import reduce_central_comoments_sharded, resample_central_comoments_sharded, shard_rec
+
+    u, x = _samples(rng, 200_000, 2)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    mc.reset_launches()
+    pred, std = tpipe.make_extrap_pipeline(4, 5.0, nrep=32, mesh=card_mesh)(shard_rec(uc, card_mesh), xc, BETAS + 4.0, seed=3)
+    upred, ustd = tpipe.make_extrap_pipeline(4, 5.0, x_is_u=True, nrep=32, mesh=card_mesh)(uc, BETAS + 4.0, seed=3)
+    moments = reduce_central_comoments_sharded(uc, xc, 4, card_mesh)
+    torch.cuda.synchronize()
+    assert not any(mc.LAUNCHES.values()), mc.LAUNCHES
+    assert pred.is_cuda and bool((std > 0).all()) and bool((ustd > 0).all())
+    assert_close(pred, tpipe.make_extrap_pipeline(4, 5.0)(uc, xc, BETAS + 4.0), 1e-5, 1e-6)
+    assert_close(upred, tpipe.make_extrap_pipeline(4, 5.0, x_is_u=True)(uc, BETAS + 4.0), 1e-5, 1e-6)
+    assert_close(moments, mc.reduce_central_comoments_fused(tt(u), tt(x), 4), RTOL32, ATOL32)
+    table = tpipe._multinomial_freq(3, 32, 200_000, cuda_device)
+    got = [t.full_tensor() for t in resample_central_comoments_sharded(uc, xc, table, 4, card_mesh)]
+    assert_close(got, resample.resample_central_comoments(uc.double(), xc.double(), table, 4), RTOL32, ATOL32)
+
+
+def test_mbar_sharded_on_the_card(cuda_device, card_mesh):
+    """Sharded MBAR on the world of one NCCL rank (N = 300003, not a
+    multiple of anything) equals the unsharded calls on the card."""
+    from thermoextrap_tpu_torch.models import mbar as tm
+    from thermoextrap_tpu_torch.parallel import mbar_expectations_grid_sharded, mbar_solve_sharded
+
+    rng = np.random.default_rng(4)
+    sig = np.array([1.0, 1.5, 2.2])
+    xs = np.concatenate([rng.normal(0.0, s, 100_001) for s in sig])
+    uc = _f32(xs[None] ** 2 / (2 * sig[:, None] ** 2), cuda_device)
+    n_k = np.full(3, 100_001.0)
+    f, it, res = mbar_solve_sharded(uc, n_k, card_mesh)
+    f1, it1, _ = tm.mbar_solve_info(uc, n_k)
+    assert f.is_cuda and float(res) <= 1e-5
+    assert_close(f, f1, 0.0, 1e-5)
+    utc = _f32(xs[None] ** 2 / (2 * np.array([1.2, 1.9])[:, None] ** 2), cuda_device)
+    xc = _f32(np.stack([xs, xs**2], axis=1), cuda_device)
+    assert_close(mbar_expectations_grid_sharded(uc, n_k, f, utc, xc, card_mesh), tm.mbar_expectations_grid(uc, n_k, f, utc, xc), 1e-5, 1e-6)

@@ -2,7 +2,9 @@
 data, one replicate, a scalar observable, zero weights and the raise on an
 ``n``-indexed order overflow; where the JAX test holds a number, the port
 is also held to the JAX package's on the same inputs (1e-10).  The
-collection-order case is in tests/test_torch_models.py."""
+collection-order case is in tests/test_torch_models.py.  The counterpart of
+:116, the compilation cache, points the port's library builds at a
+directory."""
 
 import numpy as np
 import pytest
@@ -102,3 +104,26 @@ def test_n_indexed_order_overflow_raises(rng_np):
         beta_xpan.factory_extrapmodel(1.0, d_x, name="xun_ave", n=1)
     m2 = beta_xpan.factory_extrapmodel(1.0, d_x, name="xun_ave", n=1, order=3)
     assert np.isfinite(npy(m2.derivs())).all()
+
+
+def test_compilation_cache_builds_there(tmp_path, monkeypatch):
+    """tests/test_edges.py:116 on the port: after ``enable_compilation_cache``
+    the kernel library (and its CPU emulation) builds under the directory and
+    the host engine, built by g++ here, writes its library into it (the
+    emulation's g++ build takes ~16 s, the engine's ~3 s)."""
+    import shutil
+
+    from thermoextrap_tpu_torch import native
+    from thermoextrap_tpu_torch.ops import _build
+    from thermoextrap_tpu_torch.utils import enable_compilation_cache
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
+    monkeypatch.setattr(native, "_LIBS", {})
+    cache = enable_compilation_cache(tmp_path / "kernels")
+    assert cache.is_dir() and _build.BUILD_DIR == cache
+    u = np.linspace(0.0, 1.0, 100)
+    tx.native.reduce_central_comoments(u, u[:, None], 2)
+    assert [p.parent for p in cache.rglob("*.so")] == [cache / "host"], "no library written"

@@ -5,10 +5,10 @@ tests/test_gpr_serving.py:63-259, with its bars (float64 serving equal to
 on the mean and 5e-6 k(x, x) on the variance), and the port's float64
 predictor against the JAX package's at the same parameters.
 
-Left out: the sharded queries (:228) and ``export_gpr_predictor`` (:269),
-which wait for the port's ``parallel`` and ``serving_export``, and the
-refusal of float64 without x64 (:246): torch has float64 everywhere, so the
-port accepts it.
+The sharded queries (:228) are in ``tests/test_torch_parallel.py``, on a
+world of 4 gloo ranks.  Left out: ``export_gpr_predictor`` (:269), which
+waits for the port's ``serving_export``, and the refusal of float64 without
+x64 (:246): torch has float64 everywhere, so the port accepts it.
 """
 
 import jax.numpy as jnp

@@ -11,8 +11,9 @@ and the covariance at rtol 1e-10, the bootstrap fed the JAX package's own
 Poisson counts at rtol 1e-9, the masked (``-inf``) seam, ``MBARModel``.
 
 Not mirrored: ``test_alphas_jittable`` (the port has no tracing; the α blocks
-are a Python loop, checked against the grid by ``test_alphas_matches_grid``)
-and TestShardedMBAR (the sharded solve is not ported yet).
+are a Python loop, checked against the grid by ``test_alphas_matches_grid``).
+TestShardedMBAR is mirrored in ``tests/test_torch_parallel.py``, on a world
+of 4 gloo ranks.
 """
 
 import doctest

@@ -239,10 +239,12 @@ def test_port_never_imports_jax():
     """``import thermoextrap_tpu_torch`` (with the CUDA wrappers and their
     backward route, the checkpoint and tree modules, MBAR, the ingest
     runtime, the native engines, the trainers, the GPR staging, the
-    labeled-array adapter, the random seam, the type aliases, and the GPR
-    modules with their compute device) pulls in neither jax, nor the JAX
-    package, nor orbax, nor sympy (imported only inside
-    ``Derivatives.from_sympy`` and the sympy-expression kernels)."""
+    labeled-array adapter, the random seam, the type aliases, the GPR
+    modules with their compute device and serving, the sharded path with
+    its dry run, and the build-cache seam) pulls in neither jax, nor the
+    JAX package, nor orbax, nor sympy (imported only inside
+    ``Derivatives.from_sympy``, the sympy-expression kernels and, through
+    ``torch.distributed.tensor``, the first sharded call)."""
     code = (
         "import sys; before = set(sys.modules); "
         "import thermoextrap_tpu_torch, thermoextrap_tpu_torch.ops.moments_cuda; "
@@ -256,6 +258,8 @@ def test_port_never_imports_jax():
         "import thermoextrap_tpu_torch.gpr_active, thermoextrap_tpu_torch.gpr_active.gp_models; "
         "import thermoextrap_tpu_torch.gpr_active.kernels, thermoextrap_tpu_torch.gpr_active.active_utils; "
         "import thermoextrap_tpu_torch.gpr_active.ig_active, thermoextrap_tpu_torch.utils.compute; "
+        "import thermoextrap_tpu_torch.parallel, thermoextrap_tpu_torch.parallel.sharded, thermoextrap_tpu_torch.parallel.dryrun; "
+        "import thermoextrap_tpu_torch.utils.compile_cache, thermoextrap_tpu_torch.gpr_active.serving; "
         "new = set(sys.modules) - before; "
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'thermoextrap_tpu', 'orbax', 'sympy')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -267,9 +271,15 @@ def test_port_never_imports_jax():
 
 def test_all_names_of_the_jax_package_but_two():
     """``thermoextrap_tpu_torch.__all__`` holds every name of the JAX
-    package's ``__all__`` except the two modules still to port:
-    ``parallel`` and ``serving_export`` (ROADMAP Queue 1)."""
-    assert set(jx.__all__) - set(tx.__all__) == {"parallel", "serving_export"}
+    package's ``__all__`` except the module still to port,
+    ``serving_export`` (ROADMAP Queue 1); of the two this test once left
+    out, ``parallel`` is ported and exports every name of the JAX
+    ``parallel`` and the two MBAR entries of its ``sharded``."""
+    from thermoextrap_tpu.parallel import sharded as jsharded
+
+    assert set(jx.__all__) - set(tx.__all__) == {"serving_export"}
+    assert set(tx.parallel.__all__) == set(jx.parallel.__all__) | {"mbar_solve_sharded", "mbar_expectations_grid_sharded"}
+    assert set(tx.parallel.__all__) == set(jsharded.__all__)
     for name in set(jx.__all__) & set(tx.__all__):
         assert getattr(tx, name) is not None
 

@@ -39,7 +39,10 @@ interpolation models and the streaming pipelines:
 - derivative-informed GPR (:mod:`.gpr_active`, loaded on first use: the
   kernels, the heteroscedastic GP models in float64 on the card, the GP
   staging and builders, the ideal-gas harness) and its serving pipeline
-  (``pipeline.make_gpr_pipeline``).
+  (``pipeline.make_gpr_pipeline``);
+- sharding over a ``torch.distributed`` device mesh (:mod:`.parallel`: the
+  sharded reductions, bootstraps and MBAR behind the pipelines' ``mesh=``,
+  gloo on the CPU and NCCL on the card).
 
 Arrays that are not tensors go to :func:`default_device`: the CUDA card when
 there is one, unless :func:`set_default_device` says otherwise.  Importing
@@ -55,6 +58,7 @@ from . import (
     interop,
     io_stream,
     lnpi,
+    parallel,
     pipeline,
     random,
     recursive_interp,
@@ -123,6 +127,7 @@ __all__ = [
     "interop",
     "io_stream",
     "lnpi",
+    "parallel",
     "pipeline",
     "random",
     "recursive_interp",

@@ -28,6 +28,10 @@ matrix products.
 - Float32 cancellation can drive the posterior variance slightly negative
   at near-interpolated points; the served variance is clamped at 0 (the
   ``predict_f`` path does not clamp).
+- Queries are independent rows, so they shard over a device mesh: a
+  ``DTensor`` of locations sharded on its rows (``parallel.shard_rec``)
+  is predicted block by block on each rank and comes back sharded as it
+  went in.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from ..utils.compute import compute_device
+from ..utils.device import is_dtensor
 from .gp_models import (
     ConstantMeanWithDerivs,
     HeteroscedasticGPR,
@@ -112,7 +117,9 @@ class FrozenGPRPredictor:
     Built by :func:`freeze_predictor`; holds the precomputed posterior
     weights in the serving dtype on the device of the freeze.  ``locs`` is
     ``(M, obs_dims)`` (a bare ``(M,)`` is accepted when ``obs_dims == 1``),
-    numpy or a tensor; outputs are ``(M, out_dim)`` tensors each.
+    numpy, a tensor, or a ``DTensor`` sharded on its rows; outputs are
+    ``(M, out_dim)`` tensors each (a ``DTensor`` each, placed as a sharded
+    input).
 
     ``predict_fn`` is the raw closure over a tensor of the serving dtype on
     that device.
@@ -128,6 +135,8 @@ class FrozenGPRPredictor:
         return self.meta["obs_dims"]
 
     def __call__(self, locs):
+        if is_dtensor(locs):
+            return self._sharded(locs)
         dtype = getattr(torch, self.meta["dtype"])
         if isinstance(locs, torch.Tensor):
             locs = locs.to(device=self.device, dtype=dtype)
@@ -142,6 +151,23 @@ class FrozenGPRPredictor:
             msg = f"locs must be (M, {self.obs_dims}), got {tuple(locs.shape)}"
             raise ValueError(msg)
         return self.predict_fn(locs)
+
+    def _sharded(self, locs):
+        """Each rank's rows of a row-sharded ``DTensor`` of locations, as
+        ``DTensor`` pair ``(mean, var)`` placed as the input."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        if any(isinstance(p, Shard) and p.dim != 0 for p in locs.placements):
+            msg = f"sharded queries split their rows only, got placements {locs.placements}"
+            raise ValueError(msg)
+        if locs.device_mesh.device_type != self.device.type:
+            msg = f"a {locs.device_mesh.device_type} mesh cannot serve a predictor frozen on {self.device}"
+            raise ValueError(msg)
+        m = locs.shape[0]
+        return tuple(
+            DTensor.from_local(o, locs.device_mesh, locs.placements, shape=torch.Size((m, o.shape[1])), stride=(o.shape[1], 1))
+            for o in self(locs.to_local())
+        )
 
 
 def freeze_predictor(model, d_new=None, *, dtype=torch.float32, mean_new_fn=None) -> FrozenGPRPredictor:

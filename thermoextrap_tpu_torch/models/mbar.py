@@ -18,7 +18,11 @@ Hessian :math:`\delta_{kl} N_k S_k - N_k N_l (\tilde W \tilde W^T)_{kl}`, one
 Every sample-axis reduction is a ``torch.logsumexp`` or a sum over the last
 axis of ``(..., K, N)`` blocks on ``u_kn``'s device; masked samples carry
 ``log_sample_weight = -inf`` (``logsumexp`` of an all ``-inf`` row is
-``-inf``, as in ``jax.scipy``).  The reference's ``lax.while_loop`` is a
+``-inf``, as in ``jax.scipy``).  The solver core and the grid take an
+optional process group, over whose ranks the samples are sharded
+(:mod:`..parallel.sharded`): each such reduction then all-reduces its
+partial sums, a log-sum-exp as the MAX of the local maxima and the SUM of
+the shifted exponentials.  The reference's ``lax.while_loop`` is a
 Python loop that reads ``res > tol`` on the host once per iteration.  The
 solver core is batched over leading replicate axes, with a per-replicate
 "done" mask that freezes a converged replicate's carry, which is what the
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import _as_tensor
 from ..ops.resample import poisson1_freq
@@ -64,6 +69,31 @@ def _tensor(a, device=None, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+def _lse(t, group=None, keepdim: bool = False):
+    """Log-sum-exp over the last (sample) axis; with a process group, over
+    the samples of every rank (an empty block contributes nothing)."""
+    if group is None:
+        return torch.logsumexp(t, dim=-1, keepdim=keepdim)
+    if t.shape[-1]:
+        m = t.amax(dim=-1, keepdim=True)
+    else:
+        m = t.new_full((*t.shape[:-1], 1), -torch.inf)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    # torch.logsumexp's rule: an infinite maximum shifts by 0
+    m = torch.where(m.abs() == torch.inf, torch.zeros_like(m), m)
+    s = _sum(torch.exp(t - m), group, keepdim=True)
+    out = torch.log(s) + m
+    return out if keepdim else out.squeeze(-1)
+
+
+def _sum(t, group=None, keepdim: bool = False):
+    """Sum over the last (sample) axis, all-reduced over ``group``."""
+    s = t.sum(dim=-1, keepdim=keepdim)
+    if group is not None:
+        dist.all_reduce(s, group=group)
+    return s
+
+
 def _masked(t, logm):
     """Add the per-sample log weight ``logm (..., N)`` to ``t (..., K, N)`` in place."""
     return t if logm is None else t.add_(logm[..., None, :])
@@ -74,13 +104,16 @@ def _masked(t, logm):
 # replicates for the bootstrap) against one shared ``u_kn (K, N)``.
 
 
-def _gram(w):
+def _gram(w, group=None):
     """``w @ w^T`` over the sample axis of ``w (..., K, N)``, one product and
     sum per row: torch's tree reduction keeps float32 sums over 1e8 samples
     where a float32 matrix product with so long a contraction loses digits,
     and the batched product of ``(B, K, N)`` blocks takes cuBLAS's slow
     skinny-matrix kernel."""
-    return torch.stack([(w[..., i : i + 1, :] * w).sum(dim=-1) for i in range(w.shape[-2])], dim=-2)
+    g = torch.stack([(w[..., i : i + 1, :] * w).sum(dim=-1) for i in range(w.shape[-2])], dim=-2)
+    if group is not None:
+        dist.all_reduce(g, group=group)
+    return g
 
 
 def _columns(x_n):
@@ -95,37 +128,37 @@ def _log_denom(f_k, u_kn, log_n_k):
     return torch.logsumexp((log_n_k + f_k)[..., :, None] - u_kn, dim=-2)
 
 
-def _self_consistent_update(f_k, u_kn, log_n_k, logm=None, log_denom=None):
+def _self_consistent_update(f_k, u_kn, log_n_k, logm=None, log_denom=None, group=None):
     ld = _log_denom(f_k, u_kn, log_n_k) if log_denom is None else log_denom
     # -(u + ld) is -u - ld to the bit: rounding is symmetric in sign
     t = _masked((u_kn + ld[..., None, :]).neg_(), logm)
-    f_new = -torch.logsumexp(t, dim=-1)
+    f_new = -_lse(t, group)
     return f_new - f_new[..., :1]
 
 
-def _residual(f_k, u_kn, log_n_k, logm=None, log_denom=None):
+def _residual(f_k, u_kn, log_n_k, logm=None, log_denom=None, group=None):
     """Per-state self-consistency residual ``S_k - 1`` (0 at the solution;
     its largest magnitude is the convergence measure)."""
     ld = _log_denom(f_k, u_kn, log_n_k) if log_denom is None else log_denom
     t = _masked((f_k[..., :, None] - u_kn).sub_(ld[..., None, :]), logm)
-    return torch.expm1(torch.logsumexp(t, dim=-1))
+    return torch.expm1(_lse(t, group))
 
 
-def _newton_state(f_k, u_kn, log_n_k, logm=None, log_denom=None):
+def _newton_state(f_k, u_kn, log_n_k, logm=None, log_denom=None, group=None):
     """Gradient (scaled), Hessian and the ``W~`` row sums in one pass."""
     ld = _log_denom(f_k, u_kn, log_n_k) if log_denom is None else log_denom
     n_k = torch.exp(log_n_k)
     w = _masked((f_k[..., :, None] - u_kn).sub_(ld[..., None, :]), logm).exp_()
-    s_k = w.sum(dim=-1)
+    s_k = _sum(w, group)
     grad = n_k * (s_k - 1.0)
-    g = _gram(w)  # (..., K, K)
+    g = _gram(w, group)  # (..., K, K)
     hess = torch.diag_embed(n_k * s_k) - (n_k[..., :, None] * n_k[..., None, :]) * g
     return grad, hess, s_k
 
 
-def _newton_update(f_k, u_kn, log_n_k, logm=None, log_denom=None):
+def _newton_update(f_k, u_kn, log_n_k, logm=None, log_denom=None, group=None):
     """One gauge-fixed Newton step on the reduced coordinates ``f[1:]``."""
-    grad, hess, _ = _newton_state(f_k, u_kn, log_n_k, logm, log_denom)
+    grad, hess, _ = _newton_state(f_k, u_kn, log_n_k, logm, log_denom, group)
     k = f_k.shape[-1]
     h_red = hess[..., 1:, 1:]
     # the Tikhonov floor keeps the (K-1) x (K-1) solve sane if two states
@@ -139,30 +172,32 @@ def _newton_update(f_k, u_kn, log_n_k, logm=None, log_denom=None):
     return f_new - f_new[..., :1]
 
 
-def _max_abs_residual(f_k, u_kn, log_n_k, logm, log_denom):
-    return _residual(f_k, u_kn, log_n_k, logm, log_denom).abs().amax(dim=-1)
+def _max_abs_residual(f_k, u_kn, log_n_k, logm, log_denom, group=None):
+    return _residual(f_k, u_kn, log_n_k, logm, log_denom, group).abs().amax(dim=-1)
 
 
-def _solve(u_kn, log_n_k, logm, tol: float, max_iter: int, method: str):
+def _solve(u_kn, log_n_k, logm, tol: float, max_iter: int, method: str, group=None):
     """Batched solve: ``log_n_k (B, K)``, ``logm (B, N)`` or None →
     ``(f (B, K), n_iter (B,), residual (B,))``.  A replicate stops where the
     reference's ``vmap``-ed ``while_loop`` stops it: its carry is frozen
-    once its own condition fails, while the others go on."""
+    once its own condition fails, while the others go on.  With ``group``
+    the samples are sharded over its ranks; every quantity the loop reads
+    is all-reduced, so every rank stops on the same iteration."""
     b, k = log_n_k.shape
     f = torch.zeros((b, k), dtype=u_kn.dtype, device=u_kn.device)
     if method == "sci" or k < 2:
         f_prev = f
-        f = _self_consistent_update(f, u_kn, log_n_k, logm)
+        f = _self_consistent_update(f, u_kn, log_n_k, logm, group=group)
         it = torch.ones(b, dtype=torch.int64, device=u_kn.device)
         while True:
             active = ((f - f_prev).abs().amax(dim=-1) > tol) & (it < max_iter)
             if not bool(active.any()):  # one host read per iteration
                 break
-            f_new = _self_consistent_update(f, u_kn, log_n_k, logm)
+            f_new = _self_consistent_update(f, u_kn, log_n_k, logm, group=group)
             f_prev = torch.where(active[:, None], f, f_prev)
             f = torch.where(active[:, None], f_new, f)
             it = it + active
-        return f, it, _max_abs_residual(f, u_kn, log_n_k, logm, None)
+        return f, it, _max_abs_residual(f, u_kn, log_n_k, logm, None, group)
 
     if method != "hybrid":
         msg = f"unknown MBAR method {method!r} (use 'hybrid' or 'sci')"
@@ -171,18 +206,18 @@ def _solve(u_kn, log_n_k, logm, tol: float, max_iter: int, method: str):
     # the log denominator of the carried f rides along: it is the one the
     # chosen candidate's residual was computed with
     ld = _log_denom(f, u_kn, log_n_k)
-    res = _max_abs_residual(f, u_kn, log_n_k, logm, ld)
+    res = _max_abs_residual(f, u_kn, log_n_k, logm, ld, group)
     it = torch.zeros(b, dtype=torch.int64, device=u_kn.device)
     while True:
         active = (res > tol) & (it < max_iter)
         if not bool(active.any()):  # one host read per iteration
             break
-        f_sc = _self_consistent_update(f, u_kn, log_n_k, logm, ld)
-        f_nw = _newton_update(f, u_kn, log_n_k, logm, ld)
+        f_sc = _self_consistent_update(f, u_kn, log_n_k, logm, ld, group)
+        f_nw = _newton_update(f, u_kn, log_n_k, logm, ld, group)
         ld_sc = _log_denom(f_sc, u_kn, log_n_k)
         ld_nw = _log_denom(f_nw, u_kn, log_n_k)
-        r_sc = _max_abs_residual(f_sc, u_kn, log_n_k, logm, ld_sc)
-        r_nw = _max_abs_residual(f_nw, u_kn, log_n_k, logm, ld_nw)
+        r_sc = _max_abs_residual(f_sc, u_kn, log_n_k, logm, ld_sc, group)
+        r_nw = _max_abs_residual(f_nw, u_kn, log_n_k, logm, ld_nw, group)
         # a NaN Newton step (singular Hessian) loses every comparison
         take = torch.isfinite(r_nw) & (r_nw < r_sc)
         keep = active[:, None]
@@ -248,20 +283,21 @@ def mbar_expectations(u_kn, n_k, f_k, u_target, x_n):
     return _weighted_sums(w[None], _columns(x_n))[0].reshape(x_n.shape[1:])
 
 
-def _grid_from_logw(logw, x_n, log_sample_weight=None):
+def _grid_from_logw(logw, x_n, log_sample_weight=None, group=None):
     """Normalize the target log weights ``logw (..., A, N)`` (consumed in
     place) over the samples and contract them with ``x_n (N, *val)``:
     ``(..., A, *val)``."""
     if log_sample_weight is not None:
         logw.add_(log_sample_weight[..., None, :])
-    logw.sub_(torch.logsumexp(logw, dim=-1, keepdim=True)).exp_()
-    n = logw.shape[-1]
-    out = _weighted_sums(logw.reshape(-1, n), _columns(x_n))
+    logw.sub_(_lse(logw, group, keepdim=True)).exp_()
+    out = _weighted_sums(logw.flatten(0, -2), _columns(x_n))
+    if group is not None:
+        dist.all_reduce(out, group=group)
     return out.reshape(logw.shape[:-1] + tuple(x_n.shape[1:]))
 
 
-def _grid_from_denom(log_denom, u_targets, x_n, log_sample_weight=None):
-    return _grid_from_logw((u_targets + log_denom[..., None, :]).neg_(), x_n, log_sample_weight)
+def _grid_from_denom(log_denom, u_targets, x_n, log_sample_weight=None, group=None):
+    return _grid_from_logw((u_targets + log_denom[..., None, :]).neg_(), x_n, log_sample_weight, group)
 
 
 def mbar_expectations_grid(u_kn, n_k, f_k, u_targets, x_n, log_sample_weight=None):

@@ -1,6 +1,6 @@
 r"""Serving pipelines: samples → extrapolation (+ bootstrap CI).
 
-Counterpart of ``thermoextrap_tpu/pipeline.py`` without a mesh: the one-shot
+Counterpart of ``thermoextrap_tpu/pipeline.py``: the one-shot
 ``make_extrap_pipeline``, ``make_lnpi_pipeline``, ``make_volume_pipeline``
 and ``make_perturb_pipeline``, their streaming forms
 (``make_streaming_{extrap,lnpi,volume,perturb}_pipeline``), the streaming
@@ -18,7 +18,16 @@ device of the samples, decided per call:
   K8 for the perturbation sums, or K7 against a count table), so no
   ``(nrep, R)`` table exists unless the caller asks for one;
 - CPU: the float64 two-pass reduction, then a count-table bootstrap drawn
-  from a ``torch.Generator`` seeded with ``seed``.
+  from a ``torch.Generator`` seeded with ``seed``;
+- a mesh (``mesh=``, a :class:`~torch.distributed.device_mesh.DeviceMesh`
+  with a ``"rec"`` axis, see :mod:`.parallel`): the samples sharded over
+  ``rec``, the reductions and the bootstrap of :mod:`.parallel.sharded`
+  (plain torch, no kernel, ``bf16`` ignored), and for ``nrep > 0`` the
+  count table the CPU route draws from ``seed``, drawn whole on the mesh's
+  device and placed ``(rep, rec)``; so a ``mesh=`` call equals the
+  unsharded CPU call at equal seed.  Inputs are whole arrays or
+  ``DTensor``\ s placed by :func:`.parallel.shard_rec` (the lnΠ grid on its
+  last axis); outputs are whole tensors, equal on every rank.
 
 A streaming pipeline is ``(state0, update, predict)``: ``update`` reduces one
 chunk by the same kernels and pools it exactly into the state (a
@@ -32,6 +41,7 @@ float64 (a few hundred tiny operations), so the predictions are float64.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -40,6 +50,7 @@ from .models.derivatives import central_u_ave_coefs, central_x_ave_coefs, centra
 from .models.extrap import _interp_eval, _interp_fit, _poly_eval, _weighted_sums
 from .ops import dispatch, moments_cuda, resample
 from .ops.series import derivs_from_coefs, series_neg_log
+from .parallel import sharded
 from .utils.device import default_device, host_numpy
 from .utils.random import validate_rng
 
@@ -86,6 +97,22 @@ def _multinomial_freq(seed, nrep: int, nrec: int, device):
     return resample.freq_from_indices(resample.random_indices(gen, nrep, nrec, device=device), nrec)
 
 
+def _mesh_device(mesh, device=None):
+    """The device of a pipeline with ``mesh`` (None: no mesh, ``device`` or
+    the default device): the mesh's, which an explicit ``device`` must
+    match."""
+    if mesh is None:
+        return default_device() if device is None else torch.device(device)
+    if "rec" not in mesh.mesh_dim_names:
+        msg = f"mesh= needs a 'rec' axis, got {mesh.mesh_dim_names}"
+        raise ValueError(msg)
+    dev = sharded._mesh_device(mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        msg = f"device={device} does not match the {mesh.device_type} mesh"
+        raise ValueError(msg)
+    return dev
+
+
 def make_extrap_pipeline(
     order: int,
     beta0: float,
@@ -94,6 +121,7 @@ def make_extrap_pipeline(
     xalpha: bool = False,
     x_is_u: bool = False,
     nrep: int = 0,
+    mesh=None,
     weighted: bool = False,
     bf16: bool = False,
 ):
@@ -104,16 +132,18 @@ def make_extrap_pipeline(
     *val)`` carries the explicit β-derivatives of x.  ``x_is_u``: serve
     ⟨u⟩(β) from ``run(uv, betas, seed=0)``, reading u alone (K4, then K5,
     on CUDA).  ``nrep > 0``: also return the
-    bootstrap standard deviation from ``nrep`` replicates.  ``weighted``:
+    bootstrap standard deviation from ``nrep`` replicates.  ``mesh``: run
+    sharded over a device mesh (see the module docstring).  ``weighted``:
     ``run`` takes a per-sample weight array after ``betas``.  ``bf16``:
     stream CUDA samples as bfloat16 (accumulation stays float32); CPU input
-    ignores it.
+    and a mesh ignore it.
 
     ``run`` returns ``pred (A, *val)`` or ``(pred, std)``, float64.
     """
     if x_is_u and xalpha:
         msg = "x_is_u and xalpha are mutually exclusive"
         raise ValueError(msg)
+    mesh_device = None if mesh is None else _mesh_device(mesh)
 
     def _post(c):
         return series_neg_log(c) if minus_log else c
@@ -123,29 +153,34 @@ def make_extrap_pipeline(
         return betas, betas - beta0
 
     def _run(uv, xv, betas, weight, seed):
-        uv = _as_tensor(uv)
-        xv = _as_tensor(xv, uv.device)
-        on_gpu = uv.device.type == "cuda"
+        if mesh is None:
+            uv = _as_tensor(uv)
+            xv = _as_tensor(xv, uv.device)
+        on_gpu = mesh is None and uv.device.type == "cuda"
         if bf16 and on_gpu:
             uv = uv.to(torch.bfloat16)
             xv = xv.to(torch.bfloat16)
+        xshape = sharded._shape(xv)
         if xalpha:
-            if xv.ndim < 2 or xv.shape[1] != order + 1:
+            if len(xshape) < 2 or xshape[1] != order + 1:
                 msg = (
                     f"xalpha xv needs a deriv axis of size order+1={order + 1} "
-                    f"after the sample axis, got {tuple(xv.shape)}"
+                    f"after the sample axis, got {xshape}"
                 )
                 raise ValueError(msg)
-            val_shape = tuple(xv.shape[2:])
+            val_shape = xshape[2:]
         else:
-            val_shape = tuple(xv.shape[1:])
-        r = uv.shape[0]
-        xflat = xv.reshape(r, -1)
-        betas, dalpha = _betas(betas, uv.device)
+            val_shape = xshape[1:]
+        r = xshape[0]
+        betas, dalpha = _betas(betas, uv.device if mesh is None else mesh_device)
 
-        xave, _uave, du, dxdu = (
-            t.double() for t in dispatch.reduce_central(uv, xflat, order, weight=weight)
-        )
+        if mesh is None:
+            xflat = xv.reshape(r, -1)
+            moments = dispatch.reduce_central(uv, xflat, order, weight=weight)
+        else:
+            moments = sharded.reduce_central_comoments_sharded(uv, xv, order, mesh, weight=weight)
+        xave, _uave, du, dxdu = (t.double() for t in moments)
+        xave, dxdu = xave.reshape(-1), dxdu.reshape(order + 1, -1)
         if xalpha:
             coefs = _xalpha_mean_coefs(xave, du[:, None], dxdu, order)
         else:
@@ -154,7 +189,10 @@ def make_extrap_pipeline(
         if not nrep:
             return pred
 
-        if on_gpu:
+        if mesh is not None:
+            freq = _multinomial_freq(seed, nrep, r, mesh_device)
+            boot = sharded._full(*sharded.resample_central_comoments_sharded(uv, xv, freq, order, mesh, weight=weight))
+        elif on_gpu:
             boot = moments_cuda.resample_central_comoments_poisson(
                 uv, xflat, nrep, order, weight=weight, seed=seed
             )
@@ -162,6 +200,7 @@ def make_extrap_pipeline(
             freq = _multinomial_freq(seed, nrep, r, uv.device)
             boot = resample.resample_central_comoments(uv, xflat, freq, order, weight=weight)
         bx, _bu, bdu, bdxdu = (t.double() for t in boot)
+        bx, bdxdu = bx.reshape(nrep, -1), bdxdu.reshape(order + 1, nrep, -1)
         if xalpha:
             bcoefs = _xalpha_boot_coefs(bx, bdu[:, :, None], bdxdu, nrep, order)
         else:
@@ -171,6 +210,8 @@ def make_extrap_pipeline(
         return pred, std
 
     def _run_u(uv, betas, weight, seed):
+        if mesh is not None:
+            return _run_u_mesh(uv, betas, weight, seed)
         uv = _as_tensor(uv)
         on_gpu = uv.device.type == "cuda"
         if bf16 and on_gpu:
@@ -191,6 +232,18 @@ def make_extrap_pipeline(
             freq = _multinomial_freq(seed, nrep, uv.shape[0], uv.device)
             bu, bdu_full = resample.resample_central_umoments_batched(uv[None], freq, order + 1, weight=weight)
         bcoefs = _post(central_u_ave_coefs(bu[:, 0].double(), bdu_full[..., 0].double(), order))
+        return pred, _poly_eval(bcoefs, dalpha).std(dim=1, correction=0)
+
+    def _run_u_mesh(uv, betas, weight, seed):
+        # the one row of u as a batch of none: uave (), du (order+2,)
+        betas, dalpha = _betas(betas, mesh_device)
+        uave, du_full = sharded.reduce_central_umoments_batched_sharded(uv, order + 1, mesh, weight=weight)
+        pred = _poly_eval(_post(central_u_ave_coefs(uave.double(), du_full.double(), order)), dalpha)
+        if not nrep:
+            return pred
+        freq = _multinomial_freq(seed, nrep, sharded._shape(uv)[0], mesh_device)
+        bu, bdu_full = sharded._full(*sharded.resample_central_umoments_batched_sharded(uv, freq, order + 1, mesh, weight=weight))
+        bcoefs = _post(central_u_ave_coefs(bu.double(), bdu_full.double(), order))
         return pred, _poly_eval(bcoefs, dalpha).std(dim=1, correction=0)
 
     if x_is_u:
@@ -219,7 +272,7 @@ def make_extrap_pipeline(
     return run
 
 
-def make_lnpi_pipeline(order: int, beta0: float, *, nrep: int = 0):
+def make_lnpi_pipeline(order: int, beta0: float, *, nrep: int = 0, mesh=None):
     r"""Build ``run(uv, lnpi0, mudotn, betas, seed=0)`` for the β
     extrapolation of a macrostate distribution lnΠ over a grid.
 
@@ -230,28 +283,39 @@ def make_lnpi_pipeline(order: int, beta0: float, *, nrep: int = 0):
     integrates ``(lnΠ)' = μ·N − ⟨u⟩`` term by term.  ``nrep > 0`` adds the
     bootstrap standard deviation: one count per (replicate, configuration),
     shared by the whole grid (K5 on CUDA, a multinomial table on CPU).
+    ``mesh``: run sharded over a device mesh, ``uv``'s sample axis (its
+    last) over ``rec`` (see the module docstring).
 
     ``run`` returns ``pred (A, *grid)`` or ``(pred, std)``, float64.
     """
     if order < 1:
         msg = f"lnPi order must be >= 1, got {order}"
         raise ValueError(msg)
+    mesh_device = None if mesh is None else _mesh_device(mesh)
 
     def _coefs(uave, du, lnpi0, mudotn):
         return lnpi_coefs(central_u_ave_coefs(uave, du, order - 1), lnpi0, mudotn, order)
 
     def run(uv, lnpi0, mudotn, betas, seed=0):
-        uv = _as_tensor(uv)
-        lnpi0 = _as_tensor(lnpi0, uv.device).double()
-        mudotn = _as_tensor(mudotn, uv.device).double()
-        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=uv.device))
+        if mesh is None:
+            uv = _as_tensor(uv)
+        device = uv.device if mesh is None else mesh_device
+        lnpi0 = _as_tensor(lnpi0, device).double()
+        mudotn = _as_tensor(mudotn, device).double()
+        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
         dalpha = betas - beta0
 
-        uave, du = (t.double() for t in dispatch.reduce_central_u(uv, order))
-        pred = _poly_eval(_coefs(uave, du, lnpi0, mudotn), dalpha)
+        if mesh is None:
+            uave, du = dispatch.reduce_central_u(uv, order)
+        else:
+            uave, du = sharded.reduce_central_umoments_batched_sharded(uv, order, mesh)
+        pred = _poly_eval(_coefs(uave.double(), du.double(), lnpi0, mudotn), dalpha)
         if not nrep:
             return pred
-        if uv.device.type == "cuda":
+        if mesh is not None:
+            freq = _multinomial_freq(seed, nrep, sharded._shape(uv)[-1], device)
+            bu, bdu = sharded._full(*sharded.resample_central_umoments_batched_sharded(uv, freq, order, mesh))
+        elif uv.device.type == "cuda":
             bu, bdu = moments_cuda.resample_central_umoments_batched_poisson(uv, nrep, order, seed=seed)
         else:
             freq = _multinomial_freq(seed, nrep, uv.shape[-1], uv.device)
@@ -264,7 +328,7 @@ def make_lnpi_pipeline(order: int, beta0: float, *, nrep: int = 0):
 
 
 def make_volume_pipeline(
-    volume0: float, *, ndim: int = 3, nrep: int = 0, weighted: bool = False, bf16: bool = False
+    volume0: float, *, ndim: int = 3, nrep: int = 0, mesh=None, weighted: bool = False, bf16: bool = False
 ):
     r"""Build ``run(wv, xv, dxdqv, volumes, seed=0)`` for the first-order
     volume extrapolation of ⟨x⟩,
@@ -276,29 +340,37 @@ def make_volume_pipeline(
     ``Σ_i ∂x/∂q_i q_i``.  ``x`` and ``dxdq`` ride as the value columns of ONE
     order-1 comoment reduction against ``W`` (K1 on CUDA), and ``nrep > 0``
     resamples whole configurations (K3 on CUDA, a multinomial table on CPU).
+    ``mesh``: run sharded over a device mesh (see the module docstring).
     ``weighted``: ``run`` takes a per-sample weight after ``volumes``.
     ``bf16``: stream CUDA samples as bfloat16.  ``run`` returns ``pred (A,
     *val)`` or ``(pred, std)``, float64.
     """
     order = 1  # higher orders would need force derivatives
     v0d = float(volume0) * float(ndim)
+    mesh_device = None if mesh is None else _mesh_device(mesh)
+
+    def _pack(x, d):
+        n = x.shape[0]
+        return torch.cat([x.reshape(n, -1), d.reshape(n, -1)], dim=1)
 
     def _run(wv, xv, dxdqv, volumes, weight, seed):
-        wv = _as_tensor(wv)
-        xv = _as_tensor(xv, wv.device)
-        dxdqv = _as_tensor(dxdqv, wv.device)
-        if xv.shape != dxdqv.shape:
-            msg = f"xv {tuple(xv.shape)} and dxdqv {tuple(dxdqv.shape)} must match"
+        if mesh is None:
+            wv = _as_tensor(wv)
+            xv = _as_tensor(xv, wv.device)
+            dxdqv = _as_tensor(dxdqv, wv.device)
+        xshape, dshape = sharded._shape(xv), sharded._shape(dxdqv)
+        if xshape != dshape:
+            msg = f"xv {xshape} and dxdqv {dshape} must match"
             raise ValueError(msg)
-        on_gpu = wv.device.type == "cuda"
+        on_gpu = mesh is None and wv.device.type == "cuda"
         if bf16 and on_gpu:
             wv, xv, dxdqv = (t.to(torch.bfloat16) for t in (wv, xv, dxdqv))
-        val_shape = tuple(xv.shape[1:])
-        r = wv.shape[0]
-        xflat = xv.reshape(r, -1)
-        v = xflat.shape[1]
-        packed = torch.cat([xflat, dxdqv.reshape(r, -1)], dim=1)
-        volumes = torch.atleast_1d(torch.as_tensor(volumes, dtype=torch.float64, device=wv.device))
+        val_shape = xshape[1:]
+        r = xshape[0]
+        v = math.prod(val_shape)
+        device = wv.device if mesh is None else mesh_device
+        packed = _pack(xv, dxdqv) if mesh is None else sharded._rec_map(_pack, [xv, dxdqv], mesh)
+        volumes = torch.atleast_1d(torch.as_tensor(volumes, dtype=torch.float64, device=device))
         dalpha = volumes - volume0
 
         def _predict(xave, cov1, batch_ndim: int):
@@ -307,14 +379,21 @@ def make_volume_pipeline(
             da = dalpha.reshape((-1,) + (1,) * (batch_ndim + 1))
             return xave[None, ..., :v] + da * deriv[None]
 
-        xave, _uave, _du, dxdu = (t.double() for t in dispatch.reduce_central(wv, packed, order, weight=weight))
+        if mesh is None:
+            moments = dispatch.reduce_central(wv, packed, order, weight=weight)
+        else:
+            moments = sharded.reduce_central_comoments_sharded(wv, packed, order, mesh, weight=weight)
+        xave, _uave, _du, dxdu = (t.double() for t in moments)
         pred = _predict(xave, dxdu[1, :v], 0).reshape(volumes.shape + val_shape)
         if not nrep:
             return pred
-        if on_gpu:
+        if mesh is not None:
+            freq = _multinomial_freq(seed, nrep, r, device)
+            boot = sharded._full(*sharded.resample_central_comoments_sharded(wv, packed, freq, order, mesh, weight=weight))
+        elif on_gpu:
             boot = moments_cuda.resample_central_comoments_poisson(wv, packed, nrep, order, weight=weight, seed=seed)
         else:
-            freq = _multinomial_freq(seed, nrep, r, wv.device)
+            freq = _multinomial_freq(seed, nrep, r, device)
             boot = resample.resample_central_comoments(wv, packed, freq, order, weight=weight)
         bx, _bu, _bdu, bdxdu = (t.double() for t in boot)
         bpred = _predict(bx, bdxdu[1, :, :v], 1)
@@ -346,25 +425,36 @@ def _log_mask(weight, like):
     return torch.where(pos, torch.log(torch.where(pos, w, torch.ones_like(w))), -torch.inf)
 
 
-def _perturb_weights(uv, dalpha, weight):
+def _perturb_weights(uv, dalpha, weight, group=None):
     """Max-shift-stabilized unnormalized perturbation weights ``(A, R)``:
     ``exp(-dalpha_a u_n + log w_n - max_n)``.  Zero sample weights drop
     exactly (``-inf`` log mask), and a target whose samples are all masked
     gets a row of exact zeros (shift 0 in place of ``-inf``), so the 0/0 NaN
     of an empty target appears in one place, the normalization.  The
     ``(A, R)`` block is built in place: at ``A = 5``, ``R = 1e8`` each
-    float32 temporary is 2 GB."""
+    float32 temporary is 2 GB.  With a process group over which the samples
+    are sharded, the maximum is the all-reduced one of every rank."""
     logw = -dalpha[:, None] * uv[None, :]
     if weight is not None:
         logw += _log_mask(weight, uv)[None, :]
-    shift = logw.max(dim=1, keepdim=True).values
+    if uv.shape[0]:
+        shift = logw.max(dim=1, keepdim=True).values
+    else:
+        shift = logw.new_full((logw.shape[0], 1), -torch.inf)
+    if group is not None:
+        torch.distributed.all_reduce(shift, op=torch.distributed.ReduceOp.MAX, group=group)
     shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
     return logw.sub_(shift).exp_()
 
 
-def _perturb_predict(e, xflat):
-    """``<x>`` per target from stabilized weights, ``(A, V)`` float64."""
-    return _weighted_sums(e, xflat).double() / e.sum(dim=1).double()[:, None]
+def _perturb_predict(e, xflat, group=None):
+    """``<x>`` per target from stabilized weights, ``(A, V)`` float64; the
+    sums all-reduced over ``group`` when the samples are sharded."""
+    sums = torch.cat([_weighted_sums(e, xflat), e.sum(dim=1)[:, None]], dim=1)
+    if group is not None:
+        torch.distributed.all_reduce(sums, group=group)
+    sums = sums.double()
+    return sums[:, :-1] / sums[:, -1:]
 
 
 def _perturb_boot(e, xflat, freq):
@@ -381,7 +471,9 @@ def _count_table_dtype(like):
     return torch.int8 if like.device.type == "cuda" else like.dtype
 
 
-def make_perturb_pipeline(beta0: float, *, nrep: int = 0, weighted: bool = False, poisson: str = "device"):
+def make_perturb_pipeline(
+    beta0: float, *, nrep: int = 0, mesh=None, weighted: bool = False, poisson: str = "device"
+):
     r"""Build ``run(uv, xv, betas, seed=0)`` for exponential-reweighting
     perturbation, the zero-derivative serving path:
 
@@ -398,7 +490,11 @@ def make_perturb_pipeline(beta0: float, *, nrep: int = 0, weighted: bool = False
     :func:`.ops.resample.poisson1_freq` table from the call's seed (K7), so
     that the counts are those of the plain path at equal seed; any number of
     targets runs in the kernel.  On CPU both modes run the table through the
-    plain einsum in the samples' type.  ``weighted``: ``run`` takes a
+    plain einsum in the samples' type.  ``mesh``: the samples sharded over
+    ``rec``; the shift is the all-reduced maximum, the prediction's sums and
+    the bootstrap's (the CPU route's count table from ``seed``, through the
+    plain einsum, in either mode) are all-reduced (see the module
+    docstring).  ``weighted``: ``run`` takes a
     per-sample weight after ``betas`` (zero weights drop samples exactly).
 
     ``run`` maps ``uv (R,)``, ``xv (R, *val)``, ``betas (A,)`` to ``pred (A,
@@ -408,8 +504,33 @@ def make_perturb_pipeline(beta0: float, *, nrep: int = 0, weighted: bool = False
     if poisson not in ("table", "device"):
         msg = f"poisson must be 'table' or 'device', got {poisson!r}"
         raise ValueError(msg)
+    mesh_device = None if mesh is None else _mesh_device(mesh)
+
+    def _run_mesh(uv, xv, betas, weight, seed):
+        group = mesh.get_group("rec")
+        r = sharded._shape(uv)[0]
+        val_shape = sharded._shape(xv)[1:]
+        u_l = sharded._local(uv, mesh, {"rec": 0})
+        x_l = sharded._local(xv, mesh, {"rec": 0})
+        x_l = x_l.reshape(x_l.shape[0], -1)
+        w_l = None if weight is None else sharded._weight_local(weight, uv, u_l, mesh, {"rec": 0})
+        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=mesh_device))
+        e = _perturb_weights(u_l, (betas - beta0).to(u_l.dtype), w_l, group)
+        pred = _perturb_predict(e, x_l, group).reshape(betas.shape + val_shape)
+        if not nrep:
+            return pred
+        gen = validate_rng(int(seed), device=mesh_device)
+        freq = resample.poisson1_freq(gen, (nrep, r), dtype=u_l.dtype)
+        s = moments_cuda.resample_perturb_plain(e, x_l, sharded._local(freq, mesh, {"rec": 1}))
+        torch.distributed.all_reduce(s, group=group)
+        s = s.double()
+        v = x_l.shape[1]
+        bpred = s[..., :v] / s[..., v:]
+        return pred, bpred.std(dim=1, correction=0).reshape(betas.shape + val_shape)
 
     def _run(uv, xv, betas, weight, seed):
+        if mesh is not None:
+            return _run_mesh(uv, xv, betas, weight, seed)
         uv = _as_tensor(uv)
         xv = _as_tensor(xv, uv.device)
         betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=uv.device))
@@ -490,6 +611,7 @@ def make_streaming_extrap_pipeline(
     nrep: int = 0,
     seed: int = 0,
     device=None,
+    mesh=None,
 ):
     r"""Streaming form of :func:`make_extrap_pipeline`: fold sample chunks
     into a running moment state as a simulation runs and predict at any time,
@@ -514,7 +636,11 @@ def make_streaming_extrap_pipeline(
     on CUDA the counts are drawn in the kernel (K3, or K5 with ``x_is_u``)
     from ``(seed, chunk index)``, on CPU from a count table of a generator
     keyed the same way.  ``device``: where the state lives and chunks are
-    sent (the default device when None).
+    sent (the default device when None).  ``mesh``: each chunk sharded over
+    ``rec`` (a whole array or a ``DTensor`` of :func:`.parallel.shard_rec`),
+    reduced by :mod:`.parallel.sharded` and merged into a state on the
+    mesh's device; the replicates fold the CPU route's per-chunk count
+    tables; ``bf16`` is ignored.
 
     Returns ``(state0, update, predict)``: ``update(state, uv, xv,
     weight=None) -> state`` (``update(state, uv, weight=None)`` with
@@ -527,8 +653,8 @@ def make_streaming_extrap_pipeline(
     if x_is_u and tuple(val_shape):
         msg = "x_is_u streams scalar energies; val_shape must be ()"
         raise ValueError(msg)
-    device = default_device() if device is None else torch.device(device)
-    on_gpu = device.type == "cuda"
+    device = _mesh_device(mesh, device)
+    on_gpu = mesh is None and device.type == "cuda"
     # with xalpha the derivative columns ride as a leading value axis of the
     # accumulator and are disentangled only at predict time
     val_shape = (order + 1, *val_shape) if xalpha else tuple(val_shape)
@@ -584,7 +710,53 @@ def make_streaming_extrap_pipeline(
         # merge masks zero-weight members
         return rep.merge(chunk_rep)
 
+    def _mesh_mean(mean, uv, xv, weight):
+        if x_is_u:
+            uave, du_full, wsum = sharded.reduce_central_umoments_batched_sharded(
+                uv, order + 1, mesh, weight=weight, return_wsum=True
+            )
+            chunk = dataclasses.replace(
+                mean, xave=uave, uave=uave, du=du_full[: order + 1], dxdu=du_full[1 : order + 2], wsum=wsum
+            )
+        else:
+            xave, uave, du, dxdu, wsum = sharded.reduce_central_comoments_sharded(
+                uv, xv, order, mesh, weight=weight, return_wsum=True
+            )
+            chunk = dataclasses.replace(
+                mean, xave=xave, uave=uave, du=du.reshape((order + 1, *pad)), dxdu=dxdu, wsum=wsum
+            )
+        return mean.merge(chunk)
+
+    def _mesh_rep(rep, step, uv, xv, weight):
+        freq = _chunk_freq(seed, step, nrep, sharded._shape(uv)[0], device)
+        if x_is_u:
+            bu, bdu_full, bwsum = sharded._full(
+                *sharded.resample_central_umoments_batched_sharded(uv, freq, order + 1, mesh, weight=weight, return_wsum=True)
+            )
+            chunk = dataclasses.replace(
+                rep, xave=bu, uave=bu, du=bdu_full[: order + 1], dxdu=bdu_full[1 : order + 2], wsum=bwsum
+            )
+        else:
+            bx, bu, bdu, bdxdu, bwsum = sharded._full(
+                *sharded.resample_central_comoments_sharded(uv, xv, freq, order, mesh, weight=weight, return_wsum=True)
+            )
+            chunk = dataclasses.replace(
+                rep, xave=bx, uave=bu, du=bdu.reshape((order + 1, nrep, *pad)), dxdu=bdxdu, wsum=bwsum
+            )
+        return rep.merge(chunk)
+
+    def _update_mesh(state, uv, xv, weight):
+        if not x_is_u:
+            xv = sharded._rec_map(lambda x: x.reshape(x.shape[0], *val_shape), [xv], mesh)
+        mean_s, rep_s, step = _split_state(state, nrep)
+        mean_s = _mesh_mean(mean_s, uv, xv, weight)
+        if not nrep:
+            return mean_s
+        return mean_s, _mesh_rep(rep_s, step, uv, xv, weight), step + 1
+
     def _update(state, uv, xv, weight):
+        if mesh is not None:
+            return _update_mesh(state, uv, xv, weight)
         uv = _as_tensor(uv, device)
         weight = None if weight is None else _as_tensor(weight, device)
         if not x_is_u:
@@ -649,6 +821,7 @@ def make_streaming_lnpi_pipeline(
     nrep: int = 0,
     seed: int = 0,
     device=None,
+    mesh=None,
 ):
     r"""Streaming form of :func:`make_lnpi_pipeline`: fold
     ``(*grid_shape, chunk)`` blocks of macrostate energy samples into a
@@ -657,8 +830,9 @@ def make_streaming_lnpi_pipeline(
     ``nrep > 0`` adds ``nrep`` replicate grid accumulators whose counts are
     shared across the grid (a replicate resamples whole configurations): K5
     on CUDA with a seed per chunk, a count table per chunk on CPU.
-    ``dtype``, ``seed``, ``device``: as in
-    :func:`make_streaming_extrap_pipeline`.
+    ``dtype``, ``seed``, ``device``, ``mesh``: as in
+    :func:`make_streaming_extrap_pipeline` (each block's sample axis, its
+    last, sharded over ``rec``).
 
     Returns ``(state0, update, predict)``: ``update(state, uv) -> state`` and
     ``predict(state, lnpi0, mudotn, betas) -> (A, *grid_shape)`` float64, or
@@ -667,8 +841,8 @@ def make_streaming_lnpi_pipeline(
     if order < 1:
         msg = f"lnPi order must be >= 1, got {order}"
         raise ValueError(msg)
-    device = default_device() if device is None else torch.device(device)
-    on_gpu = device.type == "cuda"
+    device = _mesh_device(mesh, device)
+    on_gpu = mesh is None and device.type == "cuda"
     grid_shape = tuple(grid_shape)
 
     def zeros(batch_shape):
@@ -676,14 +850,25 @@ def make_streaming_lnpi_pipeline(
 
     state0 = (zeros(grid_shape), zeros((nrep, *grid_shape)), 0) if nrep else zeros(grid_shape)
 
+    def _mean_update(mean, uv):
+        if mesh is None:
+            return mean.push_vals(None, uv)
+        uave, du_full, wsum = sharded.reduce_central_umoments_batched_sharded(uv, order + 1, mesh, return_wsum=True)
+        return mean.merge(
+            dataclasses.replace(mean, xave=uave, uave=uave, du=du_full[: order + 1], dxdu=du_full[1 : order + 2], wsum=wsum)
+        )
+
     def _rep_update(rep, step, uv):
         if on_gpu:
             bu, bdu_full, bwsum = moments_cuda.resample_central_umoments_batched_poisson(
                 uv, nrep, order + 1, seed=_chunk_seed(seed, step), return_wsum=True
             )
         else:
-            freq = _chunk_freq(seed, step, nrep, uv.shape[-1], device)
-            bu, bdu_full = resample.resample_central_umoments_batched(uv, freq, order + 1)
+            freq = _chunk_freq(seed, step, nrep, sharded._shape(uv)[-1], device)
+            if mesh is None:
+                bu, bdu_full = resample.resample_central_umoments_batched(uv, freq, order + 1)
+            else:
+                bu, bdu_full = sharded._full(*sharded.resample_central_umoments_batched_sharded(uv, freq, order + 1, mesh))
             bwsum = _freq_wsum(freq, None, rep.wsum.dtype).reshape((nrep,) + (1,) * len(grid_shape))
             bwsum = bwsum.expand(nrep, *grid_shape)
         chunk_rep = dataclasses.replace(
@@ -692,9 +877,10 @@ def make_streaming_lnpi_pipeline(
         return rep.merge(chunk_rep)
 
     def update(state, uv):
-        uv = _as_tensor(uv, device)
+        if mesh is None:
+            uv = _as_tensor(uv, device)
         mean_s, rep_s, step = _split_state(state, nrep)
-        mean_s = mean_s.push_vals(None, uv)
+        mean_s = _mean_update(mean_s, uv)
         if not nrep:
             return mean_s
         return mean_s, _rep_update(rep_s, step, uv), step + 1
@@ -728,12 +914,14 @@ def make_streaming_volume_pipeline(
     nrep: int = 0,
     seed: int = 0,
     device=None,
+    mesh=None,
 ):
     r"""Streaming form of :func:`make_volume_pipeline`: the order-1 streaming
     comoment accumulator of :func:`make_streaming_extrap_pipeline` with ``x``
     and ``dxdq`` packed as a leading value axis (``cov(x, W)`` is the order-1
     comoment of the first packed column, ``<dxdq>`` the mean of the second),
-    plus the volume prediction.
+    plus the volume prediction.  ``mesh``: as in
+    :func:`make_streaming_extrap_pipeline`.
 
     Returns ``(state0, update, predict)``: ``update(state, wv, xv, dxdqv,
     weight=None) -> state`` (``wv (chunk,)`` the temperature-scaled virial,
@@ -742,19 +930,24 @@ def make_streaming_volume_pipeline(
     """
     val_shape = tuple(val_shape)
     v0d = float(volume0) * float(ndim)
-    device = default_device() if device is None else torch.device(device)
+    device = _mesh_device(mesh, device)
     state0, _update, _ = make_streaming_extrap_pipeline(
-        1, volume0, val_shape=(2, *val_shape), dtype=dtype, bf16=bf16, nrep=nrep, seed=seed, device=device
+        1, volume0, val_shape=(2, *val_shape), dtype=dtype, bf16=bf16, nrep=nrep, seed=seed, device=device, mesh=mesh
     )
 
+    def _pack(x, d):
+        n = x.shape[0]
+        return torch.stack([x.reshape(n, *val_shape), d.reshape(n, *val_shape)], dim=1)
+
     def update(state, wv, xv, dxdqv, weight=None):
-        xv = _as_tensor(xv, device)
-        dxdqv = _as_tensor(dxdqv, device)
-        if xv.shape != dxdqv.shape:
-            msg = f"xv {tuple(xv.shape)} and dxdqv {tuple(dxdqv.shape)} must match"
+        if mesh is None:
+            xv = _as_tensor(xv, device)
+            dxdqv = _as_tensor(dxdqv, device)
+        xshape, dshape = sharded._shape(xv), sharded._shape(dxdqv)
+        if xshape != dshape:
+            msg = f"xv {xshape} and dxdqv {dshape} must match"
             raise ValueError(msg)
-        n = xv.shape[0]
-        packed = torch.stack([xv.reshape(n, *val_shape), dxdqv.reshape(n, *val_shape)], dim=1)
+        packed = _pack(xv, dxdqv) if mesh is None else sharded._rec_map(_pack, [xv, dxdqv], mesh)
         return _update(state, wv, packed, weight=weight)
 
     def _predict_from(s, dalpha, batch_ndim: int):
@@ -882,6 +1075,7 @@ def make_streaming_interp_pipeline(
     nrep: int = 0,
     seed: int = 0,
     device=None,
+    mesh=None,
 ):
     r"""Streaming interpolation between states: one online accumulator per
     reference inverse temperature (one simulation per state point), and a
@@ -896,7 +1090,8 @@ def make_streaming_interp_pipeline(
     0``: every state also carries ``nrep`` Poisson-bootstrap replicate
     accumulators (K3 per chunk on CUDA), each state from its own base seed
     ``(seed + 0x9E3779B9 (i+1)) & 0x7FFFFFFF`` and from it a seed per chunk,
-    so that no two states share counts.
+    so that no two states share counts.  ``mesh``: every state's chunks
+    sharded as in :func:`make_streaming_extrap_pipeline`.
 
     Returns ``(states0, update, predict)``: ``states0`` a tuple of empty
     states, one per β; ``update(states, i, uv, xv, weight=None) -> states``
@@ -912,7 +1107,7 @@ def make_streaming_interp_pipeline(
     if len(beta0s) < 2:
         msg = f"interpolation needs >= 2 reference states, got {len(beta0s)}"
         raise ValueError(msg)
-    device = default_device() if device is None else torch.device(device)
+    device = _mesh_device(mesh, device)
     pipes = [
         make_streaming_extrap_pipeline(
             order,
@@ -923,6 +1118,7 @@ def make_streaming_interp_pipeline(
             nrep=nrep,
             seed=_state_seed(seed, i),
             device=device,
+            mesh=mesh,
         )
         for i, b in enumerate(beta0s)
     ]

@@ -8,10 +8,12 @@ with :func:`set_default_device`.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
-__all__ = ["HOST_READS", "default_device", "host_numpy", "set_default_device"]
+__all__ = ["HOST_READS", "default_device", "host_numpy", "is_dtensor", "set_default_device"]
 
 _DEVICE: torch.device | None = None  # None = by availability
 
@@ -41,3 +43,10 @@ def host_numpy(a) -> np.ndarray:
             HOST_READS["n"] += 1
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def is_dtensor(a) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor``; never imports that
+    module (it loads sympy), since no DTensor exists before it is loaded."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(a, mod.DTensor)
