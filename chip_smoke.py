@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the torch port's main path, its ensembles, the perturbation path, the
 streaming pipelines, the interpolation between states, MBAR, the file-fed
-ingest runtime, the trainers, the derivative GPR, its active-learning loop
-and the sharded path on a one-rank mesh once on an NVIDIA GPU.
+ingest runtime, the trainers, the derivative GPR, its active-learning loop,
+the sharded path on a one-rank mesh and the serving artifacts once on an
+NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -56,11 +57,13 @@ on any failure, without printing a result.  Phases, one line each:
     at two call seeds; K8 at R = 1e8 against its plain version, then one call
     there whose sigma is held against that version's and the exact one; and a
     small pipeline call fed numpy arrays, which must run on the card;
-16. K3 and K5 on one streaming chunk (1e7 samples; 64 x 250k at order 7),
-    weight sums included, against their plain versions; the streaming
-    pipelines with fresh launch counts: the main path's R = 1e8 samples in 10
-    chunks and the lnΠ grid in 4 chunks against their one-shot calls, and
-    the streaming perturbation against the one-shot R = 1e8 call;
+16. K3, K5 and K8 on one streaming chunk (1e7 samples; 64 x 250k at order
+    7; 1e7 samples, 5 targets, 256 replicates), weight sums included, against
+    their plain versions; the streaming pipelines with fresh launch counts:
+    the main path's R = 1e8 samples in 10 chunks and the lnΠ grid in 4 chunks
+    against their one-shot calls, and the streaming perturbation against the
+    one-shot R = 1e8 call, without and with 256 replicates (K8 once a chunk,
+    no K7, its peak memory printed);
 17. CUDA-event times of K7, K8, their plain versions, the library matrix
     products that compute K2's, K5's and K7's sums, the perturbation calls
     and one streaming update;
@@ -189,13 +192,33 @@ on any failure, without printing a result.  Phases, one line each:
     1e-6 of the unsharded grid, with the float32 covariance against float64;
     (d) phase 26's float32 frozen predictor on its 1000 queries sharded over
     ``rec``, equal to the whole call to 1e-6; (e) each mesh call's time and its
-    unsharded counterpart's, by CUDA events.
+    unsharded counterpart's, by CUDA events;
+28. the serving artifacts (``serving_export``), every artifact call with
+    fresh launch counts and none launching a kernel: (a) the main path's
+    artifact (order 6, float32) exported, saved and loaded by a fresh
+    interpreter with ``torch.export.export`` patched to raise, which makes
+    the main samples from the seed and predicts at R = 1e8 within 0.1 sigma
+    of the K1 route, its time to the first prediction beside a child that
+    builds ``make_extrap_pipeline``; the export, load and warm-call times and
+    the file's bytes; (b) the artifact with 256 replicates at R = 1e6, its
+    sigma against K3's on the same counts (1e-3 relative) and its peak
+    memory; (c) the lnΠ grid (against K4 / K5), volume at R = 1e8 (K1), the
+    perturbation at R = 1e7 without and with 64 replicates (K8's counts),
+    MBAR at phase 21's K = 4, N = 1e8 with 256 targets (|Δf| 1e-4, the grid
+    1e-6 relative of the in-process solve and alpha grid) and phase 26's
+    float32 frozen predictor on its 1000 queries; three artifact calls'
+    device time by the profiler; (d) the four streaming bundles (extrap and
+    volume in ten 1e7 chunks, extrap with 256 replicates and the
+    perturbation with 64 in four 1e6 chunks, the lnΠ grid in four chunks),
+    each state against the in-process ``xla_only=True`` stream and each
+    sigma against the kernel stream's at equal seed, and a ``save_state`` /
+    ``load_state`` resume equal to the uninterrupted stream.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
 kernel once; phases 6, 11, 16, 20, 22, 23, 24, 25 and 26 hold every path to that
-(MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel), and phase
-27 every mesh call to no launch at all.  Each kernel's bound is the
+(MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel), and phases
+27 and 28 every mesh and artifact call to no launch at all.  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
@@ -313,6 +336,14 @@ HET_POINTS = 14
 # (nrep, R); at the main path's R = 1e8 it could not exist on one card)
 MESH_BOOT_R = 10_000_000
 MESH_BOOT_NREP = 100
+# phase 28: the artifacts' bootstrap (R, and the chunks of the bundles' bootstrap), the
+# perturbation artifact's replicates (its (nrep, R) count table and Philox words fit the
+# card at R = 1e7), and the bar of an artifact's sigma against the kernel route's on the
+# same counts (float64 sums against the kernels' float32 sums)
+ART_BOOT_R = 1_000_000
+ART_BOOT_CHUNKS = 4
+ART_PERTURB_NREP = 64
+ART_SIGMA_RTOL = 1e-3
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -332,6 +363,61 @@ INT32_OPS = 16.75e12
 # (python -m thermoextrap_tpu_torch.drawcost, printed in the kernels line)
 # holds more, register moves among them; the bound counts the fewer.
 DRAW_OPS_PER_COUNT = 40 / 4 + 2
+
+
+# phase 28 (a): a fresh interpreter that makes the main path's samples from the seed
+# and predicts once, through a saved artifact (with torch.export.export patched to
+# raise, so the serving process traces nothing) or through make_extrap_pipeline; the
+# time from its start to the prediction leaves out making the samples
+CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+mode, path, r, npart, beta0, seed, betas, order = sys.argv[1:]
+import torch
+if mode == "artifact":
+    import torch.export
+
+    def _refuse(*a, **k):
+        raise RuntimeError("the serving process traced a program")
+
+    torch.export.export = _refuse
+    from thermoextrap_tpu_torch.serving_export import load_exported
+
+    t_import = time.perf_counter()
+    import torch._export.serde.serialize  # torch.export.load's deserializer (torch._dynamo with it)
+
+    t_serde = time.perf_counter() - t_import
+    serve = load_exported(path)
+else:
+    from thermoextrap_tpu_torch.pipeline import make_extrap_pipeline
+
+    t_import = time.perf_counter()
+    t_serde = 0.0
+    serve = make_extrap_pipeline(order=int(order), beta0=float(beta0))
+t_ready = time.perf_counter()
+from thermoextrap_tpu_torch import idealgas
+
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(int(seed))
+x, u = idealgas.generate_data((int(r), int(npart)), float(beta0), rng=gen, dtype=torch.float32)
+b = torch.tensor(json.loads(betas), dtype=torch.float64)
+torch.cuda.synchronize()
+t_data = time.perf_counter()
+pred = serve(u, x, b)
+torch.cuda.synchronize()
+t_pred = time.perf_counter()
+print(json.dumps({
+    "mode": mode,
+    "import_s": t_import - t0,
+    "load_or_build_s": t_ready - t_import,
+    "of_which_deserializer_import_s": t_serde,
+    "first_call_s": t_pred - t_data,
+    "to_first_prediction_s": (t_ready - t0) + (t_pred - t_data),
+    "pred": pred.double().cpu().reshape(-1).tolist(),
+    "u_sum": float(u.double().sum()),
+    "jax_imported": "jax" in sys.modules,
+}))
+"""
 
 
 def bound(nbytes: float, fmas: float = 0.0, draws: float = 0.0, tc_fmas: float = 0.0):
@@ -385,6 +471,7 @@ def main() -> int:
         make_streaming_interp_pipeline,
         make_streaming_lnpi_pipeline,
         make_streaming_perturb_pipeline,
+        make_streaming_volume_pipeline,
         make_volume_pipeline,
     )
 
@@ -779,6 +866,15 @@ def main() -> int:
         path_launches[path] = dict(mc.LAUNCHES)
         return out
 
+    def peak_gb(fn):
+        """``(result, GB)``: the most device memory ``fn`` held beyond what was allocated before it."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
     def full_counts(want):
         """Every counter's expected value: each K1 / K2 / K3 / K6 call also
         launches the head-shift and the finalize kernel once, each K4 / K5
@@ -1054,10 +1150,17 @@ def main() -> int:
     gc1 = grid.chunk(GRID_CHUNKS, dim=1)[1]
     k5c = mc.resample_central_umoments_batched_poisson(gc1, NREP_MAIN, ORDER + 1, seed=seed1, return_wsum=True)
     ref5c = mc.resample_umoments_poisson_plain(gc1.double(), None, NREP_MAIN, ORDER + 1, seed=seed1)
+    # K8 on one streaming perturbation chunk (1e7 samples, 256 replicates) at the chunk's
+    # seed, on the weights the first update builds, against its float64 plain version
+    e1 = _perturb_weights(uc1, (betas.to(dev) - BETA0).to(torch.float32), None)
+    k8c = mc.resample_perturb_poisson(e1, xc1, NREP_MAIN, seed=seed1)
+    ref8c = mc.resample_perturb_poisson_plain(e1.double(), xc1.double(), NREP_MAIN, seed=seed1)
     chunk_errs = {
         "K3_chunk_1e7": compare("K3 streaming chunk", k3c[:4], ref3c[:4], 2e-3, 1e-5),
         "K5_chunk_64x250k_order7": compare("K5 streaming chunk", k5c[:2], ref5c[:2], 2e-3, 1e-5),
+        "K8_chunk_1e7_nrep256_rel": rel_err("K8 streaming chunk", k8c, ref8c, 1e-5)[0],
     }
+    del e1, k8c, ref8c
     if not torch.equal(k3c[4].double(), ref3c[4]) or not torch.equal(k5c[2].double(), ref5c[2]):
         raise AssertionError("a streaming chunk's weight sums differ from the plain version's")
     del k3c, ref3c, k5c, ref5c
@@ -1075,8 +1178,8 @@ def main() -> int:
             state = update(state, gc)
         return state, predict(state, lnpi0, mudotn, betas)
 
-    def stream_perturb():
-        state, update, predict = make_streaming_perturb_pipeline(BETA0, betas)
+    def stream_perturb(nrep=0):
+        state, update, predict = make_streaming_perturb_pipeline(BETA0, betas, nrep=nrep, seed=SEED)
         for uc, xc in zip(u.chunk(STREAM_CHUNKS), x.chunk(STREAM_CHUNKS)):
             state = update(state, uc, xc)
         return predict(state)
@@ -1084,6 +1187,9 @@ def main() -> int:
     sstate, (spred, sstd) = counted("stream_extrap", stream_main)
     gstate, (gpred, gstd) = counted("stream_lnpi", stream_grid)
     sppred = counted("stream_perturb", stream_perturb)
+    # its bootstrap: K8 once a chunk at the chunk's seed, no count table (the table
+    # route held an (nrep, chunk) int64 word tensor, 20 GB at this chunk and nrep)
+    (spbpred, spbstd), spb_gb = peak_gb(lambda: counted("stream_perturb_boot", lambda: stream_perturb(NREP_MAIN)))
     if sstate[2] != STREAM_CHUNKS or gstate[2] != GRID_CHUNKS or float(sstate[0].wsum) != R_MAIN:
         raise AssertionError(f"streaming states count {sstate[2]} / {gstate[2]} chunks, weight {float(sstate[0].wsum)}")
     stream = {
@@ -1093,8 +1199,19 @@ def main() -> int:
         "lnpi_pred_rel": rel_close("streaming lnPi vs one shot", gpred, lpred, 1e-6, atol=1e-6),
         "lnpi_sigma": sigma_close("streaming lnPi sigma", gstd, lstd),
         "perturb_pred_rel": rel_close("streaming perturbation vs one shot", sppred, ppred_big, 1e-6),
+        "perturb_boot_pred_rel": rel_close("streaming perturbation with replicates vs one shot", spbpred, ppred_big, 1e-6),
+        "perturb_boot_sigma": sigma_close("streaming perturbation sigma vs the one-shot K8 call", spbstd, pstd_big),
     }
-    say(16, card=card, chunks={"extrap": STREAM_CHUNKS, "lnpi": GRID_CHUNKS, "perturb": STREAM_CHUNKS}, max_diff=stream, rtol=1e-6, lnpi_atol=1e-6)
+    say(
+        16,
+        card=card,
+        chunks={"extrap": STREAM_CHUNKS, "lnpi": GRID_CHUNKS, "perturb": STREAM_CHUNKS},
+        max_diff=stream,
+        rtol=1e-6,
+        lnpi_atol=1e-6,
+        perturb_boot_nrep=NREP_MAIN,
+        perturb_boot_peak_gb=spb_gb,
+    )
 
     new_expected = {
         "perturb_device": {"K8": 1},
@@ -1104,6 +1221,7 @@ def main() -> int:
         "stream_extrap": {"K1": STREAM_CHUNKS, "K3": STREAM_CHUNKS},
         "stream_lnpi": {"K4": GRID_CHUNKS, "K5": GRID_CHUNKS},
         "stream_perturb": {},
+        "stream_perturb_boot": {"K8": STREAM_CHUNKS},
     }
     say(16, launches={path: path_launches[path] for path in new_expected})
     for path, want in new_expected.items():
@@ -1528,15 +1646,6 @@ def main() -> int:
     # -- phase 21: MBAR at the repo's serving width, each path with fresh launch counts ------
     from thermoextrap_tpu_torch import DataValues, MBARModel
     from thermoextrap_tpu_torch.models import mbar as mb
-
-    def peak_gb(fn):
-        """``(result, GB)``: the most device memory ``fn`` held beyond what was allocated before it."""
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
 
     # (a) benches/bench_mbar.py's problem: K = 4 harmonic states, sigma in [1, 3], N = 1e8
     # pooled samples (N/K a state), u_kn = x^2 / (2 sigma_k^2) in float32 (1.6 GB)
@@ -2575,7 +2684,7 @@ def main() -> int:
         het_gaps=het_gaps,
         phase26_s=time.perf_counter() - t26,
     )
-    del gpr_al, cpu_al, fits, fits32, staged_all, built, het, het_cpu_model
+    del cpu_al, fits, fits32, staged_all, built, het, het_cpu_model  # gpr_al: exported in phase 28
 
     # -- phase 27: the mesh on the card, a world of one NCCL rank, each call with fresh launch counts --
     # The mesh= route and the sharded functions are plain torch, as the reference's mesh route
@@ -2728,6 +2837,264 @@ def main() -> int:
         mbar_residuals=[float(res_mesh), float(res_one)],
         mbar_f32_covariance=cov32,
         phase27_s=time.perf_counter() - t27,
+    )
+
+    # -- phase 28: the serving artifacts on the card ----------------------------------------
+    t28 = time.perf_counter()
+    from thermoextrap_tpu_torch import serving_export as se
+    from thermoextrap_tpu_torch.utils.trees import tree_flatten
+
+    art_ms, art_err, art_info = {}, {}, {}
+
+    def art_call(path, fn):
+        """An artifact call with fresh launch counts: it must launch no kernel."""
+        out = counted(path, fn)
+        if any(path_launches[path].values()):
+            raise AssertionError(f"{path}: an artifact launched kernels: {path_launches[path]}")
+        return out
+
+    def art_best(path, fn, reps=3):
+        """``(result, best ms)`` of ``reps`` artifact calls by CUDA events,
+        after one untimed call (the first call on the card moves the program
+        there)."""
+        art_call(path, fn)
+        best, out = math.inf, None
+        for _ in range(reps):
+            out, ms = timed(lambda: art_call(path, fn))
+            best = min(best, ms)
+        return out, best
+
+    def sigma_rel(name, got, ref, bar):
+        """Largest ``|got - ref| / ref`` of two sigmas over the targets where
+        ``ref > 0``; fails beyond ``bar``.  Where ``ref`` is 0 (lnPi at beta0)
+        a float32 artifact's sigma is that of its float32 beta, 1e-7 off
+        beta0: it must be below ``bar`` times the largest reference sigma."""
+        got, ref = got.double().reshape(ref.shape), ref.double()
+        some = ref > 0
+        if not bool(torch.isfinite(got).all()) or bool((got[~some].abs() > bar * float(ref.max())).any()):
+            raise AssertionError(f"{name}: non-finite sigma, or one far from 0 where the reference is 0")
+        worst = float(((got[some] - ref[some]).abs() / ref[some]).max())
+        if not worst <= bar:
+            raise AssertionError(f"{name}: sigma max relative difference {worst} beyond {bar}")
+        return worst
+
+    def state_close(name, got, ref, rtol):
+        """A bundle's state tuple against an in-process state, leaf by leaf."""
+        leaves = tree_flatten(ref)[0]
+        if len(leaves) != len(got):
+            raise AssertionError(f"{name}: {len(got)} leaves against {len(leaves)}")
+        worst = 0.0
+        for a, b in zip(got, leaves):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{name}: leaf {a.dtype} {tuple(a.shape)} against {b.dtype} {tuple(b.shape)}")
+            if a.is_floating_point():
+                worst = max(worst, rel_close(name, a.double(), b.double(), rtol, atol=1e-12))
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{name}: integer leaf {a.tolist()} against {b.tolist()}")
+        return worst
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    child_env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    art_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_art_")
+    atexit.register(art_dir.cleanup)
+
+    def child(mode, path=""):
+        """A fresh interpreter on the card: the main path's samples made from SEED,
+        then one prediction, through the artifact (``torch.export.export`` patched
+        to raise) or through ``make_extrap_pipeline``; its JSON line."""
+        args = [mode, path, str(R_MAIN), str(NPART), repr(BETA0), str(SEED), json.dumps(list(BETAS)), str(ORDER)]
+        proc = subprocess.run([sys.executable, "-c", CHILD, *args], capture_output=True, text=True, timeout=600, cwd=root, env=child_env)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 28 child ({mode}) failed: {proc.stderr[-3000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    # (a) cold start: the main path's artifact (order 6, float32) saved, then loaded by a
+    # child that cannot trace and predicts at R = 1e8, within 0.1 sigma of the K1 route
+    t_exp = time.perf_counter()
+    art_main = se.export_extrap_pipeline(order=ORDER, beta0=BETA0)
+    art_info["export_main_s"] = time.perf_counter() - t_exp
+    main_path = os.path.join(art_dir.name, "extrap.thexport")
+    art_main.save(main_path)
+    art_info["main_file_bytes"] = os.path.getsize(main_path)
+    t_load = time.perf_counter()
+    art_loaded = se.load_exported(main_path)
+    art_info["load_s"] = time.perf_counter() - t_load
+    cold = child("artifact", main_path)
+    cold_pipe = child("pipeline")
+    if cold["jax_imported"] or abs(cold["u_sum"] - float(u.double().sum())) > 1e-6 * abs(float(u.double().sum())):
+        raise AssertionError(f"cold-start child: jax imported {cold['jax_imported']}, or its samples differ (u sum {cold['u_sum']})")
+    child_pred = torch.tensor(cold["pred"], dtype=torch.float64).reshape(pred_k1.shape)
+    art_err["cold_child_vs_k1_abs"] = within("cold-start artifact vs K1", child_pred, std_main.cpu(), pred_k1.cpu(), 0.1)
+    art_info["cold_start"] = {"artifact": cold, "pipeline": cold_pipe}
+    art_info["cold_start"]["artifact"].pop("pred")
+    apred, art_ms["extrap_1e8"] = art_best("art_extrap", lambda: art_loaded(u, x, betas))
+    art_ms["extrap_1e8_k1_route"] = best_ms(lambda: run_k1(u, x, betas))
+    art_err["extrap_1e8_vs_k1_abs"] = within("artifact vs K1", apred.double().reshape(pred_k1.shape), std_main, pred_k1, 0.1)
+    art_err["extrap_1e8_vs_f64_plain_abs"] = within("artifact vs float64 plain", apred.double().reshape(pred_k1.shape), std_main, pred_f64, 0.1)
+
+    say(28, part="a", card=card, ms=art_ms, max_diff=art_err, info=art_info)
+
+    # (b) the bootstrap: nrep 256 at R = 1e6 on K3's counts at the same seed
+    u6, x6 = u[:ART_BOOT_R], x[:ART_BOOT_R]
+    art_boot = se.export_extrap_pipeline(order=ORDER, beta0=BETA0, nrep=NREP_MAIN)
+    ((bpred_a, bstd_a), art_ms["extrap_1e6_nrep256"]), art_info["boot_peak_gb"] = peak_gb(
+        lambda: art_best("art_boot", lambda: art_boot(u6, x6, betas, seed=SEED), reps=2)
+    )
+    run_k3_6 = make_extrap_pipeline(order=ORDER, beta0=BETA0, nrep=NREP_MAIN)
+    bpred_k, bstd_k = run_k3_6(u6, x6, betas, seed=SEED)
+    art_ms["extrap_1e6_nrep256_k3_route"] = best_ms(lambda: run_k3_6(u6, x6, betas, seed=SEED), reps=2)
+    art_err["boot_sigma_vs_k3_rel"] = sigma_rel("artifact bootstrap sigma vs K3", bstd_a, bstd_k, ART_SIGMA_RTOL)
+    art_err["boot_pred_vs_k3_abs"] = within("artifact bootstrap prediction vs K3", bpred_a.double().reshape(bpred_k.shape), bstd_k, bpred_k, 0.1)
+
+    say(28, part="b", card=card, ms=art_ms, max_diff=art_err, info=art_info)
+
+    # (c) the other batch families at sizes the repo serves
+    art_ln = se.export_lnpi_pipeline(ORDER, BETA0, nrep=NREP_MAIN)
+    (alpred, alstd), art_ms["lnpi_64x1e6_nrep256"] = art_best("art_lnpi", lambda: art_ln(grid, lnpi0, mudotn, betas, seed=SEED), reps=2)
+    art_ms["lnpi_64x1e6_nrep256_k4_k5_route"] = best_ms(lambda: run_lnpi(grid, lnpi0, mudotn, betas, seed=SEED), reps=2)
+    # float32 outputs: lnPi reaches -41 on the grid, so its float32 rounding (2.4e-6) is
+    # held relative, as phase 16 holds the streaming grid (1e-6, atol 1e-6)
+    art_err["lnpi_vs_k4_rel"] = rel_close("lnPi artifact vs K4", alpred.double(), lpred, 1e-6, atol=1e-6)
+    art_err["lnpi_sigma_vs_k5_rel"] = sigma_rel("lnPi artifact sigma vs K5", alstd, lstd, ART_SIGMA_RTOL)
+    art_vol = se.export_volume_pipeline(1.0, ndim=1)
+    avpred, art_ms["volume_1e8"] = art_best("art_volume", lambda: art_vol(wv, x, x, volumes))
+    art_ms["volume_1e8_k1_route"] = best_ms(lambda: make_volume_pipeline(1.0, ndim=1)(wv, x, x, volumes))
+    art_err["volume_vs_k1_abs"] = within("volume artifact vs K1", avpred.double(), vstd, vpred, 0.1)
+    up7, xp7 = u[:R_PERTURB], x1[:R_PERTURB]
+    art_pt = se.export_perturb_pipeline(BETA0)
+    appred, art_ms["perturb_1e7"] = art_best("art_perturb", lambda: art_pt(up7, xp7, betas))
+    run_p64 = make_perturb_pipeline(BETA0, nrep=ART_PERTURB_NREP)
+    ppred64, pstd64 = run_p64(up7, xp7, betas, seed=SEED)
+    art_ms["perturb_1e7_in_process"] = best_ms(lambda: make_perturb_pipeline(BETA0)(up7, xp7, betas))
+    art_err["perturb_vs_in_process_abs"] = within("perturbation artifact", appred.double().reshape(ppred64.shape), pstd64, ppred64, 0.1)
+    art_ptb = se.export_perturb_pipeline(BETA0, nrep=ART_PERTURB_NREP)
+    ((apbpred, apbstd), art_ms["perturb_1e7_nrep64"]), art_info["perturb_boot_peak_gb"] = peak_gb(
+        lambda: art_best("art_perturb_boot", lambda: art_ptb(up7, xp7, betas, seed=SEED), reps=1)
+    )
+    art_ms["perturb_1e7_nrep64_k8_route"] = best_ms(lambda: run_p64(up7, xp7, betas, seed=SEED), reps=2)
+    art_err["perturb_sigma_vs_k8_rel"] = sigma_rel("perturbation artifact sigma vs K8", apbstd, pstd64, ART_SIGMA_RTOL)
+    # MBAR at phase 21's K = 4, N = 1e8 float32 with 256 targets, against the in-process
+    # solve and alpha grid (phase 27's bars)
+    msig = torch.linspace(1.0, 3.0, MBAR_K, dtype=torch.float64)
+    mgen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    xs_m = torch.cat([float(s) * torch.randn(MBAR_N // MBAR_K, generator=mgen, device=dev) for s in msig])
+    u_kn = xs_m[None] ** 2 / (2.0 * msig.float().to(dev)[:, None] ** 2)
+    n_km = torch.full((MBAR_K,), float(MBAR_N // MBAR_K), device=dev)
+    alphas_m = (1.0 / torch.linspace(1.0, 3.0, MBAR_A, dtype=torch.float64, device=dev) ** 2).float()
+    u_base = xs_m**2 / 2.0
+    x_nm = torch.stack([xs_m, xs_m**2], dim=1)
+    art_mb = se.export_mbar_reweighter(MBAR_K, max_iter=MBAR_MAX_ITER, chunk=MBAR_CHUNK)
+    (f_a, res_a, grid_a), art_ms["mbar_solve_grid_256"] = art_best("art_mbar", lambda: art_mb(u_kn, n_km, alphas_m, u_base, x_nm), reps=1)
+    (f_i, it_i, res_i), ms_solve = timed(lambda: mb.mbar_solve_info(u_kn, n_km, max_iter=MBAR_MAX_ITER))
+    grid_i, ms_grid = timed(lambda: mb.mbar_expectations_alphas(u_kn, n_km, f_i, alphas_m, u_base, x_nm, chunk=MBAR_CHUNK))
+    art_ms["mbar_solve_grid_256_in_process"] = ms_solve + ms_grid
+    art_err["mbar_f_vs_in_process"] = float((f_a.double() - f_i.double()).abs().max())
+    if not (float(res_a) <= 1e-5 and art_err["mbar_f_vs_in_process"] <= 1e-4):
+        raise AssertionError(f"MBAR artifact: residual {float(res_a)}, |f - f_in_process| {art_err['mbar_f_vs_in_process']}")
+    # <x> is ~0 at every target: the relative bar takes 1e-6 of the grid's largest entry as its floor
+    art_err["mbar_grid_vs_in_process_rel"] = rel_close(
+        "MBAR artifact grid vs in-process", grid_a.double(), grid_i.double(), 1e-6, atol=1e-6 * float(grid_i.abs().max())
+    )
+    art_info["mbar_iterations_in_process"] = it_i
+    art_info["mbar_residuals"] = [float(res_a), float(res_i)]
+    del u_kn, xs_m, u_base, x_nm, grid_a, grid_i
+    # GPR: phase 26's float32 frozen predictor over its 1000 queries
+    gpr_path = os.path.join(art_dir.name, "gpr.thexport")
+    se.export_gpr_predictor(gpr_al).save(gpr_path)
+    del gpr_al
+    art_g = se.load_exported(gpr_path)
+    (gmean, gvar), art_ms["gpr_1000"] = art_best("art_gpr", lambda: art_g(grid_t))
+    fmean, fvar = pred32(grid_t)
+    art_ms["gpr_1000_frozen"] = best_ms(lambda: pred32(grid_t))
+    art_info["gpr_equal_to_the_bit"] = bool(torch.equal(gmean, fmean) and torch.equal(gvar, fvar))
+    art_err["gpr_mean"] = compare("GPR artifact mean", [gmean], [fmean], 1e-6, 1e-6 * float(fmean.abs().max()))
+    art_err["gpr_var"] = compare("GPR artifact variance", [gvar], [fvar], 1e-6, 1e-6 * float(fvar.abs().max()))
+
+    # where an artifact call's device time goes (torch.profiler, device activities only)
+    from thermoextrap_tpu_torch.devtime import device_time
+
+    art_info["profile"] = {}
+    for name, fn in (
+        ("extrap_1e8", lambda: art_loaded(u, x, betas)),
+        ("lnpi_64x1e6_nrep256", lambda: art_ln(grid, lnpi0, mudotn, betas, seed=SEED)),
+        ("perturb_1e7_nrep64", lambda: art_ptb(up7, xp7, betas, seed=SEED)),
+    ):
+        wall, device, top = device_time(fn, calls=2)
+        art_info["profile"][name] = {"wall_ms": wall, "device_ms": device, "idle": 1.0 - device / wall, "top": top}
+    say(28, part="c", card=card, ms=art_ms, max_diff=art_err, info=art_info)
+
+    # (d) the four bundles, each against the in-process xla_only stream fed the same chunks
+    # and, with replicates, against the kernel stream at equal seed (the same counts a chunk)
+    def feed(update, state, chunks):
+        for c in chunks:
+            state = update(state, *c)
+        return state
+
+    main_chunks = list(zip(u.chunk(STREAM_CHUNKS), x.chunk(STREAM_CHUNKS)))
+    b_ex = se.export_streaming_extrap_pipeline(ORDER, BETA0)
+    b_path = os.path.join(art_dir.name, "stream.thexport")
+    b_ex.save(b_path)
+    b_ex = se.load_exported(b_path)
+    half = STREAM_CHUNKS // 2
+    bst = art_call("art_stream_extrap", lambda: feed(b_ex.update, b_ex.init_state(dev), main_chunks[:half]))
+    state_path = os.path.join(art_dir.name, "stream.state")
+    b_ex.save_state(state_path, bst)
+    bst = art_call("art_stream_extrap_resumed", lambda: feed(b_ex.update, b_ex.load_state(state_path, dev), main_chunks[half:]))
+    bst_whole = art_call("art_stream_extrap_whole", lambda: feed(b_ex.update, b_ex.init_state(dev), main_chunks))
+    if not all(torch.equal(a, b) for a, b in zip(bst, bst_whole)):
+        raise AssertionError("the bundle resumed from a saved state differs from the uninterrupted stream")
+    x0, xupd, xprd = make_streaming_extrap_pipeline(ORDER, BETA0, dtype=torch.float32, xla_only=True, device=dev)
+    xst = counted("xla_stream_extrap", lambda: feed(xupd, x0, main_chunks))
+    art_err["bundle_extrap_state_vs_xla_only_rel"] = state_close("extrap bundle vs xla_only", bst, xst, 1e-6)
+    bpred_s = art_call("art_stream_extrap_predict", lambda: b_ex.predict(bst, betas))
+    art_err["bundle_extrap_vs_k1_stream_abs"] = within("extrap bundle vs the kernel stream", bpred_s, sstd, spred, 0.1)
+    _, art_ms["bundle_extrap_update_1e7"] = art_best("art_stream_update", lambda: b_ex.update(bst, *main_chunks[0]))
+    b_vol = se.export_streaming_volume_pipeline(1.0, ndim=1)
+    vol_chunks = [(w_, x_, x_) for w_, x_ in zip(wv.chunk(STREAM_CHUNKS), x.chunk(STREAM_CHUNKS))]
+    vbst = art_call("art_stream_volume", lambda: feed(lambda s, w_, x_, d_: b_vol.update(s, w_, x_, dxdqv=d_), b_vol.init_state(dev), vol_chunks))
+    v0s, vupd, _ = make_streaming_volume_pipeline(1.0, ndim=1, dtype=torch.float32, xla_only=True, device=dev)
+    art_err["bundle_volume_state_vs_xla_only_rel"] = state_close("volume bundle vs xla_only", vbst, feed(vupd, v0s, vol_chunks), 1e-6)
+    art_err["bundle_volume_vs_k1_abs"] = within("volume bundle vs K1", art_call("art_stream_volume_predict", lambda: b_vol.predict(vbst, volumes)), vstd, vpred, 0.1)
+    boot_chunks = list(zip(u[: ART_BOOT_CHUNKS * ART_BOOT_R].chunk(ART_BOOT_CHUNKS), x[: ART_BOOT_CHUNKS * ART_BOOT_R].chunk(ART_BOOT_CHUNKS)))
+    b_exb = se.export_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP_MAIN, seed=SEED, dtype=torch.float64)
+    (bbst, art_info["bundle_extrap_boot_peak_gb"]) = peak_gb(lambda: art_call("art_stream_boot", lambda: feed(b_exb.update, b_exb.init_state(dev), boot_chunks)))
+    xb0, xbupd, _ = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP_MAIN, seed=SEED, xla_only=True, device=dev)
+    art_err["bundle_boot_state_vs_xla_only_rel"] = state_close("extrap bundle with replicates vs xla_only", bbst, feed(xbupd, xb0, boot_chunks), 1e-6)
+    kb0, kbupd, kbprd = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP_MAIN, seed=SEED)
+    kpred_b, kstd_b = kbprd(feed(kbupd, kb0, boot_chunks), betas)
+    bpred_b, bstd_b = art_call("art_stream_boot_predict", lambda: b_exb.predict(bbst, betas))
+    art_err["bundle_boot_sigma_vs_k3_stream_rel"] = sigma_rel("extrap bundle sigma vs the K3 stream", bstd_b, kstd_b, ART_SIGMA_RTOL)
+    b_ln = se.export_streaming_lnpi_pipeline(ORDER, BETA0, grid_shape=(GRID_B,), nrep=NREP_MAIN, seed=SEED, dtype=torch.float64)
+    grid_chunks_l = [(gc,) for gc in grid.chunk(GRID_CHUNKS, dim=1)]
+    lbst = art_call("art_stream_lnpi", lambda: feed(b_ln.update, b_ln.init_state(dev), grid_chunks_l))
+    l0s, lupd, _ = make_streaming_lnpi_pipeline(ORDER, BETA0, grid_shape=(GRID_B,), nrep=NREP_MAIN, seed=SEED, xla_only=True, device=dev)
+    art_err["bundle_lnpi_state_vs_xla_only_rel"] = state_close("lnPi bundle vs xla_only", lbst, feed(lupd, l0s, grid_chunks_l), 1e-6)
+    lbpred, lbstd = art_call("art_stream_lnpi_predict", lambda: b_ln.predict(lbst, lnpi0, mudotn, betas))
+    art_err["bundle_lnpi_vs_k4_stream_abs"] = within("lnPi bundle vs the kernel stream", lbpred, gstd, gpred, 0.1)
+    art_err["bundle_lnpi_sigma_vs_k5_stream_rel"] = sigma_rel("lnPi bundle sigma vs the K5 stream", lbstd, gstd, ART_SIGMA_RTOL)
+    b_pt = se.export_streaming_perturb_pipeline(BETA0, BETAS, nrep=ART_PERTURB_NREP, seed=SEED, dtype=torch.float64)
+    pbst = art_call("art_stream_perturb", lambda: feed(b_pt.update, b_pt.init_state(dev), boot_chunks))
+    p0s, pupd, _ = make_streaming_perturb_pipeline(BETA0, betas, nrep=ART_PERTURB_NREP, seed=SEED, xla_only=True, device=dev)
+    art_err["bundle_perturb_state_vs_xla_only_rel"] = state_close("perturbation bundle vs xla_only", pbst, feed(pupd, p0s, boot_chunks), 1e-6)
+    k0s, kupd, kprd = make_streaming_perturb_pipeline(BETA0, betas, nrep=ART_PERTURB_NREP, seed=SEED)
+    _, kpstd = counted("stream_perturb_k8", lambda: kprd(feed(kupd, k0s, boot_chunks)))
+    if path_launches["stream_perturb_k8"] != full_counts({"K8": ART_BOOT_CHUNKS}):
+        raise AssertionError(f"the streaming perturbation launched {path_launches['stream_perturb_k8']}")
+    _, pbstd = art_call("art_stream_perturb_predict", lambda: b_pt.predict(pbst))
+    art_err["bundle_perturb_sigma_vs_k8_stream_rel"] = sigma_rel("perturbation bundle sigma vs the K8 stream", pbstd, kpstd, ART_SIGMA_RTOL)
+
+    # (e) every artifact call above ran with fresh counts and launched no kernel
+    art_paths = [p for p in path_launches if p.startswith("art_")]
+    say(
+        28,
+        card=card,
+        artifact_calls=len(art_paths),
+        launches=sum(sum(path_launches[p].values()) for p in art_paths),
+        ms=art_ms,
+        max_diff=art_err,
+        info=art_info,
+        sigma_rtol=ART_SIGMA_RTOL,
+        phase28_s=time.perf_counter() - t28,
     )
 
     # each kernel's least time on this card at the shape it was timed at

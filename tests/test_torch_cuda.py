@@ -536,9 +536,11 @@ def test_streaming_pipelines_on_gpu(rng, cuda_device):
 
 def test_streaming_perturbation_on_gpu_bootstraps_through_k7(rng, cuda_device):
     """With replicates the streaming perturbation folds each chunk through
-    K7 on an int8 table: one launch per chunk, the one-shot prediction to
-    float32 roundoff and a sigma within 40% of the one-shot sigma (two
-    independent 64-replicate draws, each sigma with a 9% standard error)."""
+    K8 (the counts drawn in the kernel at the chunk's seed; K7 and its
+    table are no longer on this path): one launch per chunk, the one-shot
+    prediction to float32 roundoff and a sigma within 40% of the one-shot
+    sigma (two independent 64-replicate draws, each sigma with a 9%
+    standard error)."""
     r = 60_000
     u, x = _samples(rng, r, 1)
     uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
@@ -550,12 +552,68 @@ def test_streaming_perturbation_on_gpu_bootstraps_through_k7(rng, cuda_device):
     mc.reset_launches()
     for a, b in zip(uc.chunk(3), xc.chunk(3)):
         state = update(state, a, b)
-    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K7": 3}
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K8": 3}
     pred, std = predict(state)
     assert state[5] == 3 and state[3].dtype == torch.float64 and state[3].is_cuda
     assert_close(pred, one, 1e-6, 1e-9)
     ratio = npy(std) / npy(one_std)
     assert np.all((ratio > 0.6) & (ratio < 1.4))
+
+
+def test_streaming_perturbation_k8_route_matches_plain(rng, cuda_device):
+    """One streaming perturbation chunk on the card: its replicate sums are
+    K8's at the chunk's seed, held against K8's plain version (float64 on
+    the card) at K7 / K8's bar; the ``xla_only`` route on the card draws the
+    same counts (plain torch, no launch) and agrees at that bar."""
+    r = 200_003
+    u, x = _samples(rng, r, 2)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    betas = tt(BETAS) + 4.0
+    state0, update, _ = tpipe.make_streaming_perturb_pipeline(5.0, betas, val_shape=(2,), nrep=32, seed=9, device=cuda_device)
+    mc.reset_launches()
+    st = update(state0, uc, xc)
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K8": 1}
+    e = tpipe._perturb_weights(uc.double(), (betas.to(cuda_device) - 5.0), None)
+    ref = mc.resample_perturb_poisson_plain(e, xc.double(), 32, seed=tpipe._chunk_seed(9, 0))
+    assert_close((st[3], st[4]), (ref[..., :2], ref[..., 2]), 2e-5, 1e-5)
+    x0, xupdate, _ = tpipe.make_streaming_perturb_pipeline(
+        5.0, betas, val_shape=(2,), nrep=32, seed=9, device=cuda_device, xla_only=True
+    )
+    mc.reset_launches()
+    xs = xupdate(x0, uc, xc)
+    assert not any(mc.LAUNCHES.values())
+    assert_close((xs[3], xs[4]), (ref[..., :2], ref[..., 2]), 2e-5, 1e-5)
+
+
+def test_artifacts_on_cuda_match_the_in_process_routes(rng, cuda_device, tmp_path):
+    """A batch artifact and a streaming bundle, traced on the CPU, saved and
+    loaded, run on CUDA tensors with no kernel launch: the extrapolation at
+    the float32 bars of the K1 route, its replicates on K3's counts (the same
+    seed) at that bar; the bundle equal to the in-process ``xla_only`` stream
+    on the card."""
+    from thermoextrap_tpu_torch import serving_export as se
+
+    u, x = _samples(rng, 100_000, 1)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    betas = tt(BETAS) + 4.0
+    path = tmp_path / "extrap.thexport"
+    se.export_extrap_pipeline(4, 5.0, nrep=32).save(path)
+    art = se.load_exported(path)
+    mc.reset_launches()
+    pred, std = art(uc, xc, betas, seed=3)
+    torch.cuda.synchronize()
+    assert not any(mc.LAUNCHES.values()) and pred.is_cuda and pred.dtype == torch.float32
+    kpred, kstd = tpipe.make_extrap_pipeline(4, 5.0, nrep=32)(uc, xc, betas, seed=3)
+    assert_close(pred, kpred.reshape(pred.shape), RTOL32, ATOL32)
+    assert_close(std, kstd.reshape(std.shape), RTOL32, ATOL32)
+    bundle = se.export_streaming_extrap_pipeline(4, 5.0, nrep=8, seed=2)
+    s0, upd, prd = tpipe.make_streaming_extrap_pipeline(4, 5.0, nrep=8, seed=2, xla_only=True, dtype=torch.float32, device=cuda_device)
+    st, bst = s0, bundle.init_state(cuda_device)
+    mc.reset_launches()
+    for a, b in zip(uc.chunk(3), xc.chunk(3)):
+        st, bst = upd(st, a, b), bundle.update(bst, a, b)
+    assert not any(mc.LAUNCHES.values()) and bst[0].is_cuda
+    assert_close(bundle.predict(bst, betas), prd(st, betas), 1e-6, 1e-9)
 
 
 # -- the helper kernels of the K2 / K3 wrapper, and the count table's load paths ---------

@@ -241,7 +241,8 @@ def test_port_never_imports_jax():
     runtime, the native engines, the trainers, the GPR staging, the
     labeled-array adapter, the random seam, the type aliases, the GPR
     modules with their compute device and serving, the sharded path with
-    its dry run, and the build-cache seam) pulls in neither jax, nor the
+    its dry run, the build-cache seam and the export module) pulls in
+    neither jax, nor the
     JAX package, nor orbax, nor sympy (imported only inside
     ``Derivatives.from_sympy``, the sympy-expression kernels and, through
     ``torch.distributed.tensor``, the first sharded call)."""
@@ -260,6 +261,7 @@ def test_port_never_imports_jax():
         "import thermoextrap_tpu_torch.gpr_active.ig_active, thermoextrap_tpu_torch.utils.compute; "
         "import thermoextrap_tpu_torch.parallel, thermoextrap_tpu_torch.parallel.sharded, thermoextrap_tpu_torch.parallel.dryrun; "
         "import thermoextrap_tpu_torch.utils.compile_cache, thermoextrap_tpu_torch.gpr_active.serving; "
+        "import thermoextrap_tpu_torch.serving_export; "
         "new = set(sys.modules) - before; "
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'thermoextrap_tpu', 'orbax', 'sympy')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -269,19 +271,25 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_all_names_of_the_jax_package_but_two():
-    """``thermoextrap_tpu_torch.__all__`` holds every name of the JAX
-    package's ``__all__`` except the module still to port,
-    ``serving_export`` (ROADMAP Queue 1); of the two this test once left
-    out, ``parallel`` is ported and exports every name of the JAX
-    ``parallel`` and the two MBAR entries of its ``sharded``."""
+def test_all_names_of_the_jax_package():
+    """``thermoextrap_tpu_torch.__all__`` is the JAX package's ``__all__``:
+    ``serving_export``, the last module, is ported and exports every name
+    of the JAX ``serving_export``; ``parallel`` exports every name of the
+    JAX ``parallel`` and the two MBAR entries of its ``sharded``; the
+    port's own ``default_device``, ``set_default_device`` and ``interop``
+    are attributes outside ``__all__``."""
+    from thermoextrap_tpu import serving_export as jse
     from thermoextrap_tpu.parallel import sharded as jsharded
 
-    assert set(jx.__all__) - set(tx.__all__) == {"serving_export"}
+    assert set(jx.__all__) == set(tx.__all__)
+    assert set(tx.serving_export.__all__) == set(jse.__all__)
+    for name in jse.__all__:
+        assert getattr(tx.serving_export, name) is not None
     assert set(tx.parallel.__all__) == set(jx.parallel.__all__) | {"mbar_solve_sharded", "mbar_expectations_grid_sharded"}
     assert set(tx.parallel.__all__) == set(jsharded.__all__)
-    for name in set(jx.__all__) & set(tx.__all__):
+    for name in tx.__all__:
         assert getattr(tx, name) is not None
+    assert callable(tx.default_device) and callable(tx.set_default_device) and tx.interop is not None
 
 
 # -- the default device ----------------------------------------------------------------------

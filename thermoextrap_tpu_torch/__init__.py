@@ -42,11 +42,16 @@ interpolation models and the streaming pipelines:
   (``pipeline.make_gpr_pipeline``);
 - sharding over a ``torch.distributed`` device mesh (:mod:`.parallel`: the
   sharded reductions, bootstraps and MBAR behind the pipelines' ``mesh=``,
-  gloo on the CPU and NCCL on the card).
+  gloo on the CPU and NCCL on the card);
+- serving artifacts (:mod:`.serving_export`, loaded on first use):
+  pipelines traced once by ``torch.export`` into files that a serving
+  process loads and calls on the CPU or the card without tracing.
 
 Arrays that are not tensors go to :func:`default_device`: the CUDA card when
 there is one, unless :func:`set_default_device` says otherwise.  Importing
-the package needs neither CUDA nor a compiler.
+the package needs neither CUDA nor a compiler.  ``__all__`` holds the JAX
+package's names; ``default_device``, ``set_default_device`` and
+:mod:`.interop` are the port's own, attributes outside it.
 """
 
 from . import (
@@ -91,8 +96,9 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # the GPR stack loads on first use, as in the JAX package
-    if name == "gpr_active":
+    # the GPR stack and the export module load on first use, as in the JAX
+    # package
+    if name in ("gpr_active", "serving_export"):
         import importlib
 
         mod = importlib.import_module(f".{name}", __name__)
@@ -121,17 +127,15 @@ __all__ = [
     "beta",
     "compat",
     "data",
-    "default_device",
     "factory_data_values",
     "idealgas",
-    "interop",
     "io_stream",
     "lnpi",
     "parallel",
     "pipeline",
     "random",
     "recursive_interp",
-    "set_default_device",
+    "serving_export",
     "stack",
     "volume",
     "volume_idealgas",

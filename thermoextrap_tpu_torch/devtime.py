@@ -16,7 +16,8 @@ bfloat16 and at one row of R = 1e8; K5 at the grid and at one row of
 R = 1e8), the perturbation call at R = 1e7 (counts drawn in the kernel, then
 from a table) and at R = 1e8, its weight build alone, K7 and K8 alone, one
 streaming update of a 1e7-sample chunk, one streaming lnΠ update of a
-64 x 250k chunk of the grid, and one update (a 1e7 chunk) and one predict
+64 x 250k chunk of the grid, one streaming perturbation update of a
+1e7-sample chunk (five targets, 256 replicates: K8 once), and one update (a 1e7 chunk) and one predict
 (seven targets, two states of 256 replicates) of the streaming interpolation
 over beta 5.2 and 6.0, one call of the bucketed runner on 1e8 - 12345
 samples padded to 2^27 (256 replicates), MBAR at ``benches/bench_mbar.py``'s
@@ -209,6 +210,7 @@ def main() -> int:
         make_streaming_extrap_pipeline,
         make_streaming_interp_pipeline,
         make_streaming_lnpi_pipeline,
+        make_streaming_perturb_pipeline,
         make_volume_pipeline,
     )
 
@@ -246,6 +248,7 @@ def main() -> int:
     ep = _perturb_weights(up, dalpha, None)
     table = poisson1_freq(gen, (nrep_p, rp), dtype=torch.int8)
     state0, update, _ = make_streaming_extrap_pipeline(ORDER, BETA0, nrep=NREP, seed=SEED)
+    pstate0, pupdate, _ = make_streaming_perturb_pipeline(BETA0, betas, nrep=NREP, seed=SEED)
     # K2: a 100-replicate count table of 1e5 samples (the quick start) and of 1e7
     x1 = x[:, None]
     table2 = torch.poisson(torch.ones((100, rp), device=dev), generator=gen).to(torch.int32)
@@ -350,6 +353,7 @@ def main() -> int:
         "K8_1e7": lambda: mc.resample_perturb_poisson(ep, xp[:, None], nrep_p, seed=SEED),
         "streaming_update_1e7": lambda: update(state0, up, xp),
         "streaming_lnpi_update_64x250k": lambda: gupdate(gstate0, gchunk),
+        "streaming_perturb_update": lambda: pupdate(pstate0, up, xp),
         "interp_update": lambda: iupdate(istates0, 0, up, xp),
         "interp_predict": lambda: ipredict(istates, ibetas),
         "bucketed_serve": lambda: serve(u[:rb], x[:rb], betas, seed=SEED),

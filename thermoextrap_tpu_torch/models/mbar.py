@@ -212,20 +212,32 @@ def _solve(u_kn, log_n_k, logm, tol: float, max_iter: int, method: str, group=No
         active = (res > tol) & (it < max_iter)
         if not bool(active.any()):  # one host read per iteration
             break
-        f_sc = _self_consistent_update(f, u_kn, log_n_k, logm, ld, group)
-        f_nw = _newton_update(f, u_kn, log_n_k, logm, ld, group)
-        ld_sc = _log_denom(f_sc, u_kn, log_n_k)
-        ld_nw = _log_denom(f_nw, u_kn, log_n_k)
-        r_sc = _max_abs_residual(f_sc, u_kn, log_n_k, logm, ld_sc, group)
-        r_nw = _max_abs_residual(f_nw, u_kn, log_n_k, logm, ld_nw, group)
-        # a NaN Newton step (singular Hessian) loses every comparison
-        take = torch.isfinite(r_nw) & (r_nw < r_sc)
+        f_new, ld_new, r_new = _hybrid_step(f, ld, u_kn, log_n_k, logm, group)
         keep = active[:, None]
-        f = torch.where(keep, torch.where(take[:, None], f_nw, f_sc), f)
-        ld = torch.where(keep, torch.where(take[:, None], ld_nw, ld_sc), ld)
-        res = torch.where(active, torch.where(take, r_nw, r_sc), res)
+        f = torch.where(keep, f_new, f)
+        ld = torch.where(keep, ld_new, ld)
+        res = torch.where(active, r_new, res)
         it = it + active
     return f, it, res
+
+
+def _hybrid_step(f, ld, u_kn, log_n_k, logm=None, group=None):
+    """One hybrid iteration from ``f (..., K)`` and its log denominator
+    ``ld (..., N)``: the self-consistent and the Newton candidate, and of the
+    two the one with the smaller residual, as ``(f, ld, residual)``."""
+    f_sc = _self_consistent_update(f, u_kn, log_n_k, logm, ld, group)
+    f_nw = _newton_update(f, u_kn, log_n_k, logm, ld, group)
+    ld_sc = _log_denom(f_sc, u_kn, log_n_k)
+    ld_nw = _log_denom(f_nw, u_kn, log_n_k)
+    r_sc = _max_abs_residual(f_sc, u_kn, log_n_k, logm, ld_sc, group)
+    r_nw = _max_abs_residual(f_nw, u_kn, log_n_k, logm, ld_nw, group)
+    # a NaN Newton step (singular Hessian) loses every comparison
+    take = torch.isfinite(r_nw) & (r_nw < r_sc)
+    return (
+        torch.where(take[..., None], f_nw, f_sc),
+        torch.where(take[..., None], ld_nw, ld_sc),
+        torch.where(take, r_nw, r_sc),
+    )
 
 
 def mbar_solve(u_kn, n_k, tol: float | None = None, max_iter: int = 10000, method: str = "hybrid", log_sample_weight=None):

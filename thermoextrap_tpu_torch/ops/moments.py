@@ -48,18 +48,25 @@ def _split_shapes(uv, xv, val_ndim: int):
     return batch, val_shape
 
 
+def _flat_values(xv, batch):
+    """``xv (*batch, R, *val)`` as ``(*batch, R, V)`` (a trailing unit axis
+    for no value axes), by ``flatten``: a ``-1`` reshape of a symbolic size
+    would make an exported program guard on its divisibility."""
+    nb = len(batch)
+    return xv.flatten(nb + 1) if xv.ndim > nb + 1 else xv[..., None]
+
+
 def reduce_raw_comoments(uv, xv, order: int, weight=None, val_ndim: int = 1):
     r"""Raw comoments ``(u, xu)``: ``u[n] = <w u^n>/<w>`` with shape
     ``(order+1, *batch)`` and ``xu[n] = <w x u^n>/<w>`` with shape
     ``(order+1, *batch, *val)``."""
     w = _normalize_weight(uv, weight)
     batch, val_shape = _split_shapes(uv, xv, val_ndim)
-    nrec = uv.shape[-1]
     wsum = w.sum(dim=-1)
     powers = u_power_stack(uv, order) * w[..., None]
     u = powers.sum(dim=-2) / wsum[..., None]
-    xflat = xv.reshape(batch + (nrec, -1))
-    xu = torch.einsum("...rn,...rv->...nv", powers, xflat) / wsum[..., None, None]
+    xflat = _flat_values(xv, batch)
+    xu = (powers.mT @ xflat) / wsum[..., None, None]
     xu = xu.reshape(batch + (order + 1,) + val_shape)
     return torch.movedim(u, -1, 0), torch.movedim(xu, len(batch), 0)
 
@@ -76,16 +83,17 @@ def reduce_central_comoments(uv, xv, order: int, weight=None, val_ndim: int = 1)
     """
     w = _normalize_weight(uv, weight)
     batch, val_shape = _split_shapes(uv, xv, val_ndim)
-    nrec = uv.shape[-1]
     wsum = w.sum(dim=-1)
     uave = (w * uv).sum(dim=-1) / wsum
-    xflat = xv.reshape(batch + (nrec, -1))
+    xflat = _flat_values(xv, batch)
     xave = (w[..., None] * xflat).sum(dim=-2) / wsum[..., None]
 
     powers = u_power_stack(uv - uave[..., None], order) * w[..., None]
     du = powers.sum(dim=-2) / wsum[..., None]
     dx = xflat - xave[..., None, :]
-    dxdu = torch.einsum("...rn,...rv->...nv", powers, dx) / wsum[..., None, None]
+    # a product, not einsum: einsum's broadcast checks would make a traced
+    # program guard on every size being 1
+    dxdu = (powers.mT @ dx) / wsum[..., None, None]
 
     nb = len(batch)
     du = fix_central_du(torch.movedim(du, -1, 0))

@@ -65,7 +65,7 @@ import torch
 
 from . import _build
 from .convert import fix_central_du, fix_central_dxdu, shift_raw_comoments, shift_raw_moments
-from .resample import POISSON1_THRESHOLDS
+from .resample import POISSON1_THRESHOLDS, _philox4x32_10, philox_poisson1_counts, seed_tensor, signed64  # noqa: F401
 
 __all__ = [
     "HEAD_N",
@@ -142,9 +142,6 @@ _POISSON_KIND = 5
 # the table types K2 takes past the few-rows kernel's 16 rows; the rest are
 # widened to these first (the same counts, so the same sums)
 _WIDE_TABLE = {torch.int8: torch.int32, torch.int16: torch.int32, torch.bfloat16: torch.float32}
-
-_MASK32 = 0xFFFFFFFF
-
 
 def reset_launches() -> None:
     """Set every kernel launch count to 0."""
@@ -283,10 +280,6 @@ def _stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _signed64(seed: int) -> int:
-    """``seed mod 2^64`` as a signed 64-bit value (the kernels' seed type)."""
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return seed - (1 << 64) if seed >= 1 << 63 else seed
 
 
 def _weight_rows(weight, shape, device):
@@ -438,51 +431,15 @@ def reduce_central_comoments_batched(uv, xv, order: int, weight=None):
 # ---------------------------------------------------------------------------
 
 
-def _philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
-    """Philox4x32-10 on int64 tensors holding 32-bit words.  The 32x32 bit
-    product overflows int64 but its bits are right mod 2^64, so only the
-    masked high and low words are read, never the signed product itself."""
-    for i in range(10):
-        if i:
-            k0 = (k0 + 0x9E3779B9) & _MASK32
-            k1 = (k1 + 0xBB67AE85) & _MASK32
-        p0 = c0 * 0xD2511F53
-        p1 = c2 * 0xCD9E8D57
-        hi0 = (p0 >> 32) & _MASK32
-        lo0 = p0 & _MASK32
-        hi1 = (p1 >> 32) & _MASK32
-        lo1 = p1 & _MASK32
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
-
-
 def _poisson_counts(seed: int, nrep: int, nrec: int, device=None, *, start: int = 0):
     """The Poisson(1) counts K3 draws for samples ``start .. start+nrec-1``
-    (``start`` a multiple of 4), as an int32 table ``(nrep, nrec)``: the
-    count of replicate r at sample j is word ``j & 3`` of Philox4x32-10 with
-    counter ``((j >> 2) mod 2^32, r, (j >> 34) mod 2^32, 0)`` and key
-    ``(seed mod 2^32, (seed >> 32) mod 2^32)``, mapped by the truncated
-    Poisson(1) thresholds (csrc/philox.cuh)."""
+    (``start`` a multiple of 4), as an int32 table ``(nrep, nrec)`` on
+    ``device``: :func:`.resample.philox_poisson1_counts` on an integer
+    seed."""
     if start % 4:
         msg = f"start must be a multiple of 4, got {start}"
         raise ValueError(msg)
-    seed = int(seed)
-    k0 = seed & _MASK32
-    k1 = (seed >> 32) & _MASK32
-    ngroup = (nrec + 3) // 4
-    g = torch.arange(start // 4, start // 4 + ngroup, dtype=torch.int64, device=device)
-    r = torch.arange(nrep, dtype=torch.int64, device=device)[:, None]
-    c0 = (g & _MASK32)[None, :].expand(nrep, ngroup)
-    c2 = ((g >> 32) & _MASK32)[None, :].expand(nrep, ngroup)
-    c1 = r.expand(nrep, ngroup)
-    words = _philox4x32_10(c0, c1, c2, torch.zeros_like(c0), k0, k1)
-    counts = []
-    for word in words:
-        n = torch.zeros(word.shape, dtype=torch.int32, device=device)
-        for t in POISSON1_THRESHOLDS:
-            n += (word > t).to(torch.int32)
-        counts.append(n)
-    return torch.stack(counts, dim=-1).reshape(nrep, 4 * ngroup)[:, :nrec].contiguous()
+    return philox_poisson1_counts(seed_tensor(seed, device), nrep, nrec, start=start)
 
 
 def _plain_streams(uv, x2, weight):
@@ -679,7 +636,7 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
         npt,
         int(sdt == torch.bfloat16),
         kind,
-        _signed64(seed),
+        signed64(seed),
         _thresholds(),
         u.device.index,
         _stream_ptr(u.device),
@@ -787,7 +744,7 @@ def poisson_counts_cuda(seed: int, nrep: int, nrec: int, device):
         out.data_ptr(),
         nrec,
         nrep,
-        _signed64(seed),
+        signed64(seed),
         _thresholds(),
         out.device.index,
         _stream_ptr(out.device),
@@ -1137,7 +1094,7 @@ def _resample_u_cuda(u2, w2, nrep: int, order: int, *, freq=None, seed: int = 0)
         nr,
         npt,
         bf16,
-        _signed64(seed),
+        signed64(seed),
         _thresholds(),
         u.device.index,
         _stream_ptr(u.device),
@@ -1223,9 +1180,11 @@ def _perturb_plain_dtype(ev, xv):
 
 def _perturb_sums_plain(e, x2, counts):
     """``sum_j counts[r, j] e[a, j] [x2[j] | 1]`` → ``(A, nrep, V+1)``."""
-    xe = torch.cat([x2, torch.ones_like(x2[:, :1])], dim=1)
-    y = e[:, :, None] * xe[None]
-    return torch.einsum("nr,arv->anv", counts.to(device=e.device, dtype=e.dtype), y)
+    # rows (A, V+1, R) against the counts' transpose: one product with no
+    # reshape of a symbolic size, so the sums also trace for an exported program
+    xt = torch.cat([x2.T, torch.ones_like(e[:1])], dim=0)
+    y = e[:, None, :] * xt[None]
+    return (y @ counts.to(device=e.device, dtype=e.dtype).T).mT
 
 
 def resample_perturb_plain(ev, xv, counts, *, chunk: int = 1 << 20):
@@ -1296,7 +1255,7 @@ def _resample_perturb_cuda(ev, xv, nrep: int, *, freq=None, seed: int = 0):
         nr,
         npt,
         kind,
-        _signed64(seed),
+        signed64(seed),
         _thresholds(),
         e.device.index,
         _stream_ptr(e.device),

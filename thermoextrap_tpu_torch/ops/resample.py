@@ -48,6 +48,88 @@ POISSON1_CDF = (
 # the same thresholds as unsigned 32-bit cutoffs
 POISSON1_THRESHOLDS = tuple(int(c * 4294967296.0) for c in POISSON1_CDF)
 
+_MASK32 = 0xFFFFFFFF
+# the Weyl step of a streaming chunk's seed, 0x9E3779B97F4A7C15, as the
+# signed 64-bit value of the same bits (it does not fit an int64 tensor)
+_WEYL64 = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def signed64(seed: int) -> int:
+    """``seed mod 2^64`` as a signed 64-bit value: the bits an int64 seed
+    tensor holds."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return seed - (1 << 64) if seed >= 1 << 63 else seed
+
+
+def seed_tensor(seed, device=None):
+    """A 0-d int64 seed tensor holding ``seed mod 2^64`` (a tensor is
+    returned as it is)."""
+    if isinstance(seed, torch.Tensor):
+        return seed
+    return torch.tensor(signed64(seed), dtype=torch.int64, device=device)
+
+
+def chunk_seed(seed, step):
+    """The 64-bit seed of streaming chunk ``step`` from the base ``seed``, on
+    0-d int64 tensors: ``seed + step * 0x9E3779B97F4A7C15 mod 2^64`` (int64
+    arithmetic wraps mod 2^64), so that a traced program keys each chunk
+    as ``pipeline._chunk_seed`` does."""
+    return seed + step * _WEYL64
+
+
+def _philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding 32-bit words, the key words
+    Python ints or int64 tensors.  The 32x32 bit product overflows int64 but
+    its bits are right mod 2^64, so only the masked high and low words are
+    read, never the signed product itself."""
+    for i in range(10):
+        if i:
+            k0 = (k0 + 0x9E3779B9) & _MASK32
+            k1 = (k1 + 0xBB67AE85) & _MASK32
+        p0 = c0 * 0xD2511F53
+        p1 = c2 * 0xCD9E8D57
+        hi0 = (p0 >> 32) & _MASK32
+        lo0 = p0 & _MASK32
+        hi1 = (p1 >> 32) & _MASK32
+        lo1 = p1 & _MASK32
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_poisson1_counts(seed, nrep: int, nrec, *, start: int = 0):
+    """The Poisson(1) counts the bootstrap kernels K3, K5 and K8 draw, for
+    samples ``start .. start+nrec-1`` (``start`` a multiple of 4), as an
+    int32 table ``(nrep, nrec)`` on ``seed``'s device: the count of replicate
+    ``r`` at sample ``j`` is word ``j & 3`` of Philox4x32-10 with counter
+    ``((j >> 2) mod 2^32, r, (j >> 34) mod 2^32, 0)`` and key ``(seed mod
+    2^32, (seed >> 32) mod 2^32)``, mapped by the truncated Poisson(1)
+    thresholds (csrc/philox.cuh).
+
+    ``seed`` is a 0-d int64 tensor (:func:`seed_tensor`), so the draw traces
+    into a ``torch.export`` program with the seed as an operand and ``nrec``
+    symbolic: no Python branch reads a value or a length.  It holds a few
+    ``(nrep, ceil(nrec / 4))`` int64 word tensors at once."""
+    k0 = seed & _MASK32
+    k1 = (seed >> 32) & _MASK32
+    device = seed.device
+    ngroup = (nrec + 3) // 4
+    g = torch.arange(start // 4, start // 4 + ngroup, dtype=torch.int64, device=device)
+    r = torch.arange(nrep, dtype=torch.int64, device=device)[:, None]
+    c0 = (g & _MASK32)[None, :].expand(nrep, ngroup)
+    c2 = ((g >> 32) & _MASK32)[None, :].expand(nrep, ngroup)
+    c1 = r.expand(nrep, ngroup)
+    words = _philox4x32_10(c0, c1, c2, torch.zeros_like(c0), k0, k1)
+    counts = []
+    for word in words:
+        n = torch.zeros(word.shape, dtype=torch.int32, device=device)
+        for t in POISSON1_THRESHOLDS:
+            n += (word > t).to(torch.int32)
+        counts.append(n)
+    flat = torch.stack(counts, dim=-1).reshape(nrep, 4 * ngroup)
+    # the first nrec columns, by an index (a slice of a symbolic length
+    # would make the exported program guard on the length mod 4)
+    return torch.index_select(flat, 1, torch.arange(nrec, device=device))
+
 
 def _gen_device(gen):
     return gen.device if gen is not None else torch.device("cpu")
@@ -109,6 +191,11 @@ def resample_values(values, indices, rec_axis: int = 0):
     )
 
 
+def _pad_to(a, ndim: int):
+    """``a`` with trailing unit axes up to ``ndim`` axes."""
+    return a.reshape(a.shape + (1,) * (ndim - a.ndim))
+
+
 def _freq_weights(freq, weight, dtype):
     f = torch.as_tensor(freq).to(dtype)
     if weight is not None:
@@ -136,11 +223,11 @@ def resample_raw_comoments(uv, xv, freq, order: int, weight=None):
     u = torch.cat(
         [torch.where(ok, u[:, 0], torch.ones_like(u[:, 0]))[:, None], u[:, 1:]], dim=1
     )
-    xflat = xv.reshape(uv.shape[0], -1)
-    contrib = powers[:, :, None] * xflat[:, None, :]
-    xu = torch.einsum("pr,rnv->pnv", fw, contrib) / wsum[:, None, None]
+    xflat = xv.flatten(1)
+    contrib = (powers[:, :, None] * xflat[:, None, :]).flatten(1)
+    xu = (fw @ contrib).reshape((nrep, order + 1, *val_shape)) / _pad_to(wsum, 2 + len(val_shape))
     u = torch.movedim(u, 1, 0)
-    xu = torch.movedim(xu, 1, 0).reshape((order + 1, nrep, *val_shape))
+    xu = torch.movedim(xu, 1, 0)
     return u, xu
 
 
@@ -159,7 +246,7 @@ def resample_central_comoments(uv, xv, freq, order: int, weight=None):
     )
     wtot = w_full.sum()
     ubar = (w_full * uv).sum() / wtot
-    xflat = xv.reshape(uv.shape[0], -1)
+    xflat = xv.flatten(1)
     xbar = (w_full[:, None] * xflat).sum(dim=0) / wtot
 
     u_s, xu_s = resample_raw_comoments(uv - ubar, xflat - xbar[None, :], freq, order, weight=weight)
@@ -190,10 +277,11 @@ def resample_central_umoments_batched(uv, freq, order: int, weight=None):
     ubar = (w * uv).sum(-1) / w.sum(-1)
     du = uv - ubar[..., None]
     p = w
-    rows = [torch.einsum("pr,...r->p...", f, p)]
+    # (*batch, R) @ (R, nrep) with the replicates moved ahead
+    rows = [torch.movedim(p @ f.T, -1, 0)]
     for _ in range(order):
         p = p * du
-        rows.append(torch.einsum("pr,...r->p...", f, p))
+        rows.append(torch.movedim(p @ f.T, -1, 0))
     sums = torch.stack(rows)
     m = sums / torch.where(sums[0] > 0, sums[0], torch.ones_like(sums[0]))
     uave_r = m[1] + ubar[None]

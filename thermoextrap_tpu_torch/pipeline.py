@@ -48,7 +48,7 @@ import torch
 from .data import DataCentralMoments, _as_tensor
 from .models.derivatives import central_u_ave_coefs, central_x_ave_coefs, central_x_ave_coefs_xalpha, lnpi_coefs
 from .models.extrap import _interp_eval, _interp_fit, _poly_eval, _weighted_sums
-from .ops import dispatch, moments_cuda, resample
+from .ops import dispatch, moments, moments_cuda, resample
 from .ops.series import derivs_from_coefs, series_neg_log
 from .parallel import sharded
 from .utils.device import default_device, host_numpy
@@ -584,6 +584,30 @@ def _chunk_freq(seed: int, step: int, nrep: int, nrec: int, device):
     return resample.poisson1_freq(gen, (nrep, nrec), dtype=torch.int32)
 
 
+def _step0(device, xla: bool):
+    """A fresh chunk counter: a 0-d int64 tensor on the ``xla_only`` route
+    (a traced update carries it as an operand), else the Python int 0."""
+    return torch.zeros((), dtype=torch.int64, device=device) if xla else 0
+
+
+def _chunk_counts(seed: int, nrep: int, device, xla: bool):
+    """``counts(step, nrec)``: the count table ``(nrep, nrec)`` of chunk
+    ``step`` of a streaming bootstrap off the kernel route.  On the
+    ``xla_only`` route the counts K3, K5 and K8 draw at the chunk's seed
+    (:func:`.ops.resample.philox_poisson1_counts`, ``step`` a 0-d int64
+    tensor); otherwise the CPU route's generator table (:func:`_chunk_freq`)."""
+    if not xla:
+        return lambda step, nrec: _chunk_freq(seed, step, nrep, nrec, device)
+    base = resample.seed_tensor(seed, device)
+    return lambda step, nrec: resample.philox_poisson1_counts(resample.chunk_seed(base, step), nrep, nrec)
+
+
+def _as_f64(device, *arrays):
+    """The ``xla_only`` route's operands: on ``device``, in float64 (the
+    plain sums of a float32 chunk run in float64); None passes through."""
+    return tuple(None if a is None else _as_tensor(a, device).to(torch.float64) for a in arrays)
+
+
 def _freq_wsum(freq, weight, dtype):
     """Per-replicate total weight ``sum_j freq[r, j] w_j``."""
     fw = freq.to(dtype)
@@ -612,6 +636,7 @@ def make_streaming_extrap_pipeline(
     seed: int = 0,
     device=None,
     mesh=None,
+    xla_only: bool = False,
 ):
     r"""Streaming form of :func:`make_extrap_pipeline`: fold sample chunks
     into a running moment state as a simulation runs and predict at any time,
@@ -640,7 +665,15 @@ def make_streaming_extrap_pipeline(
     ``rec`` (a whole array or a ``DTensor`` of :func:`.parallel.shard_rec`),
     reduced by :mod:`.parallel.sharded` and merged into a state on the
     mesh's device; the replicates fold the CPU route's per-chunk count
-    tables; ``bf16`` is ignored.
+    tables; ``bf16`` is ignored.  ``xla_only``: the plain route on every
+    device, the counterpart of the JAX package's pure-XLA seam that
+    :mod:`.serving_export` traces: each chunk is reduced in float64 by the
+    plain two-pass functions, ``bf16`` is ignored, and the replicates fold
+    the counts of :func:`.ops.resample.philox_poisson1_counts` keyed on
+    ``(seed, chunk index)``, the counts K3 and K5 draw at that seed; the
+    chunk counter is then a 0-d int64 tensor, so no Python branch reads a
+    tensor value or the chunk length and the update traces with a symbolic
+    chunk length.  Ignored with ``mesh``.
 
     Returns ``(state0, update, predict)``: ``update(state, uv, xv,
     weight=None) -> state`` (``update(state, uv, weight=None)`` with
@@ -654,18 +687,20 @@ def make_streaming_extrap_pipeline(
         msg = "x_is_u streams scalar energies; val_shape must be ()"
         raise ValueError(msg)
     device = _mesh_device(mesh, device)
-    on_gpu = mesh is None and device.type == "cuda"
+    xla = xla_only and mesh is None
+    on_gpu = mesh is None and device.type == "cuda" and not xla
     # with xalpha the derivative columns ride as a leading value axis of the
     # accumulator and are disentangled only at predict time
     val_shape = (order + 1, *val_shape) if xalpha else tuple(val_shape)
     pad = (1,) * len(val_shape)
+    counts = _chunk_counts(seed, nrep, device, xla)
 
     def zeros(batch_shape):
         return DataCentralMoments.zeros(
             order, batch_shape=batch_shape, val_shape=val_shape, dtype=dtype, device=device, x_is_u=x_is_u
         )
 
-    state0 = (zeros(()), zeros((nrep,)), 0) if nrep else zeros(())
+    state0 = (zeros(()), zeros((nrep,)), _step0(device, xla)) if nrep else zeros(())
 
     def _rep_update_u(rep, step, uv, weight):
         # batched u-moment bootstrap of one row at order + 1, whose extra
@@ -676,7 +711,7 @@ def make_streaming_extrap_pipeline(
             )
             bwsum = bwsum[:, 0]
         else:
-            freq = _chunk_freq(seed, step, nrep, uv.shape[0], device)
+            freq = counts(step, uv.shape[0])
             bu, bdu_full = resample.resample_central_umoments_batched(uv[None], freq, order + 1, weight=weight)
             bwsum = _freq_wsum(freq, weight, rep.wsum.dtype)
         chunk_rep = dataclasses.replace(
@@ -695,7 +730,7 @@ def make_streaming_extrap_pipeline(
                 uv, xflat, nrep, order, weight=weight, seed=_chunk_seed(seed, step), return_wsum=True
             )
         else:
-            freq = _chunk_freq(seed, step, nrep, uv.shape[0], device)
+            freq = counts(step, uv.shape[0])
             bx, bu, bdu, bdxdu = resample.resample_central_comoments(uv, xflat, freq, order, weight=weight)
             bwsum = _freq_wsum(freq, weight, rep.wsum.dtype)
         chunk_rep = dataclasses.replace(
@@ -757,6 +792,12 @@ def make_streaming_extrap_pipeline(
     def _update(state, uv, xv, weight):
         if mesh is not None:
             return _update_mesh(state, uv, xv, weight)
+        if xla:
+            with dispatch.use_impl("torch"):
+                return _update_local(state, *_as_f64(device, uv, xv, weight))
+        return _update_local(state, uv, xv, weight)
+
+    def _update_local(state, uv, xv, weight):
         uv = _as_tensor(uv, device)
         weight = None if weight is None else _as_tensor(weight, device)
         if not x_is_u:
@@ -771,7 +812,7 @@ def make_streaming_extrap_pipeline(
         if x_is_u:
             rep_s = _rep_update_u(rep_s, step, uv, weight)
         else:
-            rep_s = _rep_update(rep_s, step, uv, xv.reshape(uv.shape[0], -1), weight)
+            rep_s = _rep_update(rep_s, step, uv, xv.flatten(1) if xv.ndim > 1 else xv[:, None], weight)
         return mean_s, rep_s, step + 1
 
     if x_is_u:
@@ -822,6 +863,7 @@ def make_streaming_lnpi_pipeline(
     seed: int = 0,
     device=None,
     mesh=None,
+    xla_only: bool = False,
 ):
     r"""Streaming form of :func:`make_lnpi_pipeline`: fold
     ``(*grid_shape, chunk)`` blocks of macrostate energy samples into a
@@ -830,9 +872,10 @@ def make_streaming_lnpi_pipeline(
     ``nrep > 0`` adds ``nrep`` replicate grid accumulators whose counts are
     shared across the grid (a replicate resamples whole configurations): K5
     on CUDA with a seed per chunk, a count table per chunk on CPU.
-    ``dtype``, ``seed``, ``device``, ``mesh``: as in
+    ``dtype``, ``seed``, ``device``, ``mesh``, ``xla_only``: as in
     :func:`make_streaming_extrap_pipeline` (each block's sample axis, its
-    last, sharded over ``rec``).
+    last, sharded over ``rec``; on the ``xla_only`` route the counts are
+    those K5 draws).
 
     Returns ``(state0, update, predict)``: ``update(state, uv) -> state`` and
     ``predict(state, lnpi0, mudotn, betas) -> (A, *grid_shape)`` float64, or
@@ -842,18 +885,25 @@ def make_streaming_lnpi_pipeline(
         msg = f"lnPi order must be >= 1, got {order}"
         raise ValueError(msg)
     device = _mesh_device(mesh, device)
-    on_gpu = mesh is None and device.type == "cuda"
+    xla = xla_only and mesh is None
+    on_gpu = mesh is None and device.type == "cuda" and not xla
     grid_shape = tuple(grid_shape)
+    counts = _chunk_counts(seed, nrep, device, xla)
 
     def zeros(batch_shape):
         return DataCentralMoments.zeros(order, batch_shape=batch_shape, x_is_u=True, dtype=dtype, device=device)
 
-    state0 = (zeros(grid_shape), zeros((nrep, *grid_shape)), 0) if nrep else zeros(grid_shape)
+    state0 = (zeros(grid_shape), zeros((nrep, *grid_shape)), _step0(device, xla)) if nrep else zeros(grid_shape)
 
     def _mean_update(mean, uv):
-        if mesh is None:
+        if mesh is None and not xla:
             return mean.push_vals(None, uv)
-        uave, du_full, wsum = sharded.reduce_central_umoments_batched_sharded(uv, order + 1, mesh, return_wsum=True)
+        if mesh is None:
+            # the u-moments at order + 1 give the comoments by the shift view
+            uave, du_full = moments.reduce_central_umoments(uv, order + 1)
+            wsum = torch.ones_like(uv).sum(dim=-1)
+        else:
+            uave, du_full, wsum = sharded.reduce_central_umoments_batched_sharded(uv, order + 1, mesh, return_wsum=True)
         return mean.merge(
             dataclasses.replace(mean, xave=uave, uave=uave, du=du_full[: order + 1], dxdu=du_full[1 : order + 2], wsum=wsum)
         )
@@ -864,7 +914,7 @@ def make_streaming_lnpi_pipeline(
                 uv, nrep, order + 1, seed=_chunk_seed(seed, step), return_wsum=True
             )
         else:
-            freq = _chunk_freq(seed, step, nrep, sharded._shape(uv)[-1], device)
+            freq = counts(step, sharded._shape(uv)[-1])
             if mesh is None:
                 bu, bdu_full = resample.resample_central_umoments_batched(uv, freq, order + 1)
             else:
@@ -876,14 +926,20 @@ def make_streaming_lnpi_pipeline(
         )
         return rep.merge(chunk_rep)
 
-    def update(state, uv):
-        if mesh is None:
-            uv = _as_tensor(uv, device)
+    def _update(state, uv):
         mean_s, rep_s, step = _split_state(state, nrep)
         mean_s = _mean_update(mean_s, uv)
         if not nrep:
             return mean_s
         return mean_s, _rep_update(rep_s, step, uv), step + 1
+
+    def update(state, uv):
+        if xla:
+            with dispatch.use_impl("torch"):
+                return _update(state, *_as_f64(device, uv))
+        if mesh is None:
+            uv = _as_tensor(uv, device)
+        return _update(state, uv)
 
     def _coefs(s, batch, lnpi0, mudotn):
         du = s.du.double().reshape((order + 1, *batch))
@@ -915,12 +971,13 @@ def make_streaming_volume_pipeline(
     seed: int = 0,
     device=None,
     mesh=None,
+    xla_only: bool = False,
 ):
     r"""Streaming form of :func:`make_volume_pipeline`: the order-1 streaming
     comoment accumulator of :func:`make_streaming_extrap_pipeline` with ``x``
     and ``dxdq`` packed as a leading value axis (``cov(x, W)`` is the order-1
     comoment of the first packed column, ``<dxdq>`` the mean of the second),
-    plus the volume prediction.  ``mesh``: as in
+    plus the volume prediction.  ``mesh``, ``xla_only``: as in
     :func:`make_streaming_extrap_pipeline`.
 
     Returns ``(state0, update, predict)``: ``update(state, wv, xv, dxdqv,
@@ -932,7 +989,16 @@ def make_streaming_volume_pipeline(
     v0d = float(volume0) * float(ndim)
     device = _mesh_device(mesh, device)
     state0, _update, _ = make_streaming_extrap_pipeline(
-        1, volume0, val_shape=(2, *val_shape), dtype=dtype, bf16=bf16, nrep=nrep, seed=seed, device=device, mesh=mesh
+        1,
+        volume0,
+        val_shape=(2, *val_shape),
+        dtype=dtype,
+        bf16=bf16,
+        nrep=nrep,
+        seed=seed,
+        device=device,
+        mesh=mesh,
+        xla_only=xla_only,
     )
 
     def _pack(x, d):
@@ -979,6 +1045,7 @@ def make_streaming_perturb_pipeline(
     nrep: int = 0,
     seed: int = 0,
     device=None,
+    xla_only: bool = False,
 ):
     r"""Streaming form of :func:`make_perturb_pipeline`: fold sample chunks
     into per-target exponential-reweighting accumulators, keeping no samples.
@@ -995,10 +1062,16 @@ def make_streaming_perturb_pipeline(
     The targets ``betas (A,)`` are fixed here (they define the
     accumulators).  ``nrep > 0``: the state also carries replicate sums and
     the chunk counter, each chunk folded into every replicate with
-    Poisson(1) counts from a generator keyed on ``(seed, chunk index)``
-    through :func:`.ops.moments_cuda.resample_perturb_freq` (K7 on the card,
-    its float32 sums sent to the state's type), and ``predict`` returns
-    ``(pred, std)``.  ``dtype``, ``device``: type and
+    Poisson(1) counts keyed on ``(seed, chunk index)``, and ``predict``
+    returns ``(pred, std)``.  On the card the counts are drawn in the kernel
+    (K8, one launch a chunk at the chunk's seed, no count table; its
+    float32 sums sent to the state's type); on the CPU they are a table of
+    a generator keyed the same way, through the plain version of K7.
+    ``xla_only``: the plain route on every device (the seam
+    :mod:`.serving_export` traces): the counts of
+    :func:`.ops.resample.philox_poisson1_counts`, those K8 draws at the
+    chunk's seed, summed in float64 by the plain contraction, with the
+    chunk counter a 0-d int64 tensor.  ``dtype``, ``device``: type and
     place of the state; chunks are sent there.
 
     The state is the tuple ``(m (A,), num (A, V), den (A,))``, with ``nrep``
@@ -1020,7 +1093,19 @@ def make_streaming_perturb_pipeline(
 
     state0 = (torch.full((a,), -torch.inf, dtype=dtype, device=device), z(a, v), z(a))
     if nrep:
-        state0 += (z(a, nrep, v), z(a, nrep), 0)
+        state0 += (z(a, nrep, v), z(a, nrep), _step0(device, xla_only))
+    counts = _chunk_counts(seed, nrep, device, xla_only)
+
+    def _boot_sums(e, xflat, step):
+        """``(A, nrep, V+1)`` replicate sums of one chunk."""
+        if xla_only:
+            freq = counts(step, e.shape[1])
+            return moments_cuda._perturb_sums_plain(e.double(), xflat.double(), freq)
+        if e.device.type == "cuda":
+            return moments_cuda.resample_perturb_poisson(e, xflat, nrep, seed=_chunk_seed(seed, step))
+        gen = validate_rng(_chunk_seed(seed, step), device=device)
+        freq = resample.poisson1_freq(gen, (nrep, e.shape[1]), dtype=e.dtype)
+        return moments_cuda.resample_perturb_freq(e, xflat, freq)
 
     def update(state, uv, xv, weight=None):
         uv = _as_tensor(uv, device).to(dtype)
@@ -1041,9 +1126,7 @@ def make_streaming_perturb_pipeline(
         if not nrep:
             return new_m, num, den
         bnum, bden, step = state[3:]
-        gen = validate_rng(_chunk_seed(seed, step), device=device)
-        freq = resample.poisson1_freq(gen, (nrep, uv.shape[0]), dtype=_count_table_dtype(uv))
-        s = moments_cuda.resample_perturb_freq(e, xflat, freq).to(dtype)
+        s = _boot_sums(e, xflat, step).to(dtype)
         bnum = scale[:, None, None] * bnum + s[..., :v]
         bden = scale[:, None] * bden + s[..., v]
         return new_m, num, den, bnum, bden, step + 1
