@@ -213,12 +213,24 @@ on any failure, without printing a result.  Phases, one line each:
     each state against the in-process ``xla_only=True`` stream and each
     sigma against the kernel stream's at equal seed, and a ``save_state`` /
     ``load_state`` resume equal to the uninterrupted stream.
+29. the example CLIs of ``examples_torch/`` at full size: each script (the
+    port of the script of the same name in ``examples/``) runs once, without
+    ``--smoke``, as a child of this interpreter on the kernels built in phase
+    1, within its own time limit; a non-zero exit, a timeout or a missing
+    closing line fails the run.  Each script's closing line gives its wall
+    time, the kernel launches of its whole run and its headline accuracy
+    number; each script must launch the kernels of its path as often as
+    ``EXAMPLE_KERNELS`` says and no other, each helper count must match its
+    kernels, every kernel but K7 (the
+    perturbation's table mode, which no example takes) must be launched by
+    some script, ``multichip_sharding.py`` (the mesh route) must launch
+    none, and so must the artifact section of ``streaming_serving.py``.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
-kernel once; phases 6, 11, 16, 20, 22, 23, 24, 25 and 26 hold every path to that
+kernel once; phases 6, 11, 16, 20, 22, 23, 24, 25, 26 and 29 hold every path to that
 (MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel), and phases
-27 and 28 every mesh and artifact call to no launch at all.  Each kernel's bound is the
+27, 28 and 29 every mesh and artifact call to no launch at all.  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
@@ -344,6 +356,27 @@ ART_BOOT_R = 1_000_000
 ART_BOOT_CHUNKS = 4
 ART_PERTURB_NREP = 64
 ART_SIGMA_RTOL = 1e-3
+# phase 29: each example CLI's time limit, and the kernel launches of its full-size
+# run (a kernel it does not name must launch 0 times; None: at least once, where the
+# count follows the data, as the active-learning loop's fits do). The scripts without
+# a kernel take pre-computed or raw moments (the volume model's, as the reference's),
+# and the mesh route launches none; the helper kernels come with their kernels
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLE_KERNELS = {
+    "beta_extrapolation": {"K1": 2, "K6": 1},
+    "beta_extrap_cases": {"K1": 2, "K6": 4},
+    "temperature_interp": {"K1": 3, "K6": 3},
+    "volume_extrapolation": {},
+    "data_organization": {"K1": 7, "K2": 1, "K4": 1, "K6": 1},
+    "custom_observable": {},
+    "macrostate_lnpi": {},
+    "mbar_reweighting": {"K1": 4},
+    "serving_pipeline": {"K1": 6, "K3": 6, "K4": 4, "K5": 2, "K8": 2},
+    "streaming_serving": {"K1": 28, "K3": 8, "K4": 5},
+    "gpr_active_learning": {"K1": None, "K2": None},
+    "lnpi_gpr_surface": {},
+    "multichip_sharding": {},
+}
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -438,6 +471,71 @@ def _card_line() -> str:
         check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def run_examples(say, card: str) -> dict:
+    """Phase 29: every script of ``examples_torch/`` once at full size, each a
+    child of this interpreter; returns ``{script: closing record}``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    ex_dir = os.path.join(root, "examples_torch")
+    names = sorted(f[:-3] for f in os.listdir(ex_dir) if f.endswith(".py") and not f.startswith("_"))
+    if sorted(names) != sorted(EXAMPLE_KERNELS):
+        raise AssertionError(f"examples_torch holds {names}, the phase expects {sorted(EXAMPLE_KERNELS)}")
+    t0 = time.perf_counter()
+    records = {}
+    for name in names:
+        t = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ex_dir, name + ".py")],
+                cwd=root,
+                capture_output=True,
+                text=True,
+                timeout=EXAMPLE_TIMEOUT_S,
+            )
+        except subprocess.TimeoutExpired as err:
+            raise AssertionError(f"examples_torch/{name}.py ran past {EXAMPLE_TIMEOUT_S} s") from err
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"examples_torch/{name}.py exited {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}"
+            )
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        rec = json.loads(lines[-1]) if lines else {}
+        if rec.get("example") != name or rec.get("smoke") is not False or "launches" not in rec:
+            raise AssertionError(f"examples_torch/{name}.py printed no closing line at full size:\n{proc.stdout[-3000:]}")
+        launches = rec["launches"]
+        kernels = {k: v for k, v in launches.items() if k.startswith("K")}
+        need = EXAMPLE_KERNELS[name]
+        if any(v != need.get(k, 0) and not (need.get(k, 0) is None and v > 0) for k, v in kernels.items()):
+            raise AssertionError(f"{name}: launched {kernels}, its path takes {need}")
+        k = launches
+        helpers = (k["K1"] + k["K2"] + k["K3"] + k["K6"], k["K4"] + k["K5"])
+        if (k["finalize"], k["finalize_u"], k["head_shift"]) != (helpers[0], helpers[1], sum(helpers)):
+            raise AssertionError(f"{name}: helper launches {k} do not match its kernels")
+        if name == "streaming_serving":
+            art = [json.loads(ln) for ln in lines if "artifact_launches" in ln]
+            if len(art) != 1 or any(art[0]["artifact_launches"].values()):
+                raise AssertionError(f"streaming_serving: the artifact section launched {art}")
+            rec["artifact_launches"] = sum(art[0]["artifact_launches"].values())
+        headline = next(iter(rec["result"].items()))
+        rec["child_wall_s"] = wall
+        records[name] = rec
+        say(
+            29,
+            script=name,
+            wall_s=wall,
+            main_s=rec["wall_s"],
+            launches={n: v for n, v in launches.items() if v},
+            headline={headline[0]: headline[1]},
+            result=rec["result"],
+        )
+    total = {k: sum(r["launches"][k] for r in records.values()) for k in next(iter(records.values()))["launches"]}
+    missing = [k for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8") if total[k] == 0]
+    if missing:
+        raise AssertionError(f"no example launched {missing}: {total}")
+    say(29, card=card, scripts=len(records), launches=total, phase29_s=time.perf_counter() - t0)
+    return records
 
 
 def main() -> int:
@@ -3097,6 +3195,11 @@ def main() -> int:
         phase28_s=time.perf_counter() - t28,
     )
 
+    # -- phase 29: the example CLIs at full size, each in its own process ---------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the children allocate on the same card
+    examples = run_examples(say, card)
+
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0
     n1 = ORDER + 1
@@ -3153,6 +3256,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": path_launches[path][name],
             "launches_by_path": {p: c[name] for p, c in path_launches.items() if c[name]},
+            "launches_by_example": {n: r["launches"][name] for n, r in examples.items() if r["launches"][name]},
             "max_abs_err": errs[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],

@@ -1435,3 +1435,21 @@ def test_mbar_sharded_on_the_card(cuda_device, card_mesh):
     utc = _f32(xs[None] ** 2 / (2 * np.array([1.2, 1.9])[:, None] ** 2), cuda_device)
     xc = _f32(np.stack([xs, xs**2], axis=1), cuda_device)
     assert_close(mbar_expectations_grid_sharded(uc, n_k, f, utc, xc, card_mesh), tm.mbar_expectations_grid(uc, n_k, f, utc, xc), 1e-5, 1e-6)
+
+
+def test_grid_sharded_on_the_card(rng, cuda_device, card_mesh):
+    """The sharded batched u-moment reduction and grid bootstrap on the world of
+    one NCCL rank (the bootstrap's ``einsum`` sums are not contiguous, which
+    NCCL's all-reduce refuses) equal the plain functions on the same table."""
+    from thermoextrap_tpu_torch.ops import moments, resample
+    from thermoextrap_tpu_torch.parallel import reduce_central_umoments_batched_sharded, resample_central_umoments_batched_sharded
+
+    uvg = torch.as_tensor(rng.normal(0.0, 1.0, (6, 50_000)) + np.linspace(-1, 1, 6)[:, None], device=cuda_device)
+    table = tpipe._multinomial_freq(5, 32, 50_000, cuda_device)
+    mc.reset_launches()
+    grid = reduce_central_umoments_batched_sharded(uvg, 6, card_mesh)
+    boot = [t.full_tensor() for t in resample_central_umoments_batched_sharded(uvg, table, 6, card_mesh)]
+    torch.cuda.synchronize()
+    assert not any(mc.LAUNCHES.values()), mc.LAUNCHES
+    assert_close(grid, moments.reduce_central_umoments(uvg, 6), 1e-10, 1e-12)
+    assert_close(boot, resample.resample_central_umoments_batched(uvg, table, 6), 1e-10, 1e-12)

@@ -5,6 +5,7 @@ every variant, float64 rtol 1e-10), its bootstrap CI within Monte-Carlo
 error, the moment state carried across packages, and the import boundary
 (the port never imports jax)."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -245,7 +246,23 @@ def test_port_never_imports_jax():
     neither jax, nor the
     JAX package, nor orbax, nor sympy (imported only inside
     ``Derivatives.from_sympy``, the sympy-expression kernels and, through
-    ``torch.distributed.tensor``, the first sharded call)."""
+    ``torch.distributed.tensor``, the first sharded call).  The example CLIs
+    of ``examples_torch/`` and ``chip_smoke.py`` import, by an AST scan of
+    every import statement, only the port among the repository's packages
+    (and neither jax nor orbax)."""
+    root = Path(__file__).resolve().parent.parent
+    scripts = sorted((root / "examples_torch").glob("*.py")) + [root / "chip_smoke.py"]
+    assert len(scripts) == 15
+    for path in scripts:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "thermoextrap_tpu", "orbax")]
+            assert not bad, f"{path.name}:{node.lineno} imports {bad}"
     code = (
         "import sys; before = set(sys.modules); "
         "import thermoextrap_tpu_torch, thermoextrap_tpu_torch.ops.moments_cuda; "
@@ -266,7 +283,6 @@ def test_port_never_imports_jax():
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'thermoextrap_tpu', 'orbax', 'sympy')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
-    root = Path(__file__).resolve().parent.parent
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

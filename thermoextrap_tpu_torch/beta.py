@@ -124,7 +124,19 @@ def factory_extrapmodel(
     post_func=None,
     minus_log: bool = False,
 ) -> ExtrapModel:
-    """ExtrapModel for the β expansion of a named observable of ``data``."""
+    """ExtrapModel for the β expansion of a named observable of ``data``.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from thermoextrap_tpu_torch import factory_data_values
+    >>> uv = np.array([1.0, 2.0, 3.0, 4.0])
+    >>> xv = np.array([2.0, 4.0, 6.0, 8.0])
+    >>> data = factory_data_values(uv=uv, xv=xv, order=2, central=True)
+    >>> model = factory_extrapmodel(1.0, data)
+    >>> float(model.predict(1.0))  # at beta0: <x>
+    5.0
+    """
     if xalpha is None:
         xalpha = data.xalpha
     if central is None:

@@ -18,6 +18,7 @@ so that :mod:`.utils.checkpoint` saves any state built of them.
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 import json
 import os
@@ -41,11 +42,14 @@ from .utils.device import default_device
 from .utils.random import validate_rng
 
 __all__ = [
+    "AbstractData",
     "DataCallback",
     "DataCallbackABC",
     "DataCentralMoments",
+    "DataCentralMomentsBase",
     "DataCentralMomentsVals",
     "DataValues",
+    "DataValuesBase",
     "DataValuesCentral",
     "factory_data_values",
 ]
@@ -976,8 +980,44 @@ def factory_data_values(
     meta=None,
     **_kws,
 ):
-    """DataValues or DataValuesCentral, by ``central``."""
+    """DataValues or DataValuesCentral, by ``central``.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> uv = np.array([1.0, 2.0, 3.0, 4.0])
+    >>> xv = np.array([2.0, 4.0, 6.0, 8.0])
+    >>> d = factory_data_values(uv=uv, xv=xv, order=2, central=True)
+    >>> float(d.uave), float(d.xave)
+    (2.5, 5.0)
+    >>> [float(v) for v in d.du]  # du[0]=1, du[1]=0, du[2]=Var[u]
+    [1.0, 0.0, 1.25]
+    """
     cls = DataValuesCentral if central else DataValues
     return cls.from_vals(
         xv, uv, order, weight=weight, central=central, xalpha=xalpha, x_is_u=x_is_u, meta=meta
     )
+
+
+# Virtual bases of the JAX package's data module: reference-style
+# ``isinstance(data, AbstractData)`` checks hold on the port's two concrete
+# classes without making them share an implementation.
+
+
+class AbstractData(abc.ABC):
+    """Virtual common base of every data class."""
+
+
+class DataValuesBase(abc.ABC):
+    """Virtual base of the value-backed classes."""
+
+
+class DataCentralMomentsBase(abc.ABC):
+    """Virtual base of the moment-backed classes."""
+
+
+AbstractData.register(DataValues)
+AbstractData.register(DataCentralMoments)
+DataValuesBase.register(DataValues)
+DataCentralMomentsBase.register(DataCentralMoments)
+DataCentralMomentsBase.register(DataCentralMomentsVals)

@@ -47,7 +47,11 @@ def _f64(v):
 
 
 def x_ave(beta, vol=1.0):
-    """<x> at inverse temperature beta."""
+    """<x> at inverse temperature beta.
+
+    >>> round(float(x_ave(1.0)), 6)
+    0.418023
+    """
     beta = _f64(beta)
     return 1.0 / beta - vol / (torch.exp(beta * vol) - 1.0)
 

@@ -43,7 +43,11 @@ def set_impl(impl: str | None) -> None:
 
 @contextlib.contextmanager
 def use_impl(impl: str | None):
-    """Scoped :func:`set_impl`, restored on exit."""
+    """Scoped :func:`set_impl`, restored on exit.
+
+    >>> with use_impl("torch"):
+    ...     pass  # calls in here take the plain torch path
+    """
     prev = _FORCE
     set_impl(impl)
     try:

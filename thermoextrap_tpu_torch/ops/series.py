@@ -51,7 +51,10 @@ def _unit(like, order: int):
 def series_mul(a, b, order: int | None = None):
     """Cauchy product ``c[n] = sum_k a[k] b[n-k]``, truncated at ``order``.
 
-    >>> [float(c) for c in series_mul(torch.tensor([1.0, 2.0]), torch.tensor([1.0, 1.0, 1.0]))]
+    >>> import torch
+    >>> a = torch.tensor([1.0, 2.0])  # 1 + 2x
+    >>> b = torch.tensor([1.0, 1.0, 1.0])  # 1 + x + x^2
+    >>> [float(c) for c in series_mul(a, b)]
     [1.0, 3.0, 3.0, 2.0]
     """
     ka, kb = a.shape[0] - 1, b.shape[0] - 1
@@ -69,7 +72,14 @@ def series_mul(a, b, order: int | None = None):
 
 
 def series_div(a, b, order: int | None = None):
-    """Series division ``c = a / b``: ``c[n] = (a[n] - sum_{k>=1} b[k] c[n-k]) / b[0]``."""
+    """Series division ``c = a / b``: ``c[n] = (a[n] - sum_{k>=1} b[k] c[n-k]) / b[0]``.
+
+    >>> import torch
+    >>> a = torch.tensor([1.0, 3.0, 3.0, 2.0])  # (1 + 2x)(1 + x + x^2)
+    >>> b = torch.tensor([1.0, 1.0, 1.0])
+    >>> [float(c) for c in series_div(a, b)]
+    [1.0, 2.0, 0.0, 0.0]
+    """
     if order is None:
         order = a.shape[0] - 1
     kb = b.shape[0] - 1

@@ -287,7 +287,10 @@ def _rec_map(fn, arrs, mesh, axis_name: str = "rec"):
 
 
 def _all_sum(t, mesh, axis_name: str):
-    """Sum ``t`` over the ranks of the mesh axis ``axis_name``, in place."""
+    """Sum ``t`` over the ranks of the mesh axis ``axis_name``; returns the
+    sum (``t`` itself when it is contiguous: NCCL reduces only contiguous
+    tensors, and the batched bootstrap's ``einsum`` output is not one)."""
+    t = t.contiguous()
     dist.all_reduce(t, group=mesh.get_group(axis_name))
     return t
 

@@ -139,6 +139,16 @@ def make_extrap_pipeline(
     and a mesh ignore it.
 
     ``run`` returns ``pred (A, *val)`` or ``(pred, std)``, float64.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> run = make_extrap_pipeline(order=2, beta0=1.0)
+    >>> uv = np.array([1.0, 2.0, 3.0, 4.0])
+    >>> xv = np.array([[2.0], [4.0], [6.0], [8.0]])
+    >>> pred = run(uv, xv, np.array([1.0]))  # at beta0: <x>
+    >>> float(pred[0, 0])
+    5.0
     """
     if x_is_u and xalpha:
         msg = "x_is_u and xalpha are mutually exclusive"
@@ -344,6 +354,16 @@ def make_volume_pipeline(
     ``weighted``: ``run`` takes a per-sample weight after ``volumes``.
     ``bf16``: stream CUDA samples as bfloat16.  ``run`` returns ``pred (A,
     *val)`` or ``(pred, std)``, float64.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> run = make_volume_pipeline(1.0, ndim=1)
+    >>> wv = np.array([1.0, 2.0, 3.0, 4.0])
+    >>> xv = 2.0 * wv
+    >>> pred = run(wv, xv, np.zeros(4), np.array([1.0]))  # at V0: <x>
+    >>> float(pred[0])
+    5.0
     """
     order = 1  # higher orders would need force derivatives
     v0d = float(volume0) * float(ndim)
@@ -500,6 +520,14 @@ def make_perturb_pipeline(
     ``run`` maps ``uv (R,)``, ``xv (R, *val)``, ``betas (A,)`` to ``pred (A,
     *val)`` or ``(pred, std)``, float64.  A target or replicate of zero
     total weight gives NaN (0/0 at the normalization).
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> run = make_perturb_pipeline(1.0)
+    >>> uv = np.array([0.5, 1.0, 1.5, 2.0])
+    >>> pred = run(uv, 3.0 * uv, np.array([1.0]))  # at beta0: plain mean
+    >>> np.testing.assert_allclose(pred[0].item(), np.mean(3.0 * uv))
     """
     if poisson not in ("table", "device"):
         msg = f"poisson must be 'table' or 'device', got {poisson!r}"
@@ -679,6 +707,15 @@ def make_streaming_extrap_pipeline(
     weight=None) -> state`` (``update(state, uv, weight=None)`` with
     ``x_is_u``) and ``predict(state, betas) -> (A, *val_shape)`` float64, or
     ``(pred, std)``.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> state, update, predict = make_streaming_extrap_pipeline(2, 1.0)
+    >>> state = update(state, np.array([1.0, 2.0]), np.array([2.0, 4.0]))
+    >>> state = update(state, np.array([3.0, 4.0]), np.array([6.0, 8.0]))
+    >>> float(predict(state, np.array([1.0]))[0])  # <x> at beta0
+    5.0
     """
     if x_is_u and xalpha:
         msg = "x_is_u and xalpha are mutually exclusive"
@@ -984,6 +1021,16 @@ def make_streaming_volume_pipeline(
     weight=None) -> state`` (``wv (chunk,)`` the temperature-scaled virial,
     ``xv`` / ``dxdqv (chunk, *val_shape)``) and ``predict(state, volumes) ->
     (A, *val_shape)`` float64, or ``(pred, std)`` when ``nrep > 0``.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> state, update, predict = make_streaming_volume_pipeline(1.0, ndim=1)
+    >>> wv = np.array([1.0, 2.0, 3.0, 4.0])
+    >>> state = update(state, wv[:2], 2.0 * wv[:2], np.zeros(2))
+    >>> state = update(state, wv[2:], 2.0 * wv[2:], np.zeros(2))
+    >>> float(predict(state, np.array([1.0]))[0])  # <x> at V0
+    5.0
     """
     val_shape = tuple(val_shape)
     v0d = float(volume0) * float(ndim)
@@ -1079,6 +1126,17 @@ def make_streaming_perturb_pipeline(
     ``(state0, update, predict)``: ``update(state, uv, xv, weight=None) ->
     state`` (zero weights drop samples exactly) and ``predict(state) -> (A,
     *val_shape)`` float64, or ``(pred, std)``.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> st, update, predict = make_streaming_perturb_pipeline(
+    ...     1.0, np.array([1.0])
+    ... )
+    >>> st = update(st, np.array([1.0, 2.0]), np.array([2.0, 4.0]))
+    >>> st = update(st, np.array([3.0, 4.0]), np.array([6.0, 8.0]))
+    >>> float(predict(st)[0])  # at beta0: plain mean
+    5.0
     """
     device = default_device() if device is None else torch.device(device)
     val_shape = tuple(val_shape)

@@ -45,7 +45,8 @@ Examples
 >>> art = export_extrap_pipeline(order=2, beta0=1.0)
 >>> uv = np.array([1.0, 2.0, 3.0, 4.0], np.float32)
 >>> xv = np.array([[2.0], [4.0], [6.0], [8.0]], np.float32)
->>> float(art(uv, xv, np.array([1.0], np.float32))[0, 0])
+>>> pred = art(uv, xv, np.array([1.0], np.float32))
+>>> float(pred[0, 0])
 5.0
 """
 

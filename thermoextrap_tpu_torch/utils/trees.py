@@ -9,16 +9,82 @@ is a subtree (its tensors are leaves).  The structure keeps the static fields
 and the types, so :func:`tree_unflatten` rebuilds the state from new leaves,
 as :mod:`.checkpoint` does on restore.  Python numbers are leaves: a
 streaming state ``(mean, rep, step)`` keeps its chunk counter ``step``.
+
+:func:`pytree_dataclass` makes such a dataclass (frozen, with
+``__tree_meta__`` set), and :func:`replace` / :func:`asdict` are the JAX
+package's helpers of the same names.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+import weakref
+from typing import Any, NamedTuple, TypeVar
 
 import torch
 
-__all__ = ["TreeDef", "tree_flatten", "tree_unflatten"]
+__all__ = ["TreeDef", "asdict", "pytree_dataclass", "replace", "tree_flatten", "tree_unflatten"]
+
+T = TypeVar("T")
+
+# class -> the meta_fields it was made with; a subclass is made on definition,
+# so decorating it again is the same split (a no-op) or an error
+_REGISTERED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def pytree_dataclass(cls: type[T] | None = None, *, meta_fields: tuple[str, ...] = ()):
+    """Class decorator: a frozen dataclass whose static fields are
+    ``meta_fields`` (its ``__tree_meta__``); every other field is a subtree of
+    :func:`tree_flatten`.
+
+    Subclasses are made frozen dataclasses with the same static fields when
+    they are defined, so an alias subclass flattens like its base.
+    Decorating such a subclass again with the same ``meta_fields`` changes
+    nothing; with other ``meta_fields`` it raises ``TypeError``.
+    """
+    meta = tuple(meta_fields)
+
+    def register(c: type) -> None:
+        prior = _REGISTERED.get(c)
+        if prior is not None:
+            if prior != meta:
+                msg = (
+                    f"{c.__name__} was already made a pytree dataclass with "
+                    f"meta_fields={prior} (inherited); re-decorating a subclass "
+                    f"with different meta_fields={meta} is not supported"
+                )
+                raise TypeError(msg)
+            return
+        c.__tree_meta__ = meta
+        _REGISTERED[c] = meta
+
+    def wrap(c: type[T]) -> type[T]:
+        # the subclass hook below may already have made c a dataclass
+        if "__dataclass_fields__" not in c.__dict__:
+            c = dataclasses.dataclass(frozen=True)(c)
+        register(c)
+
+        def __init_subclass__(sub, **kwargs):
+            super(c, sub).__init_subclass__(**kwargs)
+            dataclasses.dataclass(frozen=True)(sub)
+            register(sub)
+
+        c.__init_subclass__ = classmethod(__init_subclass__)
+        return c
+
+    if cls is None:
+        return wrap
+    return wrap(cls)
+
+
+def replace(obj: T, **changes: Any) -> T:
+    """``dataclasses.replace`` for the port's dataclasses."""
+    return dataclasses.replace(obj, **changes)
+
+
+def asdict(obj: Any) -> dict[str, Any]:
+    """Shallow dict of a dataclass's fields."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
 class TreeDef(NamedTuple):
