@@ -2,8 +2,8 @@
 """Drive the torch port's main path, its ensembles, the perturbation path, the
 streaming pipelines, the interpolation between states, MBAR, the file-fed
 ingest runtime, the trainers, the derivative GPR, its active-learning loop,
-the sharded path on a one-rank mesh and the serving artifacts once on an
-NVIDIA GPU.
+the sharded path on a one-rank mesh, the serving artifacts, the example CLIs
+and the documentation's code once on an NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and the CUDA toolkit (the kernels in
@@ -225,12 +225,29 @@ on any failure, without printing a result.  Phases, one line each:
     perturbation's table mode, which no example takes) must be launched by
     some script, ``multichip_sharding.py`` (the mesh route) must launch
     none, and so must the artifact section of ``streaming_serving.py``.
+30. the port's pages and the README on the card: each of the four
+    ``docs_torch/tutorial_*.md`` through ``doctest.testfile`` with the card
+    as the default device, in a temporary directory, with 0 failures, the
+    example count the CPU runs (``tests/test_torch_tutorials.py``) and the
+    launches ``TUTORIAL_PAGES`` pins (none in the serving page's artifact
+    section: its pin holds only the pipelines' K1 and K3); the README's card
+    block as written, one top-level statement at a time in a temporary
+    directory, each section's launches pinned by ``README_SECTIONS`` (none
+    in the artifact section), and each result held to a bar: the
+    predictions within 5 sigma of ``x_beta_extrap`` / ``x_ave`` / the
+    analytic lnPi, the GPs within max(4 sigma, 1e-3) of ``x_ave``, the
+    artifact on the card within 0.1 sigma of ``make_extrap_pipeline`` (K1 +
+    K3) on the same samples and seed, its sigma within 1e-3 relative, its
+    CPU call against its card call the same way, and the bundle against the
+    streaming pipeline; ``utils.timing.kchain_time``'s noise floor by CUDA
+    events and by the host clock, and one chained step well above it.  A
+    failed page or statement fails the run.
 
 Each K1, K2, K3 or K6 call must also launch the head-shift and the finalize
 kernel once, and each K4 or K5 call the head-shift and the u-moment finalize
-kernel once; phases 6, 11, 16, 20, 22, 23, 24, 25, 26 and 29 hold every path to that
+kernel once; phases 6, 11, 16, 20, 22, 23, 24, 25, 26, 29 and 30 hold every path to that
 (MBAR's paths and ``RecursiveInterp``'s raw route launch no kernel), and phases
-27, 28 and 29 every mesh and artifact call to no launch at all.  Each kernel's bound is the
+27, 28, 29 and 30 every mesh and artifact call to no launch at all.  Each kernel's bound is the
 least time the card could take for the same work: the larger of its bytes
 (inputs read once, outputs written once) over the memory rate and its
 operations over their peak rate, worked out from the shapes of this run.  The
@@ -243,6 +260,7 @@ at order 7; K3, K5 and K8 carry the draw's
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import json
 import math
@@ -377,6 +395,30 @@ EXAMPLE_KERNELS = {
     "lnpi_gpr_surface": {},
     "multichip_sharding": {},
 }
+# phase 30: the port's tutorial pages (docs_torch/), each run as a doctest with the
+# card as the default device: the examples it must run (the CPU's count,
+# tests/test_torch_tutorials.py's ATTEMPTED) and its kernel launches (a kernel it
+# does not name must launch 0 times; None: at least once, where the count follows
+# the data); and the README's card block (the python block of README.md that makes
+# samples with device="cuda"), one section (lines up to a blank line) at a time,
+# keyed by its first line, each with its launches
+TUTORIAL_PAGES = {
+    "tutorial_beta_extrap.md": (32, {"K1": 2, "K6": 1}),
+    "tutorial_lnpi.md": (43, {"K4": 6, "K5": 1}),
+    "tutorial_gpr_active.md": (38, {"K1": 8, "K2": 9}),
+    "tutorial_serving.md": (47, {"K1": 10, "K3": 1}),
+}
+README_SECTIONS = {
+    "import numpy as np": ("readme_imports", {}),
+    "x, u = idealgas.generate_data(": ("readme_quick_start", {"K1": 1, "K6": 1}),
+    "# lnΠ over 64 macrostates": ("readme_lnpi", {"K4": 1, "K5": 1}),
+    "# perturbation reweighting": ("readme_perturb", {"K8": 1}),
+    "# streaming": ("readme_streaming", {"K1": 10, "K3": 10}),
+    "# interpolation between two simulations": ("readme_interp", {"K1": 2, "K3": 2}),
+    "# derivative-informed GPR": ("readme_gpr", {"K1": 5, "K2": 5}),
+    "# the reference's active-learning loop": ("readme_active_loop", {"K1": None, "K2": None}),
+    "# a serving artifact": ("readme_artifacts", {}),
+}
 
 # Published peaks of one H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores (33.5e12 FMA/s), and 32-bit integer operations/s: an SM has 64
@@ -473,6 +515,17 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _launches_match(counts: dict, want: dict) -> bool:
+    """``counts`` launched the kernels of ``want`` (None: at least once) and no
+    other, each K1 / K2 / K3 / K6 launch with one head shift and one finalize,
+    each K4 / K5 launch with one head shift and one u-moment finalize."""
+    kernels = {k: v for k, v in counts.items() if k.startswith("K")}
+    if any(v != want.get(k, 0) and not (want.get(k, 0) is None and v > 0) for k, v in kernels.items()):
+        return False
+    helpers = (counts["K1"] + counts["K2"] + counts["K3"] + counts["K6"], counts["K4"] + counts["K5"])
+    return (counts["finalize"], counts["finalize_u"], counts["head_shift"]) == (helpers[0], helpers[1], sum(helpers))
+
+
 def run_examples(say, card: str) -> dict:
     """Phase 29: every script of ``examples_torch/`` once at full size, each a
     child of this interpreter; returns ``{script: closing record}``."""
@@ -505,14 +558,8 @@ def run_examples(say, card: str) -> dict:
         if rec.get("example") != name or rec.get("smoke") is not False or "launches" not in rec:
             raise AssertionError(f"examples_torch/{name}.py printed no closing line at full size:\n{proc.stdout[-3000:]}")
         launches = rec["launches"]
-        kernels = {k: v for k, v in launches.items() if k.startswith("K")}
-        need = EXAMPLE_KERNELS[name]
-        if any(v != need.get(k, 0) and not (need.get(k, 0) is None and v > 0) for k, v in kernels.items()):
-            raise AssertionError(f"{name}: launched {kernels}, its path takes {need}")
-        k = launches
-        helpers = (k["K1"] + k["K2"] + k["K3"] + k["K6"], k["K4"] + k["K5"])
-        if (k["finalize"], k["finalize_u"], k["head_shift"]) != (helpers[0], helpers[1], sum(helpers)):
-            raise AssertionError(f"{name}: helper launches {k} do not match its kernels")
+        if not _launches_match(launches, EXAMPLE_KERNELS[name]):
+            raise AssertionError(f"{name}: launched {launches}, its path takes {EXAMPLE_KERNELS[name]}")
         if name == "streaming_serving":
             art = [json.loads(ln) for ln in lines if "artifact_launches" in ln]
             if len(art) != 1 or any(art[0]["artifact_launches"].values()):
@@ -536,6 +583,195 @@ def run_examples(say, card: str) -> dict:
         raise AssertionError(f"no example launched {missing}: {total}")
     say(29, card=card, scripts=len(records), launches=total, phase29_s=time.perf_counter() - t0)
     return records
+
+
+def _readme_card_block(root: str) -> list[tuple[str, str]]:
+    """The README's card block as ``[(first line, section source), ...]``."""
+    text = open(os.path.join(root, "README.md"), encoding="utf-8").read()
+    blocks = [b.split("```", 1)[0] for b in text.split("```python\n")[1:]]
+    card = [b for b in blocks if 'device="cuda"' in b]
+    if len(card) != 1:
+        raise AssertionError(f"README.md holds {len(card)} python blocks with device=\"cuda\", expected 1")
+    sections = [s.strip("\n") for s in card[0].split("\n\n") if s.strip()]
+    return [(s.splitlines()[0], s) for s in sections]
+
+
+def run_docs(say, card: str) -> dict:
+    """Phase 30: the four tutorial pages of ``docs_torch/`` as doctests on the
+    card, the README's card block section by section with a bar on each
+    result, and ``kchain_time``'s noise floor; returns ``{path: launches}``."""
+    import ast
+    import doctest
+
+    import numpy as np
+    import torch
+
+    import thermoextrap_tpu_torch as xt
+    from thermoextrap_tpu_torch import idealgas
+    from thermoextrap_tpu_torch.ops import moments_cuda as mc
+    from thermoextrap_tpu_torch.pipeline import make_extrap_pipeline
+    from thermoextrap_tpu_torch.utils import timing
+
+    t30 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    dev = xt.default_device()
+    if dev.type != "cuda":
+        raise AssertionError(f"the default device is {dev}, the pages must run on the card")
+    launches = {}
+    faults = []  # page and launch faults, raised together at the end of the phase
+
+    # (a) the tutorial pages
+    pages = sorted(p for p in os.listdir(os.path.join(root, "docs_torch")) if p.startswith("tutorial_"))
+    if pages != sorted(TUTORIAL_PAGES):
+        raise AssertionError(f"docs_torch holds {pages}, the phase expects {sorted(TUTORIAL_PAGES)}")
+    flags = doctest.ELLIPSIS | doctest.NORMALIZE_WHITESPACE
+    for page in pages:
+        attempted, want = TUTORIAL_PAGES[page]
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            torch.cuda.synchronize()
+            mc.reset_launches()
+            t = time.perf_counter()
+            res = doctest.testfile(os.path.join(root, "docs_torch", page), module_relative=False, optionflags=flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = dict(mc.LAUNCHES)
+        launches[f"doc_{page[:-3]}"] = counts
+        say(30, page=page, wall_s=wall, attempted=res.attempted, failed=res.failed,
+            launches={k: v for k, v in counts.items() if v})
+        if res.failed or res.attempted != attempted:
+            faults.append(f"{page}: {res.failed} of {res.attempted} examples failed (the CPU runs {attempted})")
+        if not _launches_match(counts, want):
+            faults.append(f"{page}: launched {counts}, its path takes {want}")
+
+    # (b) the README's card block, as written, one top-level statement at a time
+    sections = _readme_card_block(root)
+    keys = [next((k for k in README_SECTIONS if first.startswith(k)), first) for first, _ in sections]
+    if keys != list(README_SECTIONS):
+        raise AssertionError(f"README card block sections {keys}, expected {list(README_SECTIONS)}")
+    sections = [(k, src) for k, (_, src) in zip(keys, sections)]
+    ns, got = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        for key, src in sections:
+            torch.cuda.synchronize()
+            mc.reset_launches()
+            t = time.perf_counter()
+            vals = got[key] = []  # each expression's value and each assignment's names, in order
+            slow = []  # (seconds, first line) of each statement, host clock after a synchronize
+            for stmt in ast.parse(src).body:
+                ts = time.perf_counter()
+                if isinstance(stmt, ast.Expr):
+                    vals.append(eval(compile(ast.Expression(stmt.value), "README.md", "eval"), ns))
+                else:
+                    exec(compile(ast.Module([stmt], type_ignores=[]), "README.md", "exec"), ns)
+                    if isinstance(stmt, ast.Assign):
+                        names = [n.id for tgt in stmt.targets for n in ast.walk(tgt) if isinstance(n, ast.Name)]
+                        vals.append({n: ns[n] for n in names})
+                torch.cuda.synchronize()
+                slow.append((time.perf_counter() - ts, ast.get_source_segment(src, stmt).splitlines()[0][:60]))
+            counts = dict(mc.LAUNCHES)
+            path, want = README_SECTIONS[key]
+            launches[path] = counts
+            say(30, readme_section=path, wall_s=time.perf_counter() - t, launches={k: v for k, v in counts.items() if v},
+                slowest=sorted(slow, reverse=True)[:3])
+            if not _launches_match(counts, want):
+                faults.append(f"README section {key!r}: launched {counts}, it takes {want}")
+        wrote = sorted(os.listdir(tmp))
+
+    def f64(a):
+        return torch.as_tensor(a).detach().double().cpu().reshape(-1)
+
+    def held(name, pred, std, truth, k, floor=1e-6):
+        """|pred - truth| <= k std + floor, entry by entry; returns the largest |pred - truth| / std."""
+        pred, std, truth = f64(pred), f64(std), f64(truth)
+        ok = bool(torch.isfinite(pred).all()) and pred.shape == truth.shape == std.shape
+        if not ok or not bool(((pred - truth).abs() <= k * std + floor).all()):
+            raise AssertionError(f"README {name}: {pred.tolist()} vs {truth.tolist()} beyond {k} sigma {std.tolist()}")
+        return float(((pred - truth).abs() / std.clamp_min(1e-300)).max())
+
+    def sigma_close(name, std, ref, rtol):
+        rel = float(((f64(std) - f64(ref)).abs() / f64(ref)).max())
+        if not rel <= rtol:
+            raise AssertionError(f"README {name}: sigma {f64(std).tolist()} vs {f64(ref).tolist()} ({rel} relative)")
+        return rel
+
+    def assigned(key, name, i=0):
+        """The ``i``-th value assigned to ``name`` in the section ``key``."""
+        return [v[name] for v in got[key] if isinstance(v, dict) and name in v][i]
+
+    order, beta0 = 6, 5.6
+    pair = (5.2, 6.0)
+    series = lambda bs: torch.stack([idealgas.x_beta_extrap(order, beta0, b)[0] for b in bs])  # noqa: E731
+    exact = lambda bs: torch.stack([idealgas.x_ave(b) for b in bs])  # noqa: E731
+    bars = {}
+    qpred, qstd = [v for v in got["x, u = idealgas.generate_data("] if not isinstance(v, dict)]
+    bars["quick_start_z"] = held("quick start", qpred, qstd, series(pair), 5)
+    # lnΠ: lnΠ0 + μN Δβ − N ∫ <x> dβ, the series of <x> integrated term by term (phase 10)
+    key = "# lnΠ over 64 macrostates"
+    n = f64(assigned(key, "n"))
+    dalpha = torch.tensor(pair, dtype=torch.float64) - beta0
+    c = idealgas._xave_series(beta0, 1.0, order - 1)
+    integral = sum(c[k] * dalpha ** (k + 1) / (k + 1) for k in range(order))
+    ltruth = (0.3 * n)[None] * dalpha[:, None] - n[None] * integral[:, None]
+    bars["lnpi_z"] = held("lnPi", assigned(key, "pred"), assigned(key, "std"), ltruth, 5)
+    key = "# perturbation reweighting"
+    bars["perturb_z"] = held("perturbation", assigned(key, "pred"), assigned(key, "std"), exact(pair), 5)
+    key = "# streaming"
+    spred, sstd = assigned(key, "pred"), assigned(key, "std")
+    bars["streaming_z"] = held("streaming", spred, sstd, series(pair), 5)
+    key = "# interpolation between two simulations"
+    bars["interp_z"] = held("interpolation", assigned(key, "pred"), assigned(key, "std"), exact((5.4, 5.6, 5.8)), 5)
+    key = "# derivative-informed GPR"
+    grid = np.linspace(0.5, 2.5, 200)
+    mean, var = assigned(key, "mean"), assigned(key, "var")
+    gp_sd = np.maximum(4.0 * np.sqrt(np.asarray(var)[:, 0]), 1e-3)
+    bars["gpr_4sigma"] = held("GPR", mean, gp_sd, exact(grid), 1.0, floor=0.0)
+    key = "# the reference's active-learning loop"
+    grid = np.linspace(0.5, 2.5, 1000)
+    var32 = f64(assigned(key, "var32")).numpy()
+    bars["active_4sigma"] = held("active loop", assigned(key, "mean32"), np.maximum(4.0 * np.sqrt(var32), 1e-3), exact(grid), 1.0, floor=0.0)
+    # the artifact against the kernel route on the same samples and seed (its counts are K3's)
+    key = "# a serving artifact"
+    info = [v for v in got[key] if isinstance(v, dict) and "family" in v]
+    if len(info) != 1 or info[0]["family"] != "extrap" or sorted(wrote) != ["ckpt", "extrap.thexport"]:
+        raise AssertionError(f"README artifact: header {info}, files written {wrote}")
+    u6, x6 = assigned(key, "u6"), assigned(key, "x6")
+    mc.reset_launches()
+    kpred, kstd = make_extrap_pipeline(order=order, beta0=beta0, nrep=256)(u6, x6, list(pair), seed=7)
+    torch.cuda.synchronize()
+    launches["readme_artifact_kernel_route"] = dict(mc.LAUNCHES)
+    apred, astd = assigned(key, "pred", 0), assigned(key, "std", 0)
+    cpred, cstd = assigned(key, "pred", 1), assigned(key, "std", 1)
+    bpred, bstd = assigned(key, "pred", 2), assigned(key, "std", 2)
+    if not (apred.is_cuda and cpred.device.type == "cpu" and bpred.is_cuda):
+        raise AssertionError(f"README artifact: outputs on {apred.device}, {cpred.device}, {bpred.device}")
+    bars["artifact_vs_k1_k3_z"] = held("artifact vs the kernel route", apred, kstd, kpred, 0.1)
+    bars["artifact_sigma_vs_k3_rel"] = sigma_close("artifact vs K3", astd, kstd, ART_SIGMA_RTOL)
+    bars["artifact_cpu_vs_card_z"] = held("artifact on the CPU vs the card", cpred, astd, apred, 0.1)
+    bars["artifact_cpu_sigma_rel"] = sigma_close("artifact on the CPU vs the card", cstd, astd, ART_SIGMA_RTOL)
+    bars["bundle_vs_k3_stream_z"] = held("bundle vs the streaming pipeline", bpred, sstd, spred, 0.1)
+    bars["bundle_sigma_vs_k3_stream_rel"] = sigma_close("bundle vs the streaming pipeline", bstd, sstd, ART_SIGMA_RTOL)
+
+    # (c) kchain_time's noise floor on the card (CUDA events) and on this host's clock,
+    # and one chained step well above it: x + 1 on 2^26 float32 numbers (a read and a
+    # write of 256 MiB a step)
+    floors = [timing._noise_floor(d) for d in ("cuda", "cpu")]
+    big = torch.zeros(1 << 26, device=dev)
+    step_s, (out,) = timing.kchain_time(lambda a: a + 1.0, (big,), k_lo=4, k_hi=68)
+    if float(out[0]) != 68.0:
+        raise AssertionError(f"kchain_time's K_hi chain gave {float(out[0])}, not 68 applications")
+    say(
+        30,
+        card=card,
+        bars=bars,
+        kchain_noise_floor=floors,
+        kchain_step_ms=step_s * 1e3,
+        kchain_step_gbps=2 * 4 * big.numel() / step_s / 1e9,
+        phase30_s=time.perf_counter() - t30,
+    )
+    del ns, got, big
+    if faults:
+        raise AssertionError("phase 30: " + "; ".join(faults))
+    return launches
 
 
 def main() -> int:
@@ -3199,6 +3435,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # the children allocate on the same card
     examples = run_examples(say, card)
+
+    # -- phase 30: the tutorial pages and the README's card block on the card ------------
+    path_launches.update(run_docs(say, card))
 
     # each kernel's least time on this card at the shape it was timed at
     f4 = 4.0

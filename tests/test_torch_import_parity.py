@@ -118,14 +118,13 @@ def test_jax_module_surface_resolves_in_the_port(module):
 
 
 def test_shared_modules_cover_the_port():
-    """The parametrisation above sees every module but the three the port
-    replaces by other files (the Pallas kernels, the TPU timing helper and the
-    XLA fallback of the native engine)."""
+    """The parametrisation above sees every module but the two the port
+    replaces by other files (the Pallas kernels and the XLA fallback of the
+    native engine)."""
     jax_root = ROOT / "thermoextrap_tpu"
     every = {".".join(("thermoextrap_tpu", *p.relative_to(jax_root).with_suffix("").parts)).removesuffix(".__init__")
              for p in jax_root.rglob("*.py")}
     assert every - set(SHARED) == {
         "thermoextrap_tpu.ops.moments_pallas",
-        "thermoextrap_tpu.utils.timing",
         "thermoextrap_tpu.native._xla_fallback",
     }

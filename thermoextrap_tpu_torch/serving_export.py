@@ -52,10 +52,12 @@ Examples
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import math
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -178,7 +180,15 @@ class _Programs:
         if mod is None:
             from torch.export.passes import move_to_device_pass
 
-            ep = self.ep if device.type == "cpu" else move_to_device_pass(self.ep, device)
+            # the pass rewrites the program it is given in place: move a copy, so
+            # that the stored CPU program (the one saved, and the CPU's) stays
+            if device.type == "cpu":
+                ep = self.ep
+            else:
+                with warnings.catch_warnings():  # torch's own deprecation notes of its tree specs
+                    warnings.simplefilter("ignore", FutureWarning)
+                    ep = copy.deepcopy(self.ep)
+                ep = move_to_device_pass(ep, device)
             mod = self._mods[key] = ep.module()
         return mod
 
