@@ -38,8 +38,9 @@ from .ops.convert import (
     u_from_xu_when_x_is_u,
 )
 from .ops.resample import freq_from_indices, random_indices, resample_values
-from .utils.device import default_device
+from .utils.device import default_device, to_device
 from .utils.random import validate_rng
+from .utils.trace import span
 
 __all__ = [
     "AbstractData",
@@ -87,10 +88,11 @@ class DataCallback(DataCallbackABC):
 def _as_tensor(a, device=None):
     """numpy arrays, sequences and tensors → tensor (numpy keeps its type).
     With no ``device`` a tensor stays where it is and anything else goes to
-    :func:`.utils.device.default_device`."""
+    :func:`.utils.device.default_device` (onto a card through
+    :func:`.utils.device.to_device`, which counts the copy's wait)."""
     if isinstance(a, torch.Tensor):
         return a if device is None else a.to(device)
-    return torch.as_tensor(np.asarray(a), device=default_device() if device is None else device)
+    return to_device(np.asarray(a), default_device() if device is None else device)
 
 
 def _host_f64(a):
@@ -682,7 +684,8 @@ class DataCentralMoments:
         """Exactly pool this moment state with ``others`` (each weighted by
         its ``wsum``), as if all their samples had been reduced in one shot.
         Batch axes are kept and pooled elementwise; ``xalpha`` is supported
-        for flat states.  The result keeps this state's dtype and device."""
+        for flat states.  The result keeps this state's dtype and device.
+        The pooling is a ``te.merge`` span."""
         states = (self, *others)
         for o in others:
             same = (
@@ -704,19 +707,19 @@ class DataCentralMoments:
             like = getattr(self, name)
             return torch.stack([getattr(s, name).to(like) for s in states], dim=dim)
 
-        # the states' axis leads the means and weights and follows the moment
-        # axis; an xalpha deriv axis stays behind it as one more value axis
-        dxdu = stack("dxdu", 1)
-        du = torch.stack(
-            [_pad_val(s.du, s.dxdu.ndim - s.du.ndim).to(self.du) for s in states], dim=1
-        )
-        xave, uave, du, dxdu, wsum = merge_central_comoments(
-            stack("xave", 0), stack("uave", 0), du, dxdu, stack("wsum", 0), axis=0
-        )
-        du = du.reshape((self.order + 1, *uave.shape) + (1,) * self.val_ndim)
-        return dataclasses.replace(
-            self, xave=xave, uave=uave, du=du, dxdu=dxdu, wsum=wsum, meta=self.meta.reduce(self)
-        )
+        with span("te.merge"):
+            # the states' axis leads the means and weights and follows the
+            # moment axis; an xalpha deriv axis stays behind it as one more
+            # value axis
+            dxdu = stack("dxdu", 1)
+            du = torch.stack([_pad_val(s.du, s.dxdu.ndim - s.du.ndim).to(self.du) for s in states], dim=1)
+            xave, uave, du, dxdu, wsum = merge_central_comoments(
+                stack("xave", 0), stack("uave", 0), du, dxdu, stack("wsum", 0), axis=0
+            )
+            du = du.reshape((self.order + 1, *uave.shape) + (1,) * self.val_ndim)
+            return dataclasses.replace(
+                self, xave=xave, uave=uave, du=du, dxdu=dxdu, wsum=wsum, meta=self.meta.reduce(self)
+            )
 
     def push_vals(self, xv, uv, *, weight=None):
         """Streaming update: reduce one chunk of samples (``xv`` is ignored

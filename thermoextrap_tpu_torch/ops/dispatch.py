@@ -25,6 +25,7 @@ import contextlib
 
 import torch
 
+from ..utils.trace import span
 from . import moments, moments_autograd, resample
 
 __all__ = ["reduce_central", "reduce_central_u", "reduce_raw", "resample_central", "set_impl", "use_impl"]
@@ -82,29 +83,33 @@ def reduce_central(uv, xv, order, weight=None, val_ndim=1, x_is_u=False):
     ``xv (*batch, R, *val)``; the contract of
     :func:`.moments.reduce_central_comoments`.  With ``x_is_u`` (or ``xv is
     uv``) the kernel route reads u once: K4 at ``order + 1`` gives the
-    comoments by the shift view ``dxdu[n] = du[n+1]``."""
-    if _use_native(uv, xv, weight):
-        # comoments of (u, u-shaped x) already satisfy the x_is_u contract
-        return _native("reduce_central_comoments", uv, xv, order, weight=weight, val_ndim=val_ndim)
-    if _use_kernels(uv):
-        if x_is_u or xv is uv:
-            uave, du_full = moments_autograd.reduce_central_umoments_batched_ad(uv, weight, order + 1)
-            return uave, uave, du_full[: order + 1], du_full[1 : order + 2]
-        if uv.ndim == 1:
-            return moments_autograd.reduce_central_comoments_fused_ad(uv, xv, weight, order)
-        return moments_autograd.reduce_central_comoments_batched_ad(uv, xv, weight, order)
-    return moments.reduce_central_comoments(uv, xv, order, weight=weight, val_ndim=val_ndim)
+    comoments by the shift view ``dxdu[n] = du[n+1]``.  A ``te.reduce``
+    span."""
+    with span("te.reduce"):
+        if _use_native(uv, xv, weight):
+            # comoments of (u, u-shaped x) already satisfy the x_is_u contract
+            return _native("reduce_central_comoments", uv, xv, order, weight=weight, val_ndim=val_ndim)
+        if _use_kernels(uv):
+            if x_is_u or xv is uv:
+                uave, du_full = moments_autograd.reduce_central_umoments_batched_ad(uv, weight, order + 1)
+                return uave, uave, du_full[: order + 1], du_full[1 : order + 2]
+            if uv.ndim == 1:
+                return moments_autograd.reduce_central_comoments_fused_ad(uv, xv, weight, order)
+            return moments_autograd.reduce_central_comoments_batched_ad(uv, xv, weight, order)
+        return moments.reduce_central_comoments(uv, xv, order, weight=weight, val_ndim=val_ndim)
 
 
 def reduce_central_u(uv, order, weight=None):
     """Central u-moments ``(uave (*batch,), du (order+1, *batch))`` of every
-    row of ``uv (*batch, R)``: K4, or the float64 two-pass."""
-    if _use_native(uv, weight):
-        _x, uave, du, _dxdu = _native("reduce_central_comoments", uv, uv, order, weight=weight, val_ndim=0)
-        return uave, du
-    if _use_kernels(uv):
-        return moments_autograd.reduce_central_umoments_batched_ad(uv, weight, order)
-    return moments.reduce_central_umoments(uv, order, weight=weight)
+    row of ``uv (*batch, R)``: K4, or the float64 two-pass.  A
+    ``te.reduce`` span."""
+    with span("te.reduce"):
+        if _use_native(uv, weight):
+            _x, uave, du, _dxdu = _native("reduce_central_comoments", uv, uv, order, weight=weight, val_ndim=0)
+            return uave, du
+        if _use_kernels(uv):
+            return moments_autograd.reduce_central_umoments_batched_ad(uv, weight, order)
+        return moments.reduce_central_umoments(uv, order, weight=weight)
 
 
 def reduce_raw(uv, xv, order, weight=None, val_ndim=1):

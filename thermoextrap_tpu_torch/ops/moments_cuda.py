@@ -63,6 +63,7 @@ import math
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .convert import fix_central_du, fix_central_dxdu, shift_raw_comoments, shift_raw_moments
 from .resample import POISSON1_THRESHOLDS, _philox4x32_10, philox_poisson1_counts, seed_tensor, signed64  # noqa: F401
@@ -101,7 +102,7 @@ __all__ = [
 
 HEAD_N = 8192  # samples behind the shift estimate
 MAX_ORDER = 15  # TX_MAX_ORDER of csrc/common.cuh
-LAUNCHES = {
+LAUNCHES = trace.register("launches", {
     "K1": 0,
     "K2": 0,
     "K3": 0,
@@ -113,7 +114,7 @@ LAUNCHES = {
     "head_shift": 0,  # helper kernels (csrc/finalize.cu): of every wrapper but K7 / K8
     "finalize": 0,  # of the K1 / K2 / K3 / K6 wrappers
     "finalize_u": 0,  # of the K4 / K5 wrappers
-}
+})
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu (K1, K4, K6)
 _URS_THREADS = 256  # TX_URS_THREADS of resample_tile.cuh (K2, K3, K5, K7, K8)

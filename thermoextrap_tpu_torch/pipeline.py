@@ -51,8 +51,9 @@ from .models.extrap import _interp_eval, _interp_fit, _poly_eval, _weighted_sums
 from .ops import dispatch, moments, moments_cuda, resample
 from .ops.series import derivs_from_coefs, series_neg_log
 from .parallel import sharded
-from .utils.device import default_device, host_numpy
+from .utils.device import default_device, host_numpy, to_device
 from .utils.random import validate_rng
+from .utils.trace import call, span
 
 __all__ = [
     "bucket_pad",
@@ -159,7 +160,7 @@ def make_extrap_pipeline(
         return series_neg_log(c) if minus_log else c
 
     def _betas(betas, device):
-        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
+        betas = torch.atleast_1d(to_device(betas, device, torch.float64))
         return betas, betas - beta0
 
     def _run(uv, xv, betas, weight, seed):
@@ -189,34 +190,41 @@ def make_extrap_pipeline(
             moments = dispatch.reduce_central(uv, xflat, order, weight=weight)
         else:
             moments = sharded.reduce_central_comoments_sharded(uv, xv, order, mesh, weight=weight)
-        xave, _uave, du, dxdu = (t.double() for t in moments)
-        xave, dxdu = xave.reshape(-1), dxdu.reshape(order + 1, -1)
-        if xalpha:
-            coefs = _xalpha_mean_coefs(xave, du[:, None], dxdu, order)
-        else:
-            coefs = central_x_ave_coefs(xave, du[:, None], dxdu, order)
-        pred = _poly_eval(_post(coefs), dalpha).reshape(betas.shape + val_shape)
+        with span("te.coefs"):
+            xave, _uave, du, dxdu = (t.double() for t in moments)
+            xave, dxdu = xave.reshape(-1), dxdu.reshape(order + 1, -1)
+            if xalpha:
+                coefs = _xalpha_mean_coefs(xave, du[:, None], dxdu, order)
+            else:
+                coefs = central_x_ave_coefs(xave, du[:, None], dxdu, order)
+            coefs = _post(coefs)
+        with span("te.taylor"):
+            pred = _poly_eval(coefs, dalpha).reshape(betas.shape + val_shape)
         if not nrep:
             return pred
 
-        if mesh is not None:
-            freq = _multinomial_freq(seed, nrep, r, mesh_device)
-            boot = sharded._full(*sharded.resample_central_comoments_sharded(uv, xv, freq, order, mesh, weight=weight))
-        elif on_gpu:
-            boot = moments_cuda.resample_central_comoments_poisson(
-                uv, xflat, nrep, order, weight=weight, seed=seed
-            )
-        else:
-            freq = _multinomial_freq(seed, nrep, r, uv.device)
-            boot = resample.resample_central_comoments(uv, xflat, freq, order, weight=weight)
-        bx, _bu, bdu, bdxdu = (t.double() for t in boot)
-        bx, bdxdu = bx.reshape(nrep, -1), bdxdu.reshape(order + 1, nrep, -1)
-        if xalpha:
-            bcoefs = _xalpha_boot_coefs(bx, bdu[:, :, None], bdxdu, nrep, order)
-        else:
-            bcoefs = central_x_ave_coefs(bx, bdu[:, :, None], bdxdu, order)
-        bpred = _poly_eval(_post(bcoefs), dalpha)
-        std = bpred.std(dim=1, correction=0).reshape(betas.shape + val_shape)
+        with span("te.boot"):
+            if mesh is not None:
+                freq = _multinomial_freq(seed, nrep, r, mesh_device)
+                boot = sharded._full(*sharded.resample_central_comoments_sharded(uv, xv, freq, order, mesh, weight=weight))
+            elif on_gpu:
+                boot = moments_cuda.resample_central_comoments_poisson(
+                    uv, xflat, nrep, order, weight=weight, seed=seed
+                )
+            else:
+                freq = _multinomial_freq(seed, nrep, r, uv.device)
+                boot = resample.resample_central_comoments(uv, xflat, freq, order, weight=weight)
+        with span("te.coefs"):
+            bx, _bu, bdu, bdxdu = (t.double() for t in boot)
+            bx, bdxdu = bx.reshape(nrep, -1), bdxdu.reshape(order + 1, nrep, -1)
+            if xalpha:
+                bcoefs = _xalpha_boot_coefs(bx, bdu[:, :, None], bdxdu, nrep, order)
+            else:
+                bcoefs = central_x_ave_coefs(bx, bdu[:, :, None], bdxdu, order)
+            bcoefs = _post(bcoefs)
+        with span("te.taylor"):
+            bpred = _poly_eval(bcoefs, dalpha)
+            std = bpred.std(dim=1, correction=0).reshape(betas.shape + val_shape)
         return pred, std
 
     def _run_u(uv, betas, weight, seed):
@@ -230,19 +238,25 @@ def make_extrap_pipeline(
         uave, _u, du_m, dxdu_m = dispatch.reduce_central(
             uv, uv, order, weight=weight, val_ndim=0, x_is_u=True
         )
-        du_full = torch.cat([du_m, dxdu_m[-1:]], dim=0).double()
-        pred = _poly_eval(_post(central_u_ave_coefs(uave.double(), du_full, order)), dalpha)
+        with span("te.coefs"):
+            du_full = torch.cat([du_m, dxdu_m[-1:]], dim=0).double()
+            coefs = _post(central_u_ave_coefs(uave.double(), du_full, order))
+        with span("te.taylor"):
+            pred = _poly_eval(coefs, dalpha)
         if not nrep:
             return pred
-        if on_gpu:
-            bu, bdu_full = moments_cuda.resample_central_umoments_batched_poisson(
-                uv[None], nrep, order + 1, weight=weight, seed=seed
-            )
-        else:
-            freq = _multinomial_freq(seed, nrep, uv.shape[0], uv.device)
-            bu, bdu_full = resample.resample_central_umoments_batched(uv[None], freq, order + 1, weight=weight)
-        bcoefs = _post(central_u_ave_coefs(bu[:, 0].double(), bdu_full[..., 0].double(), order))
-        return pred, _poly_eval(bcoefs, dalpha).std(dim=1, correction=0)
+        with span("te.boot"):
+            if on_gpu:
+                bu, bdu_full = moments_cuda.resample_central_umoments_batched_poisson(
+                    uv[None], nrep, order + 1, weight=weight, seed=seed
+                )
+            else:
+                freq = _multinomial_freq(seed, nrep, uv.shape[0], uv.device)
+                bu, bdu_full = resample.resample_central_umoments_batched(uv[None], freq, order + 1, weight=weight)
+        with span("te.coefs"):
+            bcoefs = _post(central_u_ave_coefs(bu[:, 0].double(), bdu_full[..., 0].double(), order))
+        with span("te.taylor"):
+            return pred, _poly_eval(bcoefs, dalpha).std(dim=1, correction=0)
 
     def _run_u_mesh(uv, betas, weight, seed):
         # the one row of u as a batch of none: uave (), du (order+2,)
@@ -260,24 +274,28 @@ def make_extrap_pipeline(
         if weighted:
 
             def run(uv, betas, weight, seed=0):
-                return _run_u(uv, betas, weight, seed)
+                with call("te.extrap"):
+                    return _run_u(uv, betas, weight, seed)
 
         else:
 
             def run(uv, betas, seed=0):
-                return _run_u(uv, betas, None, seed)
+                with call("te.extrap"):
+                    return _run_u(uv, betas, None, seed)
 
         return run
 
     if weighted:
 
         def run(uv, xv, betas, weight, seed=0):
-            return _run(uv, xv, betas, weight, seed)
+            with call("te.extrap"):
+                return _run(uv, xv, betas, weight, seed)
 
     else:
 
         def run(uv, xv, betas, seed=0):
-            return _run(uv, xv, betas, None, seed)
+            with call("te.extrap"):
+                return _run(uv, xv, betas, None, seed)
 
     return run
 
@@ -304,35 +322,44 @@ def make_lnpi_pipeline(order: int, beta0: float, *, nrep: int = 0, mesh=None):
     mesh_device = None if mesh is None else _mesh_device(mesh)
 
     def _coefs(uave, du, lnpi0, mudotn):
-        return lnpi_coefs(central_u_ave_coefs(uave, du, order - 1), lnpi0, mudotn, order)
+        with span("te.coefs"):
+            return lnpi_coefs(central_u_ave_coefs(uave.double(), du.double(), order - 1), lnpi0, mudotn, order)
 
-    def run(uv, lnpi0, mudotn, betas, seed=0):
+    def _run(uv, lnpi0, mudotn, betas, seed):
         if mesh is None:
             uv = _as_tensor(uv)
         device = uv.device if mesh is None else mesh_device
         lnpi0 = _as_tensor(lnpi0, device).double()
         mudotn = _as_tensor(mudotn, device).double()
-        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
+        betas = torch.atleast_1d(to_device(betas, device, torch.float64))
         dalpha = betas - beta0
 
         if mesh is None:
             uave, du = dispatch.reduce_central_u(uv, order)
         else:
             uave, du = sharded.reduce_central_umoments_batched_sharded(uv, order, mesh)
-        pred = _poly_eval(_coefs(uave.double(), du.double(), lnpi0, mudotn), dalpha)
+        coefs = _coefs(uave, du, lnpi0, mudotn)
+        with span("te.taylor"):
+            pred = _poly_eval(coefs, dalpha)
         if not nrep:
             return pred
-        if mesh is not None:
-            freq = _multinomial_freq(seed, nrep, sharded._shape(uv)[-1], device)
-            bu, bdu = sharded._full(*sharded.resample_central_umoments_batched_sharded(uv, freq, order, mesh))
-        elif uv.device.type == "cuda":
-            bu, bdu = moments_cuda.resample_central_umoments_batched_poisson(uv, nrep, order, seed=seed)
-        else:
-            freq = _multinomial_freq(seed, nrep, uv.shape[-1], uv.device)
-            bu, bdu = resample.resample_central_umoments_batched(uv, freq, order)
+        with span("te.boot"):
+            if mesh is not None:
+                freq = _multinomial_freq(seed, nrep, sharded._shape(uv)[-1], device)
+                bu, bdu = sharded._full(*sharded.resample_central_umoments_batched_sharded(uv, freq, order, mesh))
+            elif uv.device.type == "cuda":
+                bu, bdu = moments_cuda.resample_central_umoments_batched_poisson(uv, nrep, order, seed=seed)
+            else:
+                freq = _multinomial_freq(seed, nrep, uv.shape[-1], uv.device)
+                bu, bdu = resample.resample_central_umoments_batched(uv, freq, order)
         # the replicate axis rides as a leading batch axis of the coefficients
-        bpred = _poly_eval(_coefs(bu.double(), bdu.double(), lnpi0[None], mudotn[None]), dalpha)
-        return pred, bpred.std(dim=1, correction=0)
+        bcoefs = _coefs(bu, bdu, lnpi0[None], mudotn[None])
+        with span("te.taylor"):
+            return pred, _poly_eval(bcoefs, dalpha).std(dim=1, correction=0)
+
+    def run(uv, lnpi0, mudotn, betas, seed=0):
+        with call("te.lnpi"):
+            return _run(uv, lnpi0, mudotn, betas, seed)
 
     return run
 
@@ -390,7 +417,7 @@ def make_volume_pipeline(
         v = math.prod(val_shape)
         device = wv.device if mesh is None else mesh_device
         packed = _pack(xv, dxdqv) if mesh is None else sharded._rec_map(_pack, [xv, dxdqv], mesh)
-        volumes = torch.atleast_1d(torch.as_tensor(volumes, dtype=torch.float64, device=device))
+        volumes = torch.atleast_1d(to_device(volumes, device, torch.float64))
         dalpha = volumes - volume0
 
         def _predict(xave, cov1, batch_ndim: int):
@@ -542,7 +569,7 @@ def make_perturb_pipeline(
         x_l = sharded._local(xv, mesh, {"rec": 0})
         x_l = x_l.reshape(x_l.shape[0], -1)
         w_l = None if weight is None else sharded._weight_local(weight, uv, u_l, mesh, {"rec": 0})
-        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=mesh_device))
+        betas = torch.atleast_1d(to_device(betas, mesh_device, torch.float64))
         e = _perturb_weights(u_l, (betas - beta0).to(u_l.dtype), w_l, group)
         pred = _perturb_predict(e, x_l, group).reshape(betas.shape + val_shape)
         if not nrep:
@@ -561,7 +588,7 @@ def make_perturb_pipeline(
             return _run_mesh(uv, xv, betas, weight, seed)
         uv = _as_tensor(uv)
         xv = _as_tensor(xv, uv.device)
-        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=uv.device))
+        betas = torch.atleast_1d(to_device(betas, uv.device, torch.float64))
         val_shape = tuple(xv.shape[1:])
         r = uv.shape[0]
         xflat = xv.reshape(r, -1)
@@ -742,15 +769,16 @@ def make_streaming_extrap_pipeline(
     def _rep_update_u(rep, step, uv, weight):
         # batched u-moment bootstrap of one row at order + 1, whose extra
         # moment gives the comoments by the shift view dxdu[n] = du[n+1]
-        if on_gpu:
-            bu, bdu_full, bwsum = moments_cuda.resample_central_umoments_batched_poisson(
-                uv[None], nrep, order + 1, weight=weight, seed=_chunk_seed(seed, step), return_wsum=True
-            )
-            bwsum = bwsum[:, 0]
-        else:
-            freq = counts(step, uv.shape[0])
-            bu, bdu_full = resample.resample_central_umoments_batched(uv[None], freq, order + 1, weight=weight)
-            bwsum = _freq_wsum(freq, weight, rep.wsum.dtype)
+        with span("te.boot"):
+            if on_gpu:
+                bu, bdu_full, bwsum = moments_cuda.resample_central_umoments_batched_poisson(
+                    uv[None], nrep, order + 1, weight=weight, seed=_chunk_seed(seed, step), return_wsum=True
+                )
+                bwsum = bwsum[:, 0]
+            else:
+                freq = counts(step, uv.shape[0])
+                bu, bdu_full = resample.resample_central_umoments_batched(uv[None], freq, order + 1, weight=weight)
+                bwsum = _freq_wsum(freq, weight, rep.wsum.dtype)
         chunk_rep = dataclasses.replace(
             rep,
             xave=bu[:, 0],
@@ -762,14 +790,15 @@ def make_streaming_extrap_pipeline(
         return rep.merge(chunk_rep)
 
     def _rep_update(rep, step, uv, xflat, weight):
-        if on_gpu:
-            bx, bu, bdu, bdxdu, bwsum = moments_cuda.resample_central_comoments_poisson(
-                uv, xflat, nrep, order, weight=weight, seed=_chunk_seed(seed, step), return_wsum=True
-            )
-        else:
-            freq = counts(step, uv.shape[0])
-            bx, bu, bdu, bdxdu = resample.resample_central_comoments(uv, xflat, freq, order, weight=weight)
-            bwsum = _freq_wsum(freq, weight, rep.wsum.dtype)
+        with span("te.boot"):
+            if on_gpu:
+                bx, bu, bdu, bdxdu, bwsum = moments_cuda.resample_central_comoments_poisson(
+                    uv, xflat, nrep, order, weight=weight, seed=_chunk_seed(seed, step), return_wsum=True
+                )
+            else:
+                freq = counts(step, uv.shape[0])
+                bx, bu, bdu, bdxdu = resample.resample_central_comoments(uv, xflat, freq, order, weight=weight)
+                bwsum = _freq_wsum(freq, weight, rep.wsum.dtype)
         chunk_rep = dataclasses.replace(
             rep,
             xave=bx.reshape(nrep, *val_shape),
@@ -800,21 +829,22 @@ def make_streaming_extrap_pipeline(
         return mean.merge(chunk)
 
     def _mesh_rep(rep, step, uv, xv, weight):
-        freq = _chunk_freq(seed, step, nrep, sharded._shape(uv)[0], device)
-        if x_is_u:
-            bu, bdu_full, bwsum = sharded._full(
-                *sharded.resample_central_umoments_batched_sharded(uv, freq, order + 1, mesh, weight=weight, return_wsum=True)
-            )
-            chunk = dataclasses.replace(
-                rep, xave=bu, uave=bu, du=bdu_full[: order + 1], dxdu=bdu_full[1 : order + 2], wsum=bwsum
-            )
-        else:
-            bx, bu, bdu, bdxdu, bwsum = sharded._full(
-                *sharded.resample_central_comoments_sharded(uv, xv, freq, order, mesh, weight=weight, return_wsum=True)
-            )
-            chunk = dataclasses.replace(
-                rep, xave=bx, uave=bu, du=bdu.reshape((order + 1, nrep, *pad)), dxdu=bdxdu, wsum=bwsum
-            )
+        with span("te.boot"):
+            freq = _chunk_freq(seed, step, nrep, sharded._shape(uv)[0], device)
+            if x_is_u:
+                bu, bdu_full, bwsum = sharded._full(
+                    *sharded.resample_central_umoments_batched_sharded(uv, freq, order + 1, mesh, weight=weight, return_wsum=True)
+                )
+                chunk = dataclasses.replace(
+                    rep, xave=bu, uave=bu, du=bdu_full[: order + 1], dxdu=bdu_full[1 : order + 2], wsum=bwsum
+                )
+            else:
+                bx, bu, bdu, bdxdu, bwsum = sharded._full(
+                    *sharded.resample_central_comoments_sharded(uv, xv, freq, order, mesh, weight=weight, return_wsum=True)
+                )
+                chunk = dataclasses.replace(
+                    rep, xave=bx, uave=bu, du=bdu.reshape((order + 1, nrep, *pad)), dxdu=bdxdu, wsum=bwsum
+                )
         return rep.merge(chunk)
 
     def _update_mesh(state, uv, xv, weight):
@@ -855,37 +885,48 @@ def make_streaming_extrap_pipeline(
     if x_is_u:
 
         def update(state, uv, weight=None):
-            return _update(state, uv, None, weight)
+            with call("te.stream.update"):
+                return _update(state, uv, None, weight)
 
     else:
 
         def update(state, uv, xv, weight=None):
-            return _update(state, uv, xv, weight)
+            with call("te.stream.update"):
+                return _update(state, uv, xv, weight)
 
     def _coefs(s, *, rep: bool = False):
-        xave, du, dxdu = s.xave.double(), s.du.double(), s.dxdu.double()
-        if xalpha:
-            # the xalpha recursion wants the deriv axis at position 0 (x1) /
-            # 1 (dxdu); in the accumulator it sits after the replicate axis,
-            # and du carries its broadcast pad
-            if rep:
-                c = central_x_ave_coefs_xalpha(
-                    torch.movedim(xave, 1, 0), du.squeeze(2), torch.movedim(dxdu, 2, 1), order
-                )
+        with span("te.coefs"):
+            xave, du, dxdu = s.xave.double(), s.du.double(), s.dxdu.double()
+            if xalpha:
+                # the xalpha recursion wants the deriv axis at position 0 (x1) /
+                # 1 (dxdu); in the accumulator it sits after the replicate axis,
+                # and du carries its broadcast pad
+                if rep:
+                    c = central_x_ave_coefs_xalpha(
+                        torch.movedim(xave, 1, 0), du.squeeze(2), torch.movedim(dxdu, 2, 1), order
+                    )
+                else:
+                    c = central_x_ave_coefs_xalpha(xave, du.squeeze(1), dxdu, order)
             else:
-                c = central_x_ave_coefs_xalpha(xave, du.squeeze(1), dxdu, order)
-        else:
-            c = central_x_ave_coefs(xave, du, dxdu, order)
-        return series_neg_log(c) if minus_log else c
+                c = central_x_ave_coefs(xave, du, dxdu, order)
+            return series_neg_log(c) if minus_log else c
 
-    def predict(state, betas):
+    def _predict(state, betas):
         mean_s, rep_s, _step = _split_state(state, nrep)
-        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
+        betas = torch.atleast_1d(to_device(betas, device, torch.float64))
         dalpha = betas - beta0
-        pred = _poly_eval(_coefs(mean_s), dalpha)
+        coefs = _coefs(mean_s)
+        with span("te.taylor"):
+            pred = _poly_eval(coefs, dalpha)
         if not nrep:
             return pred
-        return pred, _poly_eval(_coefs(rep_s, rep=True), dalpha).std(dim=1, correction=0)
+        bcoefs = _coefs(rep_s, rep=True)
+        with span("te.taylor"):
+            return pred, _poly_eval(bcoefs, dalpha).std(dim=1, correction=0)
+
+    def predict(state, betas):
+        with call("te.stream.predict"):
+            return _predict(state, betas)
 
     return state0, update, predict
 
@@ -986,7 +1027,7 @@ def make_streaming_lnpi_pipeline(
         mean_s, rep_s, _step = _split_state(state, nrep)
         lnpi0 = _as_tensor(lnpi0, device).double()
         mudotn = _as_tensor(mudotn, device).double()
-        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
+        betas = torch.atleast_1d(to_device(betas, device, torch.float64))
         dalpha = betas - beta0
         pred = _poly_eval(_coefs(mean_s, grid_shape, lnpi0, mudotn), dalpha)
         if not nrep:
@@ -1073,7 +1114,7 @@ def make_streaming_volume_pipeline(
 
     def predict(state, volumes):
         mean_s, rep_s, _step = _split_state(state, nrep)
-        volumes = torch.atleast_1d(torch.as_tensor(volumes, dtype=torch.float64, device=device))
+        volumes = torch.atleast_1d(to_device(volumes, device, torch.float64))
         dalpha = volumes - volume0
         pred = _predict_from(mean_s, dalpha, 0)
         if not nrep:
@@ -1140,7 +1181,7 @@ def make_streaming_perturb_pipeline(
     """
     device = default_device() if device is None else torch.device(device)
     val_shape = tuple(val_shape)
-    dalpha = torch.atleast_1d(torch.as_tensor(betas, dtype=dtype, device=device)) - beta0
+    dalpha = torch.atleast_1d(to_device(betas, device, dtype)) - beta0
     a = dalpha.shape[0]
     v = 1
     for n in val_shape:
@@ -1279,7 +1320,7 @@ def make_streaming_interp_pipeline(
         return _interp_eval(_interp_fit(beta0s, [_derivs(s) for s in data_states], order), betas)
 
     def predict(states, betas):
-        betas = torch.atleast_1d(torch.as_tensor(betas, dtype=torch.float64, device=device))
+        betas = torch.atleast_1d(to_device(betas, device, torch.float64))
         if not nrep:
             return _solve_eval(states, betas)
         pred = _solve_eval([s[0] for s in states], betas)

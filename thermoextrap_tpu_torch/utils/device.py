@@ -13,13 +13,18 @@ import sys
 import numpy as np
 import torch
 
-__all__ = ["HOST_READS", "default_device", "host_numpy", "is_dtensor", "set_default_device"]
+from . import trace
+
+__all__ = ["HOST_READS", "HOST_SYNCS", "default_device", "host_numpy", "is_dtensor", "set_default_device", "to_device"]
 
 _DEVICE: torch.device | None = None  # None = by availability
 
 # reads back to the host of tensors on another device than the CPU, through
 # host_numpy (the loops that read predictions back count theirs here)
-HOST_READS = {"n": 0}
+HOST_READS = trace.register("host_reads", {"n": 0})
+# points where the host waits on the card: the reads of host_numpy and the
+# blocking copies of host data onto a CUDA device of to_device
+HOST_SYNCS = trace.register("host_syncs", {"n": 0})
 
 
 def default_device() -> torch.device:
@@ -37,12 +42,30 @@ def set_default_device(device) -> None:
 
 def host_numpy(a) -> np.ndarray:
     """A tensor (on any device) or array-like as a numpy array: one read
-    back from the card for a tensor there, counted in ``HOST_READS``."""
+    back from the card for a tensor there, counted in ``HOST_READS`` and
+    ``HOST_SYNCS`` and timed as a ``te.sync`` span."""
     if isinstance(a, torch.Tensor):
-        if a.device.type != "cpu":
-            HOST_READS["n"] += 1
-        return a.detach().cpu().numpy()
+        if a.device.type == "cpu":
+            return a.detach().numpy()
+        HOST_READS["n"] += 1
+        HOST_SYNCS["n"] += 1
+        with trace.span("te.sync"):
+            return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype=dtype, device=device)``.  Host data (not a
+    tensor, or a CPU tensor) copied onto a CUDA device waits for the card's
+    queue to drain (a blocking copy from pageable memory ends in a stream
+    synchronize): such a copy is counted in ``HOST_SYNCS`` and timed as a
+    ``te.sync`` span."""
+    device = torch.device(device)
+    if device.type != "cuda" or (isinstance(a, torch.Tensor) and a.device.type != "cpu"):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    HOST_SYNCS["n"] += 1
+    with trace.span("te.sync"):
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def is_dtensor(a) -> bool:
