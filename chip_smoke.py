@@ -1212,8 +1212,11 @@ def main() -> int:
     def full_counts(want):
         """Every counter's expected value: each K1 / K2 / K3 / K6 call also
         launches the head-shift and the finalize kernel once, each K4 / K5
-        call the head-shift and the u-moment finalize kernel once."""
+        call the head-shift and the u-moment finalize kernel once; the K2 /
+        K3 calls of these paths (up to 16 rows, integer counts) run on the
+        few-rows tensor-core kernel."""
         full = {k: want.get(k, 0) for k in mc.LAUNCHES}
+        full["comoment_mma"] = want.get("comoment_mma", full["K2"] + full["K3"])
         full["finalize"] = full["K1"] + full["K2"] + full["K3"] + full["K6"]
         full["finalize_u"] = full["K4"] + full["K5"]
         full["head_shift"] = full["finalize"] + full["finalize_u"]

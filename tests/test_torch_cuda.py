@@ -142,21 +142,36 @@ def test_k3_kernel_counts_and_sums(rng, cuda_device):
     [(1, 6, torch.float32), (1, 6, torch.bfloat16), (2, 1, torch.float32), (2, 6, torch.float32), (2, 6, torch.bfloat16)],
 )
 def test_k2_k3_shared_contraction_rows(rng, cuda_device, v, order, dtype):
-    """14 and 6 rows (few-rows kernel), 21 rows (many-rows kernel): K3 equals
-    K2 on its own table, narrow tables equal int32 ones, and K3 matches its
-    plain version."""
+    """14 and 6 rows (few-rows tensor-core kernel), 21 rows (many-rows
+    kernel): K3 equals K2 on its own table, narrow tables equal int32 ones,
+    and K3 matches its plain version."""
     r, nrep = 100_003, 70
     u, x = _samples(rng, r, v)
     w = rng.uniform(0.5, 1.5, r)
     uc, xc, wc = _f32(u, cuda_device).to(dtype), _f32(x, cuda_device).to(dtype), _f32(w, cuda_device)
     seed = 0x7FFF00001234ABCD
     table = mc._poisson_counts(seed, nrep, r, cuda_device)
+    mc.reset_launches()
     k3 = mc.resample_central_comoments_poisson(uc, xc, nrep, order, wc, seed=seed)
     assert all(torch.equal(a, b) for a, b in zip(k3, mc.resample_central_comoments_fused(uc, xc, table, order, wc)))
     narrow = mc.resample_central_comoments_fused(uc, xc, table.to(torch.int8), order, wc)
     assert all(torch.equal(a, b) for a, b in zip(k3, narrow))
+    assert mc.LAUNCHES["comoment_mma"] == (3 if (v + 1) * (order + 1) <= 16 else 0)
     ref = mc.resample_poisson_plain(uc.double(), xc.double(), nrep, order, wc.double(), seed=seed)
     assert_close(k3, ref[:4], RTOL32, 2e-5 if dtype == torch.bfloat16 else ATOL32)
+
+
+def test_k3_tensor_cores_at_a_stream_chunk(rng, cuda_device):
+    """K3 on the few-rows tensor-core kernel at one streaming chunk of the
+    main path (R = 1e7, 256 replicates, 14 rows) against its plain version."""
+    r, nrep = 10_000_000, 256
+    u, x = _samples(rng, r, 1)
+    uc, xc = _f32(u, cuda_device), _f32(x, cuda_device)
+    mc.reset_launches()
+    k3 = mc.resample_central_comoments_poisson(uc, xc, nrep, 6, seed=11)
+    assert mc.LAUNCHES["K3"] == 1 and mc.LAUNCHES["comoment_mma"] == 1
+    ref = mc.resample_poisson_plain(uc.double(), xc.double(), nrep, 6, seed=11)
+    assert_close(k3, ref[:4], RTOL32, ATOL32)
 
 
 def test_poisson_map_every_word(cuda_device):
@@ -1011,7 +1026,7 @@ def test_streaming_interp_on_gpu_launches_and_matches_one_shot(rng, cuda_device)
             states = update(states, i, u.chunk(2)[k], x.chunk(2)[k])
     pred, std = predict(states, tt(BETAS))
     torch.cuda.synchronize()
-    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 4, "K3": 4, "head_shift": 8, "finalize": 8}
+    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 4, "K3": 4, "head_shift": 8, "finalize": 8, "comoment_mma": 4}
     assert mc.LAUNCHES == want
     assert pred.is_cuda and std.is_cuda and pred.dtype == torch.float64
     assert_close(pred, InterpModel([m for _, _, m in sims]).predict(tt(BETAS)), 1e-6, 1e-9)
@@ -1169,7 +1184,7 @@ def test_file_fed_stream_on_gpu_launches_and_equals_in_memory(cuda_device, tmp_p
     mc.reset_launches()
     state = io_stream.ingest_stream(update, state0, io_stream.read_npy_chunks(paths, columns=(0, 1), device=cuda_device))
     torch.cuda.synchronize()
-    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 3, "K3": 3, "head_shift": 6, "finalize": 6}
+    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 3, "K3": 3, "head_shift": 6, "finalize": 6, "comoment_mma": 3}
     assert mc.LAUNCHES == want
     mem = state0
     for part in np.split(table, 3):
@@ -1251,7 +1266,7 @@ def test_gpr_staging_launches_k1_and_k2(cuda_device, monkeypatch):
     mc.reset_launches()
     x, y, cov = active_utils.input_GP_from_state(state, n_rep=50)
     torch.cuda.synchronize()
-    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 1, "K2": 1, "head_shift": 2, "finalize": 2}
+    want = {**dict.fromkeys(mc.LAUNCHES, 0), "K1": 1, "K2": 1, "head_shift": 2, "finalize": 2, "comoment_mma": 1}
     assert mc.LAUNCHES == want
     assert y.shape == (4, 1) and cov.shape == (1, 4, 4) and np.all(np.isfinite(cov))
 
@@ -1300,7 +1315,7 @@ def test_active_loop_on_the_card(cuda_device, monkeypatch, tmp_path):
     torch.cuda.synchronize()
     n = sum(fits)
     assert fits[0] == 2 and fits[-1] == len(data_list) and len(fits) == len(hist["loss"]) == 3
-    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K1": n, "K2": n, "head_shift": 2 * n, "finalize": 2 * n}
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "K1": n, "K2": n, "head_shift": 2 * n, "finalize": 2 * n, "comoment_mma": n}
     assert all(type(v) is float for v in hist["loss"])
 
     last = staged[-fits[-1] :]

@@ -11,11 +11,13 @@ pipelining to its plain torch version where there is no GPU:
 - K8 equal to K7 on its own count table bit for bit, K5's draws equal to its
   table consume bit for bit, K8's weight sums at e = 1 equal to K3's;
 - K2 / K3 through the head-shift kernel, the shared contraction (the
-  main path's 14 rows and the volume path's 6 in the few-rows kernel, 21 rows
-  in the many-rows kernel, float32 and bfloat16 streams) and the finalize
-  kernel; K3 equal to K2 on its own count table bit for bit, narrow tables
-  equal to int32 ones; the finalize kernel alone against its plain version
-  (exact after the float32 cast), the zero-weight replicate included;
+  main path's 14 rows and the volume path's 6 in the few-rows tensor-core
+  kernel for the draw and integer tables, fractional tables in the few-rows
+  kernel, 21 rows in the many-rows kernel, float32 and bfloat16 streams) and
+  the finalize kernel; K3 equal to K2 on its own count table bit for bit,
+  narrow tables equal to int32 ones, counts past one bf16 digit and below 0;
+  the finalize kernel alone against its plain version (exact after the
+  float32 cast), the zero-weight replicate included;
 - the in-kernel draw: its counts equal to their plain reproduction bit for
   bit, and its word -> count map (the level lookup of csrc/philox.cuh) equal
   to the 9-compare sum at every threshold +-2, at every level's first and last
@@ -171,29 +173,59 @@ def test_k2_k3_emulated_three_launches_match_plain(kernels, rng, r, v, order, we
 
 
 @pytest.mark.parametrize(
-    ("r", "v", "order", "nrep", "weighted", "dtype"),
+    ("r", "v", "order", "nrep", "weighted", "dtype", "table"),
     [
-        (1299, 1, 6, 40, False, torch.float32),  # the main path's 14 rows, several tiles a chunk
-        (1299, 1, 6, 40, True, torch.bfloat16),
-        (1030, 2, 1, 9, True, torch.float32),  # the volume path's 6 rows
-        (1030, 2, 1, 9, False, torch.bfloat16),
-        (333, 2, 6, 9, True, torch.float32),  # 21 rows: the many-rows kernel
-        (333, 2, 6, 9, False, torch.bfloat16),
+        (1299, 1, 6, 40, False, torch.float32, "draws"),  # the main path's 14 rows, several tiles a chunk
+        (1299, 1, 6, 40, True, torch.bfloat16, "draws"),
+        (1030, 2, 1, 9, True, torch.float32, "draws"),  # the volume path's 6 rows
+        (1030, 2, 1, 9, False, torch.bfloat16, "draws"),
+        (301, 5, 1, 9, True, torch.float32, "draws"),  # 12 rows of 6 columns: more row items than threads
+        (333, 2, 6, 9, True, torch.float32, "draws"),  # 21 rows: the many-rows kernel
+        (333, 2, 6, 9, False, torch.bfloat16, "draws"),
+        (517, 1, 6, 37, True, torch.float32, "int16"),  # counts past one digit, and below 0
+        (517, 1, 6, 37, False, torch.bfloat16, "float32"),  # fractional counts: the CUDA cores
     ],
 )
-def test_k2_k3_emulated_on_the_shared_contraction(kernels, rng, few_blocks, r, v, order, nrep, weighted, dtype):
+def test_k2_k3_emulated_on_the_shared_contraction(kernels, rng, few_blocks, r, v, order, nrep, weighted, dtype, table):
+    """K2 / K3 up to 16 rows with integer counts run on the few-rows
+    tensor-core kernel (``LAUNCHES["comoment_mma"]``), fractional tables and
+    21 rows on the CUDA cores: K3 equal to K2 on its own table and to an int8
+    table bit for bit, tables past one bf16 digit (int16 and int32, equal to
+    each other) and fractional tables against the float64 plain version."""
     u = _f32(rng.normal(5.0, 1.0, r)).to(dtype)
     x = _f32(rng.normal(2.0, 0.5, (r, v))).to(dtype)
     w = _f32(rng.uniform(0.5, 1.5, r)) if weighted else None
+    wd = None if w is None else w.double()
+    atol = 2e-5 if dtype == torch.bfloat16 else ATOL32
     seed = 0x7FFF00001234ABCD  # high key bits set
-    table = mc._poisson_counts(seed, nrep, r)
-    k3 = mc._resample_cuda(u, x, w, order, nrep, seed=seed)
-    k2 = mc._resample_cuda(u, x, w, order, nrep, freq=table)
-    assert all(torch.equal(a, b) for a, b in zip(k3, k2))
-    narrow = mc._resample_cuda(u, x, w, order, nrep, freq=table.to(torch.int8))
-    assert all(torch.equal(a, b) for a, b in zip(narrow, k2))
-    ref = mc.resample_poisson_plain(u.double(), x.double(), nrep, order, None if w is None else w.double(), seed=seed)
-    assert_close(k3, ref, RTOL32, 2e-5 if dtype == torch.bfloat16 else ATOL32)
+    counts = mc._poisson_counts(seed, nrep, r)
+    mma = (v + 1) * (order + 1) <= mc._URS_CB and table != "float32"
+    mc.reset_launches()
+    if table == "draws":
+        k3 = mc._resample_cuda(u, x, w, order, nrep, seed=seed)
+        k2 = mc._resample_cuda(u, x, w, order, nrep, freq=counts)
+        assert all(torch.equal(a, b) for a, b in zip(k3, k2))
+        narrow = mc._resample_cuda(u, x, w, order, nrep, freq=counts.to(torch.int8))
+        assert all(torch.equal(a, b) for a, b in zip(narrow, k2))
+        assert mc.LAUNCHES["comoment_mma"] == (3 if mma else 0)
+        ref = mc.resample_poisson_plain(u.double(), x.double(), nrep, order, wd, seed=seed)
+        assert_close(k3, ref, RTOL32, atol)
+        return
+    if table == "int16":
+        freq = counts.clone()
+        freq[0] += 300
+        freq[1] *= 201
+        freq[2, 5] = -1
+        freq[3, 7] = -700
+        got = mc._resample_cuda(u, x, w, order, nrep, freq=freq.to(torch.int16))
+        assert all(torch.equal(a, b) for a, b in zip(got, mc._resample_cuda(u, x, w, order, nrep, freq=freq)))
+        assert mc.LAUNCHES["comoment_mma"] == 2
+    else:
+        freq = counts.float() + _f32(rng.uniform(0.0, 0.5, (nrep, r)))
+        got = mc._resample_cuda(u, x, w, order, nrep, freq=freq)
+        assert mc.LAUNCHES["comoment_mma"] == 0
+    ref = mc.resample_comoments_plain(u.double(), x.double(), freq.double(), order, wd)
+    assert_close(got, ref, RTOL32, atol)
 
 
 @pytest.mark.parametrize(("seed", "r"), [(0, 1003), (11 | (7 << 40), 257), (2**63 + 5, 1), (-1, 4099)])

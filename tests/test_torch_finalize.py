@@ -11,9 +11,9 @@ comoments) of the torch port, on the CPU.
   so only the order of a few additions differs;
 - an all-zero replicate takes the finite convention (means = the shift,
   central moments 0, weight 0);
-- the launch shapes of the shared contraction kernel (K5, K7, K8) and of
-  K2 / K3, for any size in range, against the Python mirror of the checks
-  the kernel entries make.
+- the launch shapes of the shared contraction kernel (K5, K7, K8), of
+  K2 / K3 and of their few-rows tensor-core kernel, for any size in range,
+  against the Python mirror of the checks the kernel entries make.
 """
 
 import math
@@ -180,8 +180,9 @@ def test_rows_shape_check_rejects_what_the_kernel_cannot_run():
 @settings(max_examples=200, deadline=None)
 @given(r=st.integers(1, 10**9), nrep=st.integers(1, 5000), m=st.integers(2, 700))
 def test_k2_chunks_are_whole_tiles(r, nrep, m):
-    """K2 / K3 take the shared contraction's launch shape: whole tiles of the
-    kernel that the row count selects, covering the samples."""
+    """K2 / K3 on the CUDA cores (fractional tables, more than 16 rows) take
+    the shared contraction's launch shape: whole tiles of the kernel that the
+    row count selects, covering the samples."""
     nr, npt, nchunk, chunk = mc._rows_launch(m, nrep, r, mc._TARGET_BLOCKS)
     tile = mc._FEW_TILE if m <= mc._URS_CB else mc._URS_TILE
     assert chunk % tile == 0 and (nchunk - 1) * chunk < r <= nchunk * chunk
@@ -220,3 +221,36 @@ def test_mma_launch_covers_the_samples_in_whole_tiles(nbatch, order, nrep, r):
     assert blocks < 2**31
     assert mc._k5_on_tensor_cores(m, order) == (m > mc._URS_CB)
     assert not mc._k5_on_tensor_cores(40, 0)  # order 0 stays on the CUDA cores
+
+
+@settings(max_examples=200, deadline=None)
+@given(v=st.integers(1, 15), order=st.integers(0, 15), nrep=st.integers(1, 5000), r=st.integers(1, 10**9))
+def test_fewmma_launch_covers_the_samples_in_whole_tiles(v, order, nrep, r):
+    """K2 / K3 up to 16 rows with integer counts take the few-rows
+    tensor-core kernel's launch shape: chunks of whole 128-sample tiles that
+    cover the samples, none empty, a shape the entry's check accepts; the
+    fractional and bf16 tables and more rows keep the CUDA cores' shape."""
+    m = (v + 1) * (order + 1)
+    for kind in mc._COUNT_KIND.values():
+        assert mc._k23_on_tensor_cores(m, kind) == (m <= mc._URS_CB and kind in (0, 1, 2))
+    if not mc._k23_on_tensor_cores(m, mc._POISSON_KIND):
+        return
+    nchunk, chunk = mc._fewmma_launch(m, nrep, r, mc._TARGET_BLOCKS // 2)
+    assert chunk % mc._FMMA_S == 0 and (nchunk - 1) * chunk < r <= nchunk * chunk
+    assert mc._fewmma_shape_ok(m, r, nrep, nchunk, chunk)
+    ycount = math.ceil(nrep / mc._FMMA_REPS)
+    assert nchunk * ycount < mc._TARGET_BLOCKS // 2 + ycount  # about the target number of blocks
+
+
+def test_fewmma_launch_writes_no_more_partials_at_the_main_shape():
+    """At the main path's shape (14 rows, 256 replicates, R = 1e8) the
+    tensor-core route writes no more chunk partials than the CUDA cores' few-
+    rows launch did, and its shape check rejects what the kernel cannot run."""
+    m, nrep, r = 14, 256, 10**8
+    nchunk, chunk = mc._fewmma_launch(m, nrep, r, mc._TARGET_BLOCKS // 2)
+    _, _, rows_nchunk, _ = mc._rows_launch(m, nrep, r, mc._TARGET_BLOCKS)
+    assert nchunk * nrep * m <= rows_nchunk * nrep * m and nchunk == 528
+    ok = dict(m=m, r=r, nrep=nrep, nchunk=nchunk, chunk=chunk)
+    assert mc._fewmma_shape_ok(**ok)
+    for bad in ({"m": 17}, {"m": 0}, {"chunk": chunk + 32}, {"nchunk": nchunk - 1}, {"nrep": 0}):
+        assert not mc._fewmma_shape_ok(**{**ok, **bad}), bad

@@ -174,6 +174,7 @@ def test_cpu_path_launches_no_kernel(rng):
         "head_shift": 0,
         "finalize": 0,
         "finalize_u": 0,
+        "comoment_mma": 0,
     }
 
 

@@ -20,30 +20,34 @@
 // This file gives the contraction of resample_tile.cuh K2's and K3's rows
 // (ComomentRows); the contraction is the one K5, K7 and K8 run.  Up to 16
 // rows (the main path: V = 1 at order 6, 14 rows; the volume path, 6 rows)
-// run in its few-rows kernel, where the counts go from the table, or the
-// draw, through registers into the FMAs and never touch shared memory; more
-// rows run in its many-rows kernel, which draws or loads each count once per
-// block for up to 512 rows.  Both count sources take the same path through
-// the sums, so K3 on a seed equals K2 on that seed's count table
-// (tx_poisson_counts) bit for bit.
+// with integer counts (the draw, int8 / int16 / int32 tables) run in its
+// few-rows tensor-core kernel (comoment_on_tensor_cores), where each count
+// goes from the draw, or the table, straight into an A fragment of mma.sync
+// and never touches shared memory; fractional tables run in its few-rows
+// kernel on the CUDA cores, and more rows in its many-rows kernel, which
+// draws or loads each count once per block for up to 512 rows.  Both count
+// sources take the same path through the sums, so K3 on a seed equals K2 on
+// that seed's count table (tx_poisson_counts) bit for bit.
 //
 // Bound on the H100: K2 streams the count table (nrep R entries, 1-4 bytes
 // each, 4 to a vector load) and does (order+1)(V+1) FMAs per entry; the
 // row-wise reads of the table are what hold it, as they hold K7 and
 // torch.matmul on the same table.  K3 reads only the samples; its least time
 // is the draw's integer work (a quarter of a Philox4x32-10 call and one level
-// lookup a count, philox.cuh), but on the card the draw and the FMAs
+// lookup a count, philox.cuh).  On the CUDA cores the draw and the FMAs
 // ((order+1)(V+1) a count, rounded up to a multiple of 4: 16 at the main
-// path's 14 rows) share the dispatch slots and add up, and the loop runs at
-// about half the SM's instruction rate (resample_tile.cuh; PERF.md has the
-// times and the stubbed variants behind this).  No TF32 and no tensor cores:
-// the sums must hold f32 accuracy (a looser TPU precision measured 2e-3
-// wrong).
+// path's 14 rows) shared the dispatch slots and added up, so the contraction
+// runs on the tensor cores: the CUDA cores draw and pack the counts (~17
+// instructions a count), the tensor cores take the products.  The sums keep
+// float32 accuracy (a looser TPU precision measured 2e-3 wrong): counts are
+// exact bf16 digits, rows three bf16 terms, every product exact, the sums
+// float32, a tile's terms added into a float32 temporary that joins the
+// running sum by one FADD; no TF32 and no dropped term.
 //
 // The stream type (float32 or bfloat16) is a runtime flag of ComomentFill:
 // the rows are built once per sample tile, away from the count loop, and one
 // kernel for both types halves the build.  Tables of int8,
-// int16 and bfloat16 run in the few-rows kernel only (the wrapper widens them
+// int16 and bfloat16 run in the few-rows kernels only (the wrapper widens them
 // for more rows), which keeps the file at 15 kernels.
 
 #include "resample_tile.cuh"
@@ -125,6 +129,53 @@ struct ComomentFill {
     rows(tile + (i >> 2) * gstride + (i & 3), 4, k, raw.w, du, dx);
   }
 
+  // one (column, pair of samples) item of the few-rows tensor-core kernel
+  struct RawPair {
+    Raw s[2];
+  };
+
+  static __device__ __forceinline__ void keep_pair(RawPair& raw) {
+    keep(raw.s[0]);
+    keep(raw.s[1]);
+  }
+
+  __device__ __forceinline__ RawPair fetch_pair(int item, long long t0, long long j_end) const {
+    const long long t = t0 + 2 * (item % (TX_FMMA_S / 2));
+    const int i = (item / (TX_FMMA_S / 2)) * TX_FEW_TILE;  // fetch's item of the same column
+    return {{fetch(i, t, j_end), fetch(i, t + 1, j_end)}};
+  }
+
+  // the column's rows of both samples as three bf16 terms, one 32-bit word
+  // (the pair) per plane and row
+  __device__ __forceinline__ void store_planes(const RawPair& raw, int item, uint32_t* planes,
+                                               long long t0, long long j_end) const {
+    const int p = item % (TX_FMMA_S / 2);
+    const int k = k_lo + item / (TX_FMMA_S / 2);
+    float pw[2], du[2], dx[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool valid = t0 + 2 * p + h < j_end;  // raw.w is 0 past j_end, and so is every row
+      pw[h] = raw.s[h].w;
+      du[h] = valid ? raw.s[h].u - su[0] : 0.f;
+      dx[h] = (k < 0) ? 1.f : (valid ? raw.s[h].x - sx[k] : 0.f);
+    }
+    const int row0 = (k + 1) * n1 - c0;
+#pragma unroll
+    for (int n = 0; n <= TX_MAX_ORDER; ++n) {
+      if (n < n1) {
+        const int cc = row0 + n;
+        if ((unsigned)cc < (unsigned)ncol) {
+          uint32_t terms[3];
+          tx_split_bf16x3(pw[0] * dx[0], pw[1] * dx[1], terms);
+#pragma unroll
+          for (int q = 0; q < 3; ++q) planes[q * TX_FMMA_PLANE_W + cc * TX_FMMA_RS_W + p] = terms[q];
+        }
+        pw[0] *= du[0];
+        pw[1] *= du[1];
+      }
+    }
+  }
+
   __device__ __forceinline__ void fill(float* tile, int tstride, long long t0,
                                        long long j_end) const {
     // one (column, sample) pair per item
@@ -157,6 +208,13 @@ struct ComomentRows {
   }
 };
 
+// K2/K3 up to 16 rows with integer counts (the draw, int8 / int16 / int32
+// tables) run in the few-rows tensor-core kernel; fractional tables and more
+// rows stay on the CUDA cores
+inline bool comoment_on_tensor_cores(long long m, int count_kind) {
+  return m <= TX_URS_CB && (count_kind == 0 || count_kind == 1 || count_kind == 2 || count_kind == 5);
+}
+
 int launch_by_counts(const ComomentRows& rows, const void* freq, void* part, long long R, int m,
                      int nrep, int nchunk, long long chunk, int nr, int np, int count_kind,
                      long long seed, const unsigned int* thresholds, cudaStream_t s) {
@@ -164,15 +222,17 @@ int launch_by_counts(const ComomentRows& rows, const void* freq, void* part, lon
   switch (count_kind) {
     case 0:
       if (!few) return (int)cudaErrorInvalidValue;
-      return launch_fewrows(rows, TableCounts<int8_t>{(const int8_t*)freq, R}, part, R, m, nrep,
-                            nchunk, chunk, np, s);
+      return launch_fewmma(rows, TableCounts<int8_t>{(const int8_t*)freq, R}, part, R, m, nrep,
+                           nchunk, chunk, s);
     case 1:
       if (!few) return (int)cudaErrorInvalidValue;
-      return launch_fewrows(rows, TableCounts<int16_t>{(const int16_t*)freq, R}, part, R, m,
-                            nrep, nchunk, chunk, np, s);
-    case 2:
-      return launch_resample_rows(rows, TableCounts<int32_t>{(const int32_t*)freq, R}, part, R,
-                                  m, nrep, nchunk, chunk, nr, np, s);
+      return launch_fewmma(rows, TableCounts<int16_t>{(const int16_t*)freq, R}, part, R, m, nrep,
+                           nchunk, chunk, s);
+    case 2: {
+      const TableCounts<int32_t> table{(const int32_t*)freq, R};
+      if (few) return launch_fewmma(rows, table, part, R, m, nrep, nchunk, chunk, s);
+      return launch_manyrows(rows, table, part, R, m, nrep, nchunk, chunk, nr, np, s);
+    }
     case 3:
       return launch_resample_rows(rows, TableCounts<float>{(const float*)freq, R}, part, R, m,
                                   nrep, nchunk, chunk, nr, np, s);
@@ -183,7 +243,8 @@ int launch_by_counts(const ComomentRows& rows, const void* freq, void* part, lon
     case 5: {
       PoissonCounts draw;
       if (!make_poisson(seed, thresholds, &draw)) return (int)cudaErrorInvalidValue;
-      return launch_resample_rows(rows, draw, part, R, m, nrep, nchunk, chunk, nr, np, s);
+      if (few) return launch_fewmma(rows, draw, part, R, m, nrep, nchunk, chunk, s);
+      return launch_manyrows(rows, draw, part, R, m, nrep, nchunk, chunk, nr, np, s);
     }
     default:
       return (int)cudaErrorInvalidValue;
@@ -256,8 +317,10 @@ int tx_resample_comoments(const void* u, const void* x, const void* w, const voi
                           int bf16, int count_kind, long long seed,
                           const unsigned int* thresholds, int device, void* stream) {
   const long long m = (long long)(V + 1) * (order + 1);
-  if (order < 0 || order > TX_MAX_ORDER || V < 1 ||
-      !resample_rows_shape_ok(m, R, nrep, nchunk, chunk, nr, np) ||
+  const bool shape_ok = comoment_on_tensor_cores(m, count_kind)
+                            ? resample_fewmma_shape_ok(m, R, nrep, nchunk, chunk)
+                            : resample_rows_shape_ok(m, R, nrep, nchunk, chunk, nr, np);
+  if (order < 0 || order > TX_MAX_ORDER || V < 1 || !shape_ok ||
       (count_kind != 5 && freq == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }

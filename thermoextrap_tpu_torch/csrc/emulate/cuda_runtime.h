@@ -85,6 +85,18 @@ inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 inline void emu_syncwarp() { emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_syncwarp(); }
 
+// __any_sync over the whole warp (every lane of it must call it together)
+inline int emu_vote[1024];
+inline int __any_sync(unsigned, int pred) {
+  const unsigned w0 = threadIdx.x & ~31u;
+  emu_vote[threadIdx.x] = pred ? 1 : 0;
+  emu_syncwarp();
+  int any = 0;
+  for (unsigned i = w0; i < std::min(w0 + 32u, blockDim.x); ++i) any |= emu_vote[i];
+  emu_syncwarp();  // every lane has read the votes
+  return any;
+}
+
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (PTX ISA fragment
 // layout, see tx_mma_bf16_16816 in ../common.cuh): every lane posts its
 // fragments, then computes its own four outputs from the whole matrices in

@@ -1,4 +1,4 @@
-// The bootstrap contraction shared by K2/K3, K5 and K7/K8, in three kernels
+// The bootstrap contraction shared by K2/K3, K5 and K7/K8, in four kernels
 // that the launchers choose between by the number of contribution rows and
 // the count source:
 //
@@ -16,7 +16,8 @@
 // by it, and the C entry points check the launch shape of the route taken):
 //
 //   caller   rows m             count sources                 kernel
-//   K2/K3    m <= 16            draw; int8/16/32, f32, bf16   few rows
+//   K2/K3    m <= 16            draw; int8/16/32 tables       few rows, tensor cores
+//   K2/K3    m <= 16            f32, bf16 tables              few rows
 //   K2/K3    m > 16             draw; int32, f32 tables       many rows (FFMA);
 //                                                             the wrapper widens
 //                                                             int8/16 and bf16
@@ -26,17 +27,20 @@
 //   K7/K8    m <= 16            draw; every table type        few rows
 //   K7/K8    m > 16             draw; every table type        many rows (FFMA)
 //
-// The tensor-core kernel takes only integer counts (MmaCounts below has no
-// other source); fractional float32 tables stay on the FFMA kernels.
+// The tensor-core kernels take only integer counts (MmaCounts below has no
+// other source); fractional float32 and bf16 tables stay on the FFMA kernels.
+// K5, K7 and K8 have no rows builder for the tensor cores at few rows, and
+// one loop tuned for every caller slowed some of them (PERF.md), so K2/K3's
+// tensor-core kernel is a route of its own, not an adaptation of this one.
 //
-// Few rows (m <= 16: K3 on the main path's 14 rows and the volume path's 6,
-// K2 at the quick start's 14, K7 and K8 at the serving shape, K5 on one
-// row): resample_fewrows_kernel.  Every thread can hold all m rows of its 4
-// replicates, so the counts never touch shared memory: a thread fetches the
-// counts of its replicates for 4 consecutive samples (the table's entries by
-// one 16 / 8 / 4-byte load), expands them to float32 in registers (for the
-// Poisson source the expansion IS the draw) and multiplies them with the m
-// row values of those samples, read from a shared tile as one float4 per row.
+// Few rows on the CUDA cores (m <= 16: K2 on fractional tables, K7 and K8 at
+// the serving shape, K5 on one row): resample_fewrows_kernel.  Every thread
+// can hold all m rows of its 4 replicates, so the counts never touch shared
+// memory: a thread fetches the counts of its replicates for 4 consecutive
+// samples (the table's entries by one 16 / 8 / 4-byte load), expands them to
+// float32 in registers (for the Poisson source the expansion IS the draw) and
+// multiplies them with the m row values of those samples, read from a shared
+// tile as one float4 per row.
 // The loads run two steps ahead of the FMAs (tx_keep pins them there), and
 // only the row tile (256 samples, two buffers, filled one tile ahead) needs a
 // barrier: one per 256 samples.  The 256 threads are sl sample lanes (fastest,
@@ -46,12 +50,12 @@
 // compiler interleaves the 4 draws (a branch per replicate serialised them
 // and K3 ran at half the speed).  What holds it on the H100: for a table (K2,
 // K7) its row-wise reads, which run at ~1 TB/s as torch.matmul's do; for the
-// draw (K3, K5, K8) the instruction rate, shared between the draw (a quarter of
+// draw (K5, K8) the instruction rate, shared between the draw (a quarter of
 // a Philox4x32-10 call and one level lookup a count, ~13 integer
 // instructions, its wide multiplies on the FMA pipe) and the FMAs (m rounded
-// up to a multiple of 4 a count, 16 at K3's 14 rows): the two add up rather
-// than overlap, and the loop runs at about half the SM's instruction rate
-// (PERF.md).
+// up to a multiple of 4 a count, 16 at 14 rows): the two add up rather than
+// overlap, and the loop runs at about half the SM's instruction rate
+// (PERF.md), which is why K3 moved to the tensor cores.
 //
 // Many rows on the CUDA cores (K2/K3 past 16 rows, K5 at order 0, K7/K8 with
 // many targets or value columns): resample_rows_kernel.  A kernel that tiles rows across blocks
@@ -375,7 +379,10 @@ resample_fewrows_kernel(Rows rows, Counts counts, float* __restrict__ part, long
 #define TX_MMA_NT 7                      // 8-row tiles of a warp
 
 // the counts of replicate r for samples j .. j+3 as float32 values below 256
-// (a table's first digit); true where a table's count has more digits
+// (a table's first digit); true where a table's count has more digits.
+// low4(c, r, nrep, j, f) loads them (the tensor-core kernel), low4(c, raw,
+// r, j, f) expands what Counts::fetch loaded (the few-rows tensor-core
+// kernel, which loads ahead); a table's digit4(raw, k, f) gives digit k.
 template <typename Counts>
 struct MmaCounts;
 template <>
@@ -386,13 +393,32 @@ struct MmaCounts<PoissonCounts> {
     c.load4(r, j, f);  // at most 9
     return false;
   }
+  // PoissonCounts::load4's draw and level lookup, with the level's +1 as a
+  // predicated add (one select fewer a count than poisson_level_count)
+  static __device__ __forceinline__ bool low4(const PoissonCounts& c, PoissonCounts::Raw, int r,
+                                              long long j, float (&f)[4]) {
+    uint32_t w[4] = {(uint32_t)(j >> 2), (uint32_t)r, (uint32_t)(j >> 34), 0u};
+    philox4x32_10(w, c.key);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint2 lv = tx_poisson_levels[tx_highest_bit(~w[q]) + 1];
+      f[q] = __uint_as_float(lv.y);
+      if (w[q] > lv.x) f[q] += 1.f;
+    }
+    return false;
+  }
 };
-template <>
-struct MmaCounts<TableCounts<int32_t>> {
-  static constexpr bool kDigits = true;
-  static __device__ __forceinline__ uint4 raw(const TableCounts<int32_t>& c, int r, int nrep,
-                                              long long j) {
-    return (r < nrep) ? c.fetch(r, j) : make_uint4(0u, 0u, 0u, 0u);
+// an integer table of entries F: each count's sign and the 8-bit digits of
+// its magnitude.  An int8 count (|count| <= 128) is one digit.
+template <typename F>
+struct MmaTable {
+  static constexpr bool kDigits = sizeof(F) > 1;
+  using Raw = typename TableCounts<F>::Raw;
+  static __device__ __forceinline__ void words(const Raw& raw, uint32_t (&w)[4]) {
+    F e[4];
+    memcpy(e, &raw, sizeof(Raw));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w[q] = (uint32_t)(int32_t)e[q];
   }
   // |count| and its sign: the digits of a count all carry its sign, so
   // that no two digit products cancel in the float32 sums
@@ -400,10 +426,10 @@ struct MmaCounts<TableCounts<int32_t>> {
     return ((int32_t)w < 0) ? 0u - w : w;
   }
   static __device__ __forceinline__ float sign(uint32_t w) { return ((int32_t)w < 0) ? -1.f : 1.f; }
-  static __device__ __forceinline__ bool low4(const TableCounts<int32_t>& c, int r, int nrep,
-                                              long long j, float (&f)[4]) {
-    const uint4 v = raw(c, r, nrep, j);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  static __device__ __forceinline__ bool low4(const TableCounts<F>&, const Raw& raw, int, long long,
+                                              float (&f)[4]) {
+    uint32_t w[4];
+    words(raw, w);
     bool hi = false;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -415,12 +441,29 @@ struct MmaCounts<TableCounts<int32_t>> {
   }
   // digit k (1..3) of each count's magnitude times 256^k, with the count's
   // sign: exact in bf16
-  static __device__ __forceinline__ void digit4(const uint4& v, int k, float (&f)[4]) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  static __device__ __forceinline__ void digit4(const Raw& raw, int k, float (&f)[4]) {
+    uint32_t w[4];
+    words(raw, w);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       f[q] = sign(w[q]) * (float)((magnitude(w[q]) >> (8 * k)) & 255u) * (float)(1u << (8 * k));
     }
+  }
+};
+template <>
+struct MmaCounts<TableCounts<int8_t>> : MmaTable<int8_t> {};
+template <>
+struct MmaCounts<TableCounts<int16_t>> : MmaTable<int16_t> {};
+template <>
+struct MmaCounts<TableCounts<int32_t>> : MmaTable<int32_t> {
+  static __device__ __forceinline__ uint4 raw(const TableCounts<int32_t>& c, int r, int nrep,
+                                              long long j) {
+    return (r < nrep) ? c.fetch(r, j) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  using MmaTable<int32_t>::low4;
+  static __device__ __forceinline__ bool low4(const TableCounts<int32_t>& c, int r, int nrep,
+                                              long long j, float (&f)[4]) {
+    return low4(c, raw(c, r, nrep, j), r, j, f);
   }
 };
 
@@ -644,6 +687,297 @@ int launch_mma(Rows rows, Counts counts, void* part, long long R, int m, int nre
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)blocks, 1, 1), TX_URS_THREADS, smem, stream>>>(rows, counts, (float*)part,
                                                                          R, m, nrep, chunk, raw_bytes);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The few-rows tensor-core kernel: up to 16 rows, integer counts (K2/K3)
+// ---------------------------------------------------------------------------
+//
+// The same products as the tensor-core kernel above (counts as exact bf16
+// digits, rows as three bf16 terms, mma.sync m16n8k16 with float32 sums, the
+// permuted k order), shaped for few rows and many replicates, so that the
+// CUDA cores do little but the draw:
+//   - a block is 8 warps over TX_FMMA_REPS = 256 replicates; a warp owns 32
+//     of them (two M tiles) and every row (one N tile up to 8 rows, two up
+//     to 16), so each count is drawn once, by the lane whose A fragment
+//     holds it, straight into registers: no count touches shared memory.
+//     Lane (g, t) draws replicates g and g + 8 of each M tile at samples 4t
+//     .. 4t+3 of a 16-sample k-step, one Philox call each.  A table's
+//     counts are loaded TX_FMMA_AHEAD k-steps ahead, one 16 / 8 / 4-byte
+//     load per replicate and k-step;
+//   - the rows of a tile of TX_FMMA_S samples are built once per block as
+//     three bf16 planes (Rows::Filler: fetch_pair / store_planes) into one of
+//     two shared buffers while the other is consumed, one barrier a tile;
+//     each warp reads a k-step's B fragments once and uses them for both of
+//     its M tiles;
+//   - the three terms of TX_FMMA_AHEAD k-steps (32 samples) go into a
+//     float32 temporary that joins the thread's float32 sum by one FADD, as
+//     the tensor-core kernel's tile does;
+//   - a table count past one digit takes digit passes for its k-step,
+//     decided by the warp (__any_sync), so that a draw and a table of draws
+//     take one path and give the same bits.
+// What holds it on the H100: for the draw, the CUDA cores' ~17 instructions a
+// count (a quarter of a Philox call, the level lookup, the bf16 packing; the
+// 3 x 16 products a count are ~2.5 ms of the tensor cores at K3's main
+// shape), at about half the SM's issue rate; unrolling further, loads four
+// k-steps ahead and the Philox products as separate low and high multiplies
+// were all slower (PERF.md).  For a table, its row-wise reads.
+// Rows::Filler (rows.block(0, m)) has nsrc sources and one item per (source,
+// pair of samples of the tile), item = source (TX_FMMA_S / 2) + p:
+// fetch_pair(item, t0, j_end) loads samples t0 + 2p and t0 + 2p + 1 (zeros
+// from j_end on), keep_pair(raw) pins them, and store_planes(raw, item,
+// planes, t0, j_end) writes word p of row c of each plane k, planes[k
+// TX_FMMA_PLANE_W + c TX_FMMA_RS_W + p], the bf16 pair of term k of
+// row_c(t0 + 2p), row_c(t0 + 2p + 1) (zero from j_end on), for the source's
+// rows c.
+
+#define TX_FMMA_REPS 256                     // replicates of a block: 32 a warp
+#define TX_FMMA_MT 2                         // 16-replicate tiles of a warp
+#define TX_FMMA_S 128                        // samples of a row tile: 8 k-steps
+#define TX_FMMA_RS_W (TX_FMMA_S / 2 + 8)     // 32-bit words between two rows of a plane (spreads the banks)
+#define TX_FMMA_PLANE_W (TX_URS_CB * TX_FMMA_RS_W)
+#define TX_FMMA_AHEAD 2                      // k-steps a table load runs ahead, and of one temporary
+#define TX_FMMA_RI 1                         // row items a thread fetches ahead (2 was slower)
+
+// one k-step of a warp: the A fragments of its two M tiles from this step's
+// counts, then the loads of a later step into the registers they leave, then
+// the products with the three terms of NT N tiles into tmp
+template <int NT, typename Counts>
+__device__ __forceinline__ void fewmma_step(const Counts& counts,
+                                            typename Counts::Raw (&raw)[TX_FMMA_MT][2],
+                                            float (&tmp)[TX_FMMA_MT][NT][4], const uint32_t* pl,
+                                            const int (&ra)[TX_FMMA_MT][2], int nrep, long long j,
+                                            long long j_ahead, long long j_end, int ks, int lane) {
+  using MC = MmaCounts<Counts>;
+  using Raw = typename Counts::Raw;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  uint32_t af[TX_FMMA_MT][4];
+  bool hi = false;
+#pragma unroll
+  for (int mt = 0; mt < TX_FMMA_MT; ++mt) {
+    float fa[4], fb[4];
+    hi |= MC::low4(counts, raw[mt][0], ra[mt][0], j, fa);
+    hi |= MC::low4(counts, raw[mt][1], ra[mt][1], j, fb);
+    const uint4 v = mma_a_frag(fa, fb);
+    af[mt][0] = v.x;
+    af[mt][1] = v.y;
+    af[mt][2] = v.z;
+    af[mt][3] = v.w;
+  }
+#pragma unroll
+  for (int mt = 0; mt < TX_FMMA_MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      raw[mt][h] = (ra[mt][h] < nrep && j_ahead < j_end) ? counts.fetch(ra[mt][h], j_ahead) : Raw();
+      Counts::keep(raw[mt][h]);
+    }
+  }
+  uint32_t bt[NT][3][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const uint2 v = *reinterpret_cast<const uint2*>(pl + k * TX_FMMA_PLANE_W +
+                                                      (8 * nt + g) * TX_FMMA_RS_W + 8 * ks + 2 * t);
+      bt[nt][k][0] = v.x;
+      bt[nt][k][1] = v.y;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int mt = 0; mt < TX_FMMA_MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) tx_mma_bf16_16816(tmp[mt][nt], af[mt], bt[nt][k], tmp[mt][nt]);
+  if constexpr (MC::kDigits) {
+    // the same for every lane of the warp; rare, so this step's words are
+    // loaded again (from the cache) rather than held in registers
+    if (__any_sync(0xffffffffu, hi)) {
+      Raw held[TX_FMMA_MT][2];
+#pragma unroll
+      for (int mt = 0; mt < TX_FMMA_MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          held[mt][h] = (ra[mt][h] < nrep && j < j_end) ? counts.fetch(ra[mt][h], j) : Raw();
+        }
+      for (int d = 1; d <= 3; ++d) {
+#pragma unroll
+        for (int mt = 0; mt < TX_FMMA_MT; ++mt) {
+          float fa[4], fb[4];
+          MC::digit4(held[mt][0], d, fa);
+          MC::digit4(held[mt][1], d, fb);
+          const uint4 v = mma_a_frag(fa, fb);
+          af[mt][0] = v.x;
+          af[mt][1] = v.y;
+          af[mt][2] = v.z;
+          af[mt][3] = v.w;
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int mt = 0; mt < TX_FMMA_MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) tx_mma_bf16_16816(tmp[mt][nt], af[mt], bt[nt][k], tmp[mt][nt]);
+      }
+    }
+  }
+}
+
+// NT = 1 for up to 8 rows, 2 for up to 16
+template <int NT, typename Rows, typename Counts>
+__global__ void __launch_bounds__(TX_URS_THREADS, 2)
+resample_fewmma_kernel(Rows rows, Counts counts, float* __restrict__ part, long long R, int m,
+                       int nrep, long long chunk) {
+  __shared__ __align__(16) uint32_t planes[2][3 * TX_FMMA_PLANE_W];
+  using Filler = typename Rows::Filler;
+  constexpr int AH = TX_FMMA_AHEAD;
+  // grid.x = chunk (replicate blocks) + replicate block
+  const int ycount = (nrep + TX_FMMA_REPS - 1) / TX_FMMA_REPS;
+  const long long bx = blockIdx.x / ycount;
+  const int r0 = (blockIdx.x % ycount) * TX_FMMA_REPS;
+  const long long j_begin = bx * chunk;
+  const long long j_end = (j_begin + chunk < R) ? j_begin + chunk : R;
+  const Filler filler = rows.block(0, m);
+  const int nitems = filler.nsrc * (TX_FMMA_S / 2);
+  counts.init();  // the barrier after the first tile comes before any count
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rw = r0 + 32 * (tid >> 5);  // the warp's first replicate
+  const bool live = rw < nrep;          // the same for every lane of the warp
+  int ra[TX_FMMA_MT][2];
+#pragma unroll
+  for (int mt = 0; mt < TX_FMMA_MT; ++mt) {
+    ra[mt][0] = rw + 16 * mt + g;
+    ra[mt][1] = ra[mt][0] + 8;
+  }
+
+  // rows from m up to the last N tile read as zeros in both buffers
+  for (int i = tid; i < 2 * 3 * (8 * NT - m) * TX_FMMA_RS_W; i += TX_URS_THREADS) {
+    const int b = i / (3 * (8 * NT - m) * TX_FMMA_RS_W);
+    const int rest = i % (3 * (8 * NT - m) * TX_FMMA_RS_W);
+    const int k = rest / ((8 * NT - m) * TX_FMMA_RS_W);
+    const int c = m + (rest / TX_FMMA_RS_W) % (8 * NT - m);
+    planes[b][k * TX_FMMA_PLANE_W + c * TX_FMMA_RS_W + rest % TX_FMMA_RS_W] = 0u;
+  }
+  float acc[TX_FMMA_MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < TX_FMMA_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  // prologue: the first tile's rows into buffer 0, the counts of the first
+  // AH k-steps into the AH register sets
+  using CRaw = typename Counts::Raw;
+  CRaw craw[AH][TX_FMMA_MT][2];
+#pragma unroll
+  for (int u = 0; u < AH; ++u)
+#pragma unroll
+    for (int mt = 0; mt < TX_FMMA_MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long j = j_begin + 16 * u + 4 * t;
+        craw[u][mt][h] = (ra[mt][h] < nrep && j < j_end) ? counts.fetch(ra[mt][h], j) : CRaw();
+      }
+  for (int item = tid; item < nitems; item += TX_URS_THREADS) {
+    filler.store_planes(filler.fetch_pair(item, j_begin, j_end), item, planes[0], j_begin, j_end);
+  }
+  __syncthreads();
+
+  typename Filler::RawPair rraw[TX_FMMA_RI] = {};
+  int cur = 0;
+  for (long long t0 = j_begin; t0 < j_end; t0 += TX_FMMA_S) {
+    const long long t1 = t0 + TX_FMMA_S;
+    const bool more = t1 < j_end;  // the same for every thread of the block
+    if (more) {  // the next tile's sample values, in flight during the products
+#pragma unroll
+      for (int n = 0; n < TX_FMMA_RI; ++n) {
+        const int item = tid + n * TX_URS_THREADS;
+        if (item < nitems) rraw[n] = filler.fetch_pair(item, t1, j_end);
+        Filler::keep_pair(rraw[n]);
+      }
+    }
+    if (live) {
+      for (int n = 0; n < TX_FMMA_S / 16; n += AH) {
+        float tmp[TX_FMMA_MT][NT][4];
+#pragma unroll
+        for (int mt = 0; mt < TX_FMMA_MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tmp[mt][nt][e] = 0.f;
+#pragma unroll
+        for (int u = 0; u < AH; ++u) {
+          const long long j = t0 + 16 * (n + u) + 4 * t;
+          fewmma_step<NT>(counts, craw[u], tmp, planes[cur], ra, nrep, j, j + 16 * AH, j_end, n + u,
+                          lane);
+        }
+#pragma unroll
+        for (int mt = 0; mt < TX_FMMA_MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += tmp[mt][nt][e];
+      }
+    }
+    if (more) {  // the rows of the next tile into the other buffer
+#pragma unroll
+      for (int n = 0; n < TX_FMMA_RI; ++n) {
+        const int item = tid + n * TX_URS_THREADS;
+        if (item < nitems) filler.store_planes(rraw[n], item, planes[cur ^ 1], t1, j_end);
+      }
+      for (int item = tid + TX_FMMA_RI * TX_URS_THREADS; item < nitems; item += TX_URS_THREADS) {
+        filler.store_planes(filler.fetch_pair(item, t1, j_end), item, planes[cur ^ 1], t1, j_end);
+      }
+    }
+    __syncthreads();  // the tile is consumed and the next one is complete
+    cur ^= 1;
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int mt = 0; mt < TX_FMMA_MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = ra[mt][e >> 1];
+        const int c = 8 * nt + 2 * t + (e & 1);
+        if (r < nrep && c < m) part[(bx * nrep + r) * m + c] = acc[mt][nt][e];
+      }
+    }
+  }
+}
+
+inline bool resample_fewmma_shape_ok(long long m, long long R, int nrep, int nchunk, long long chunk) {
+  if (m < 1 || m > TX_URS_CB || nrep < 1 || R < 1 || nchunk < 1 || chunk < 1 ||
+      chunk % TX_FMMA_S != 0 || (long long)nchunk * chunk < R) {
+    return false;
+  }
+  return (long long)nchunk * ((nrep + TX_FMMA_REPS - 1) / TX_FMMA_REPS) <= 2147483647LL;
+}
+
+// Launch on `stream`; write part (nchunk, nrep, m) float32 and return the
+// launch status.  Counts: the draw or an int8 / int16 / int32 table
+// (MmaCounts<Counts>); Rows: a filler with fetch_pair / store_planes.
+template <typename Rows, typename Counts>
+int launch_fewmma(Rows rows, Counts counts, void* part, long long R, int m, int nrep, int nchunk,
+                  long long chunk, cudaStream_t stream) {
+  const int ycount = (nrep + TX_FMMA_REPS - 1) / TX_FMMA_REPS;
+  const dim3 grid((unsigned)((long long)nchunk * ycount), 1, 1);
+  if (m <= 8) {
+    resample_fewmma_kernel<1, Rows, Counts><<<grid, TX_URS_THREADS, 0, stream>>>(
+        rows, counts, (float*)part, R, m, nrep, chunk);
+  } else {
+    resample_fewmma_kernel<2, Rows, Counts><<<grid, TX_URS_THREADS, 0, stream>>>(
+        rows, counts, (float*)part, R, m, nrep, chunk);
+  }
   return (int)cudaGetLastError();
 }
 

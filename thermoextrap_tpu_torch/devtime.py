@@ -9,8 +9,9 @@ particles, the 64 x 1e6 lnΠ grid; same seed) and prints one JSON line per
 call: the main path, ⟨u⟩(β), the lnΠ grid and its series engine alone (the
 call past its K4 and K5 wrappers), the volume pipeline, K1 alone at
 R = 1e8 (one value column at order 6, and the volume path's two at order 1), K3 alone at
-the main path's shape (R = 1e8, 256 replicates), K2 at the quick start's
-shape (R = 1e5) and at R = 1e7 (100 replicates, int32 table), K6 at the quick
+the main path's shape (R = 1e8, 256 replicates), at one streaming chunk (R = 1e7) and at the
+volume path's two value columns at order 1 (6 rows), K2 at the quick start's
+shape (R = 1e5) and at R = 1e7 (100 replicates, int32 and int8 tables), K6 at the quick
 start's shape (100 x 1e5), K4 and K5 alone (K4 at the grid in float32 and
 bfloat16 and at one row of R = 1e8; K5 at the grid and at one row of
 R = 1e8), the perturbation call at R = 1e7 (counts drawn in the kernel, then
@@ -253,6 +254,7 @@ def main() -> int:
     x1 = x[:, None]
     table2 = torch.poisson(torch.ones((100, rp), device=dev), generator=gen).to(torch.int32)
     table2q = table2[:, :100_000].contiguous()
+    table28, table2q8 = table2.to(torch.int8), table2q.to(torch.int8)
     x2 = torch.stack([x, x * x], dim=1)  # the volume path's two value columns
     u6, x6 = u[:10_000_000].reshape(100, 100_000), x1[:10_000_000].reshape(100, 100_000, 1)
     lnpi0, mudotn = -0.01 * ncoord**2, 0.3 * ncoord
@@ -337,8 +339,12 @@ def main() -> int:
         "K1_1e8": lambda: mc.reduce_central_comoments_fused(u, x1, ORDER),
         "K1_1e8_V2": lambda: mc.reduce_central_comoments_fused(u, x2, 1),
         "K3_1e8": lambda: mc.resample_central_comoments_poisson(u, x1, NREP, ORDER, seed=SEED),
+        "K3_1e7": lambda: mc.resample_central_comoments_poisson(up, x1[:rp], NREP, ORDER, seed=SEED),
+        "K3_volume_1e8": lambda: mc.resample_central_comoments_poisson(u, x2, NREP, 1, seed=SEED),
         "K2_int32_1e5": lambda: mc.resample_central_comoments_fused(u[:100_000], x1[:100_000], table2q, ORDER),
         "K2_int32_1e7": lambda: mc.resample_central_comoments_fused(up, x1[:rp], table2, ORDER),
+        "K2_int8_1e5": lambda: mc.resample_central_comoments_fused(u[:100_000], x1[:100_000], table2q8, ORDER),
+        "K2_int8_1e7": lambda: mc.resample_central_comoments_fused(up, x1[:rp], table28, ORDER),
         "K6_100x1e5": lambda: mc.reduce_central_comoments_batched(u6, x6, ORDER),
         "K4_grid_order6": lambda: mc.reduce_central_umoments_batched(grid, ORDER),
         "K4_grid_bf16_order6": lambda: mc.reduce_central_umoments_batched(gridb, ORDER),

@@ -46,7 +46,9 @@ many-rows kernel (:func:`_rows_launch` gives the launch shape of either);
 K5 past 16 rows runs on the tensor cores instead (:func:`_k5_on_tensor_cores`,
 :func:`_mma_launch`; counts as exact bf16, rows as the three bf16 terms of
 :func:`split_bf16x3`, the ``mma.sync`` helper held by
-:func:`mma_probe_cuda`), and
+:func:`mma_probe_cuda`), and so do K2 / K3 up to 16 rows with integer counts,
+in a few-rows tensor-core kernel (:func:`_k23_on_tensor_cores`,
+:func:`_fewmma_launch`; ``LAUNCHES["comoment_mma"]`` counts those calls), and
 the in-kernel Poisson draw of ``csrc/philox.cuh`` (:func:`poisson_map_cuda`
 holds its word → count map against the 9-compare sum).  The
 wrappers are forward only.  K1, K2, K4 and K6 are differentiated through
@@ -114,6 +116,7 @@ LAUNCHES = trace.register("launches", {
     "head_shift": 0,  # helper kernels (csrc/finalize.cu): of every wrapper but K7 / K8
     "finalize": 0,  # of the K1 / K2 / K3 / K6 wrappers
     "finalize_u": 0,  # of the K4 / K5 wrappers
+    "comoment_mma": 0,  # K2 / K3 calls on the few-rows tensor-core kernel
 })
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu (K1, K4, K6)
@@ -125,6 +128,8 @@ _FEW_TILE = 256  # TX_FEW_TILE: sample tile of the few-rows kernel (up to _URS_C
 _MMA_REPS = 128  # TX_MMA_REPS: replicates of a block of the tensor-core kernel
 _MMA_ROWS = 224  # TX_MMA_ROWS: rows of such a block
 _MMA_S = 32  # TX_MMA_S: its sample tile
+_FMMA_REPS = 256  # TX_FMMA_REPS: replicates of a block of the few-rows tensor-core kernel
+_FMMA_S = 128  # TX_FMMA_S: its sample tile
 _TARGET_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
 # K7/K8 cut the samples four times finer: a thread's serial float32 sum of
 # positive terms then runs over a few hundred samples at R = 1e7, which holds
@@ -140,6 +145,9 @@ _COUNT_KIND = {
     torch.bfloat16: 4,
 }
 _POISSON_KIND = 5
+# the count sources of K2 / K3 that run on the tensor cores up to 16 rows
+# (integer counts: exact as bf16 digits)
+_MMA_COUNT_KINDS = frozenset({0, 1, 2, _POISSON_KIND})
 # the table types K2 takes past the few-rows kernel's 16 rows; the rest are
 # widened to these first (the same counts, so the same sums)
 _WIDE_TABLE = {torch.int8: torch.int32, torch.int16: torch.int32, torch.bfloat16: torch.float32}
@@ -617,7 +625,14 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
         freq, kind = _count_table(freq, nrep, r, u.device, wide=m > _URS_CB)
         fptr = freq.data_ptr()
     shift = head_shift_cuda(u, x, w)
-    nr, npt, nchunk, chunk = _rows_launch(m, nrep, r, _TARGET_BLOCKS)
+    mma = _k23_on_tensor_cores(m, kind)
+    if mma:
+        nr = npt = 1  # not read by the tensor-core kernel
+        # two blocks an SM fit (128 registers a thread): 528 blocks are two
+        # waves, and no more chunk partials than the CUDA cores' launch wrote
+        nchunk, chunk = _fewmma_launch(m, nrep, r, _TARGET_BLOCKS // 2)
+    else:
+        nr, npt, nchunk, chunk = _rows_launch(m, nrep, r, _TARGET_BLOCKS)
     part = torch.empty((nchunk, nrep, m), dtype=torch.float32, device=u.device)
     status = _build.library().tx_resample_comoments(
         u.data_ptr(),
@@ -643,6 +658,8 @@ def _resample_cuda(uv, x2, weight, order: int, nrep: int, *, freq=None, seed=0):
         _stream_ptr(u.device),
     )
     _build.check(status, "tx_resample_comoments")
+    if mma:
+        LAUNCHES["comoment_mma"] += 1
     return finalize_comoments_cuda(part, shift, order, v)
 
 
@@ -1003,6 +1020,35 @@ def _mma_launch(m: int, nrep: int, r: int, target_blocks: int):
     nchunk = max(1, min(ntile, math.ceil(target_blocks / (ycount * zcount))))
     chunk = math.ceil(ntile / nchunk) * _MMA_S
     return math.ceil(r / chunk), chunk
+
+
+def _k23_on_tensor_cores(m: int, kind: int) -> bool:
+    """``comoment_on_tensor_cores`` of csrc/comoments_resample.cu: K2 / K3 up
+    to 16 rows with integer counts (the draw; int8, int16, int32 tables) run
+    in the few-rows tensor-core kernel, fractional tables and more rows on
+    the CUDA cores."""
+    return m <= _URS_CB and kind in _MMA_COUNT_KINDS
+
+
+@functools.lru_cache(maxsize=256)
+def _fewmma_launch(m: int, nrep: int, r: int, target_blocks: int):
+    """Launch shape of the few-rows tensor-core kernel (csrc/resample_tile.cuh)
+    for ``m`` rows, ``nrep`` replicates and ``r`` samples: ``(nchunk,
+    chunk)``, ``r`` cut into chunks of whole 128-sample tiles, about
+    ``target_blocks`` blocks of 256 replicates in all."""
+    ycount = math.ceil(nrep / _FMMA_REPS)
+    ntile = math.ceil(r / _FMMA_S)
+    nchunk = max(1, min(ntile, math.ceil(target_blocks / ycount)))
+    chunk = math.ceil(ntile / nchunk) * _FMMA_S
+    return math.ceil(r / chunk), chunk
+
+
+def _fewmma_shape_ok(m: int, r: int, nrep: int, nchunk: int, chunk: int) -> bool:
+    """``resample_fewmma_shape_ok`` of csrc/resample_tile.cuh, which the K2 /
+    K3 entry holds the tensor-core route's arguments to."""
+    if not (1 <= m <= _URS_CB and nrep >= 1 and r >= 1 and nchunk >= 1 and chunk >= 1):
+        return False
+    return chunk % _FMMA_S == 0 and nchunk * chunk >= r and nchunk * math.ceil(nrep / _FMMA_REPS) < 2**31
 
 
 def finalize_umoments_plain(part, s_u, order: int, nbatch: int):
