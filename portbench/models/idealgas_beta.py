@@ -18,6 +18,7 @@ import torch
 from thermoextrap_tpu_torch import pipeline
 
 _ELEMS = 1 << 28  # positions drawn per call of the generator (1 GiB in float32)
+SAMPLE_KEYS = ("u", "x")  # the inputs whose last axis is the samples
 
 
 def make_inputs(cfg: dict, seed: int, device) -> dict:

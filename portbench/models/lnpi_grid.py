@@ -18,6 +18,7 @@ import torch
 from thermoextrap_tpu_torch import pipeline
 
 _REPO = Path(__file__).resolve().parents[2]
+SAMPLE_KEYS = ("uv",)  # the inputs whose last axis is the samples
 
 
 def make_inputs(cfg: dict, seed: int, device) -> dict:

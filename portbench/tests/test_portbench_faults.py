@@ -4,7 +4,8 @@ false: for each fault a cell can have, at the tiny CPU size.
 - the answer altered where it is produced (the prediction by a thousandth
   of itself, the bootstrap deviation by 5%);
 - half of the samples left out, the moments taken over the rest (half of
-  each chunk of a stream);
+  each chunk of a stream): the last axis of each input the model names in
+  its ``SAMPLE_KEYS``;
 - a streaming step that returns its state unchanged (every chunk of a
   session after its first);
 - the bootstrap deviation altered on every call after the window's first
@@ -14,12 +15,16 @@ false: for each fault a cell can have, at the tiny CPU size.
 One chip and no exchange between chips: that fault has no place here.
 """
 
+import json
 import types
 
 import pytest
-from conftest import CELLS, run_tiny
+import torch
+from conftest import BENCH, CELLS, REPO, SEED, run_tiny, sizes
 
 from portbench import generator, harness
+
+MODELS = sorted(p.stem for p in (REPO / "portbench" / "models").glob("*.py"))
 
 
 def _patched(monkeypatch, wrap):
@@ -72,7 +77,7 @@ def _alter(ns):
 
 def _half(ns):
     def keep(inputs):
-        return {k: (v[..., : v.shape[-1] // 2] if k in ("u", "x", "uv") else v) for k, v in inputs.items()}
+        return {k: (v[..., : v.shape[-1] // 2] if k in ns.SAMPLE_KEYS else v) for k, v in inputs.items()}
 
     batch = ns.batch
     ns.batch = lambda cfg, inputs, nrep, *, control=False: batch(cfg, keep(inputs), nrep, control=control)
@@ -145,9 +150,10 @@ def test_half_the_samples_is_not_correct(monkeypatch, name):
     assert line["checks"]["pred_err"]["value"] > line["checks"]["pred_err"]["limit"]
 
 
-def test_unchanged_stream_state_is_not_correct(monkeypatch):
+@pytest.mark.parametrize("name", [c for c in CELLS if harness.load_cell(c).traffic["mode"] == "stream"])
+def test_unchanged_stream_state_is_not_correct(monkeypatch, name):
     _patched(monkeypatch, _stale)
-    out, line = run_tiny("ig_beta6.stream", seconds=1.0)
+    out, line = run_tiny(name, seconds=1.0)
     assert len(out["window"].answers) >= 2
     assert line["correct"] is False
     assert line["checks"]["pred_err"]["value"] > line["checks"]["pred_err"]["limit"]
@@ -162,6 +168,24 @@ def test_late_deviation_fault_is_not_correct(monkeypatch, name):
     assert len(out["window"].answers) >= 2
     assert line["correct"] is False
     assert line["checks"]["sigma_err"]["value"] > line["checks"]["sigma_err"]["limit"]
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_model_declares_its_sample_keys(model):
+    """The half-samples fault cuts the inputs a model names in
+    ``SAMPLE_KEYS``: exactly the tensors of its tiny inputs whose last axis
+    holds the ``nrec`` samples, so none is left whole."""
+    confs = [json.loads((REPO / c["file"]).read_text()) for c in BENCH["configs"]]
+    conf = next((c for c in confs if c["model"] == model), None)
+    assert conf is not None, f"no configuration in BENCHMARK.json runs models/{model}.py"
+    cfg = {**conf, **sizes(conf["name"], "tiny")}
+    mod = harness.model(cfg)
+    keys = mod.SAMPLE_KEYS
+    assert isinstance(keys, tuple) and keys and len(set(keys)) == len(keys)
+    inputs = mod.make_inputs(cfg, SEED, torch.device("cpu"))
+    nrec = inputs["nrec"]
+    along = {k for k, v in inputs.items() if isinstance(v, torch.Tensor) and v.dim() and v.shape[-1] == nrec}
+    assert set(keys) == along, (keys, sorted(along))
 
 
 def test_sigma_picks_spread_over_the_window():

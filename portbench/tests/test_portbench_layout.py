@@ -6,11 +6,10 @@ import json
 import re
 
 import pytest
-from conftest import CELLS, REPO
+from conftest import BENCH, CELLS, REPO
 
 from portbench import harness, roofline
 
-BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 ROOT = REPO / "portbench"
@@ -24,14 +23,24 @@ def test_top_level_keys():
     assert len((REPO / "BENCHMARK.json").read_bytes()) <= 64 * 1024
 
 
-def test_workloads_are_the_four_cells_on_one_chip():
-    assert tuple(w["name"] for w in BENCH["workloads"]) == CELLS
-    for w in BENCH["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1
-        assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"] and "\t" not in w["why"]
-    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+def test_workloads_keep_the_contract():
+    """Every cell, whichever PR added it: the rules of ``workloads`` and the
+    files a cell and its configuration are found by."""
+    cells = BENCH["workloads"]
+    assert 1 <= len(cells) <= 24
+    assert sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4)
+    pairs = [(w["config"], w["traffic"]) for w in cells]
     assert len(set(pairs)) == len(pairs)
+    configs = {c["name"] for c in BENCH["configs"]}
+    for w in cells:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["chips"] in (1, 4) and w["config"] in configs, w["name"]
+        assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"] and "\t" not in w["why"]
+        limits = ROOT / "workloads" / f"{w['name']}.json"
+        assert limits.is_file(), f"{limits} is missing"
+        sizes = ROOT / "tests" / "sizes" / f"{w['config']}.json"
+        assert sizes.is_file(), f"{sizes} is missing"
+        assert {"tiny", "small"} <= set(json.loads(sizes.read_text())), sizes
 
 
 def test_names_units_and_keys():
@@ -88,6 +97,6 @@ def test_cell_found_by_name(name):
         assert callable(harness.reader("metrics", m["name"]).read)
 
 
-@pytest.mark.parametrize("op", ["comoment_reduce", "comoment_boot", "umoment_reduce", "umoment_boot"])
+@pytest.mark.parametrize("op", sorted(p.stem for p in (ROOT / "roofline_ops").glob("*.py")))
 def test_roofline_ops_found_by_name(op):
     assert callable(roofline.op(op).work)

@@ -1,5 +1,6 @@
 """The bound arithmetic reproduces the bounds the port's kernel table
-records (H100 SXM peaks; bytes read and written once)."""
+records (H100 SXM peaks; bytes read and written once), and times a work
+of exponentials alone."""
 
 import pytest
 
@@ -15,10 +16,11 @@ from portbench import roofline
         ("comoment_boot", {"r": 10**7, "v": 1, "order": 6, "nrep": 256}, 1.83, "draws"),
         ("umoment_boot", {"b": 64, "n": 10**6, "order": 6, "nrep": 256}, 0.70, "products"),
         ("umoment_reduce", {"b": 64, "n": 10**6, "order": 6}, 0.076, "bytes"),
+        (None, {"exps": 4.18e10}, 10.0, "exps"),  # a work given as it is: exponentials alone
     ],
 )
 def test_bounds(op, shape, ms, by):
-    got, got_by = roofline.bound(roofline.op(op).work(**shape))
+    got, got_by = roofline.bound(roofline.op(op).work(**shape) if op else shape)
     assert got == pytest.approx(ms, rel=0.01)
     assert got_by == by
 
