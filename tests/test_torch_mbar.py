@@ -462,3 +462,30 @@ def test_mbar_model_matches_jax():
     assert m1.shape == (1,)
     assert_close((m1, s1), (mean[1], std[1]), 1e-12)
     # (the bootstrap is held to the reference through its counts core above)
+
+
+def test_mbar_model_matches_the_benchmark_reference():
+    """``MBARModel.predict`` on the benchmark's harmonic problem
+    (``portbench/configs/mbar_harmonic4.json``: K = 4 states, sigma in [1,
+    3], 256 targets) at a tiny size, against the benchmark's plain reference
+    (``portbench/reference/mbar_harmonic.py``: the self-consistent iteration
+    to max |Δf| <= 1e-10, then an online log-sum-exp over sample blocks).
+    Both in float64; the tolerance, 1e-9 on <x> and <x^2> (which run 1 to
+    9), is the reference's stop: its iteration contracts about fivefold a
+    step here, so its f_k sit within ~3e-11 of the fixed point the port's
+    hybrid reaches at residual 1e-12 (the two agree to ~2e-11)."""
+    from portbench.reference import mbar_harmonic as ref
+
+    cfg = {"states": 4, "sigma_range": [1.0, 3.0]}
+    sig = ref.sigmas(1.0, 3.0, 4)
+    x = torch.randn((4, 2000), generator=torch.Generator().manual_seed(45), dtype=torch.float64) * sig[:, None]
+    states = [
+        tbeta.factory_extrapmodel(float(s) ** -2, tx.DataValues.from_vals(torch.stack([xk, xk * xk], -1), 0.5 * xk * xk, order=0), order=0)
+        for s, xk in zip(sig, x)
+    ]
+    alphas = (ref.sigmas(1.0, 3.0, 256) ** -2).numpy()
+    got = MBARModel(states).predict(alphas)
+    want = ref.predict(cfg, {"x": x}, alphas)
+    assert got.shape == want["pred"].shape == (256, 2)
+    np.testing.assert_allclose(npy(got), npy(want["pred"]), rtol=0, atol=1e-9)
+    assert float((want["pred"][:, 1] - torch.as_tensor(1 / alphas)).abs().max()) < 0.5  # <x^2> = sigma_a^2, to sampling error

@@ -1,8 +1,11 @@
 """The port's spans and counters (``utils.trace``): nothing recorded with no
-profiler running, the pipelines' call spans with their stages nested under
-``torch.profiler`` (in the profiler's events and in the log, under one call
-id), bare kernel entries kept out of the log, the log's bounds, and the
-counters held by reference."""
+profiler running, the pipelines' and MBAR's call spans with their stages
+nested under ``torch.profiler`` (in the profiler's events and in the log,
+under one call id), bare kernel entries kept out of the log, the log's
+bounds, the counters held by reference, and MBAR's iterations and host
+reads counted."""
+
+import types
 
 import numpy as np
 import pytest
@@ -11,7 +14,8 @@ from _torch_parity import cuda_device  # noqa: F401  (pins the default device to
 from torch.autograd import DeviceType
 from torch.profiler import profile
 
-from thermoextrap_tpu_torch import pipeline
+from thermoextrap_tpu_torch import DataValues, MBARModel, beta, pipeline
+from thermoextrap_tpu_torch.models import mbar as tm
 from thermoextrap_tpu_torch.ops import dispatch
 from thermoextrap_tpu_torch.ops import moments_cuda as mc
 from thermoextrap_tpu_torch.utils import device as udev
@@ -45,6 +49,18 @@ def _stream():
     return lambda: predict(update(state0, u, x), BETAS)
 
 
+def _mbar(device="cpu", n=500):
+    """``MBARModel.predict`` over three harmonic states at two targets."""
+    g = torch.Generator().manual_seed(7)
+    states = []
+    for s in (1.0, 2.0, 3.0):
+        x = (s * torch.randn(n, generator=g, dtype=torch.float64)).to(device)
+        data = DataValues.from_vals(torch.stack([x, x * x], dim=-1), 0.5 * x * x, order=0)
+        states.append(beta.factory_extrapmodel(s**-2, data, order=0))
+    model = MBARModel(states)
+    return lambda: model.predict(np.array([0.5, 0.2]))
+
+
 # each case: its calls, and each call's stages in the order they close
 CASES = {
     "extrap": (_extrap, [("te.extrap", ["te.reduce", "te.coefs", "te.taylor", "te.boot", "te.coefs", "te.taylor"])]),
@@ -56,6 +72,7 @@ CASES = {
             ("te.stream.predict", ["te.coefs", "te.taylor", "te.coefs", "te.taylor"]),
         ],
     ),
+    "mbar": (_mbar, [("te.mbar", ["te.mbar.pool", "te.mbar.solve", "te.mbar.grid"])]),
 }
 
 
@@ -165,6 +182,56 @@ def test_counters_held_by_reference():
     for make, _ in CASES.values():
         make()()
     assert (dict(mc.LAUNCHES), udev.HOST_READS["n"], udev.HOST_SYNCS["n"]) == before
+
+
+@pytest.mark.parametrize("method", ["hybrid", "sci"])
+def test_mbar_counts_its_iterations_and_each_host_read(monkeypatch, method):
+    """``mbar_iters`` gains the solve's iterations (``n_iter``), and every
+    host read of the solve goes through ``host_item``: one a loop trip, the
+    one that ends the loop, and ``n_iter``'s (the CPU reads count nothing,
+    so they are counted here at the helper)."""
+    x = torch.randn((3, 400), generator=torch.Generator().manual_seed(8), dtype=torch.float64)
+    alpha0 = torch.tensor([1.0, 0.3, 0.1], dtype=torch.float64)
+    u_kn = alpha0[:, None] * (0.5 * x * x * torch.tensor([1.0, 4.0, 9.0], dtype=torch.float64)[:, None]).reshape(-1)
+    reads = []
+    real = tm.host_item
+    monkeypatch.setattr(tm, "host_item", lambda t: reads.append(t.shape) or real(t))
+    before = tm.MBAR_ITERS["n"]
+    with profile(), trace.call("t.mbar"):
+        _, n_iter, _ = tm.mbar_solve_info(u_kn, torch.full((3,), 400.0, dtype=torch.float64), method=method)
+    assert trace.COUNTERS["mbar_iters"] is tm.MBAR_ITERS
+    assert n_iter > 1 and tm.MBAR_ITERS["n"] - before == n_iter
+    assert trace.calls()[-1]["counters"]["mbar_iters"]["n"] == n_iter
+    trips = n_iter if method == "hybrid" else n_iter - 1  # sci's first update precedes the loop
+    assert len(reads) == trips + 2 and all(shape == () for shape in reads)
+
+
+def test_host_item_counts_a_read_from_a_card():
+    card = types.SimpleNamespace(device=torch.device("cuda", 0), item=lambda: 7)
+    reads, syncs = udev.HOST_READS["n"], udev.HOST_SYNCS["n"]
+    assert udev.host_item(torch.tensor(True)) is True  # a CPU tensor: no read back
+    assert (udev.HOST_READS["n"], udev.HOST_SYNCS["n"]) == (reads, syncs)
+    with profile(), trace.call("t.item"):
+        assert udev.host_item(card) == 7
+    rec = trace.calls()[-1]
+    assert rec["counters"]["host_reads"]["n"] == rec["counters"]["host_syncs"]["n"] == 1
+    assert [s[2] for s in rec["spans"]] == ["te.sync"]
+
+
+@pytest.mark.cuda
+def test_mbar_on_the_card_counts_each_wait(cuda_device):  # noqa: F811
+    """On the card a ``predict`` waits on the two α copies, each solve
+    iteration's read, the read that ends the loop and ``n_iter``'s."""
+    fn = _mbar(cuda_device, n=20000)
+    fn()
+    with profile():
+        fn()
+    rec = trace.calls()[-1]
+    n_iter = rec["counters"]["mbar_iters"]["n"]
+    assert rec["name"] == "te.mbar" and n_iter >= 2
+    assert rec["counters"]["host_syncs"]["n"] == 2 + n_iter + 2
+    assert [s[2] for s in rec["spans"]].count("te.sync") == 2 + n_iter + 2
+    assert rec["counters"]["host_reads"]["n"] == n_iter + 2
 
 
 @pytest.mark.cuda

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from ..ops.series import derivs_from_coefs
-from ..utils.device import default_device
+from ..utils import trace
+from ..utils.device import default_device, to_device
 from .derivatives import Derivatives
 
 __all__ = [
@@ -459,23 +460,32 @@ class PerturbModel:
         )
 
 
+def mbar_alpha_chunk(n_alphas: int, n_samples: int) -> int:
+    """Targets a block of :func:`.mbar.mbar_expectations_alphas` takes in
+    :class:`MBARModel`: as many as keep a ``(chunk, N)`` block within 2^27
+    elements, at least one and at most all."""
+    return max(1, min(n_alphas, (1 << 27) // n_samples))
+
+
 def _mbar_predict_core(uv, xv, alpha0, alphas, method: str = "hybrid"):
     """Pooled-sample MBAR solve and the expectations at every target.
 
     ``uv (K, R)``, ``xv (K, R, *val)``, ``alpha0 (K,)``, ``alphas (A,)`` →
-    ``(A, V)``.  The targets ``alphas[a] * u`` are taken in blocks of at
-    most 2^27 elements (:func:`.mbar.mbar_expectations_alphas`, the same
-    products as the reference's ``(A, N)`` grid), so no ``(A, N)`` matrix
-    is built."""
+    ``(A, V)``.  The targets ``alphas[a] * u`` are taken in blocks of
+    :func:`mbar_alpha_chunk` (:func:`.mbar.mbar_expectations_alphas`, the
+    same products as the reference's ``(A, N)`` grid), so no ``(A, N)``
+    matrix is built."""
     from .mbar import mbar_expectations_alphas, mbar_solve
 
-    # reduced potential of every state evaluated on all pooled samples
-    u_flat = uv.reshape(-1)
-    u_kn = alpha0[:, None] * u_flat[None, :]  # (K, K*R)
-    n_k = torch.full((uv.shape[0],), float(uv.shape[-1]), dtype=uv.dtype, device=uv.device)
-    f_k = mbar_solve(u_kn, n_k, method=method)
-    chunk = max(1, min(alphas.shape[0], (1 << 27) // u_flat.shape[0]))
-    return mbar_expectations_alphas(u_kn, n_k, f_k, alphas, u_flat, xv.reshape(u_flat.shape[0], -1), chunk=chunk)
+    with trace.span("te.mbar.solve"):
+        # reduced potential of every state evaluated on all pooled samples
+        u_flat = uv.reshape(-1)
+        u_kn = alpha0[:, None] * u_flat[None, :]  # (K, K*R)
+        n_k = torch.full((uv.shape[0],), float(uv.shape[-1]), dtype=uv.dtype, device=uv.device)
+        f_k = mbar_solve(u_kn, n_k, method=method)
+    with trace.span("te.mbar.grid"):
+        chunk = mbar_alpha_chunk(alphas.shape[0], u_flat.shape[0])
+        return mbar_expectations_alphas(u_kn, n_k, f_k, alphas, u_flat, xv.reshape(u_flat.shape[0], -1), chunk=chunk)
 
 
 class MBARModel(StateCollection):
@@ -484,20 +494,24 @@ class MBARModel(StateCollection):
     :mod:`.mbar` on the samples' device (the reference delegates to
     ``pymbar``).  The states' samples are stacked ``(K, R)`` state by state
     on their own device; the state energies are ``alpha0`` times ``uv`` in
-    the samples' type."""
+    the samples' type.  ``predict`` is the call span ``te.mbar`` with the
+    stages ``te.mbar.pool`` (the stacking), ``te.mbar.solve`` and
+    ``te.mbar.grid`` (:mod:`..utils.trace`)."""
 
     def _pooled(self, alpha):
         uv = torch.stack([m.data.uv for m in self])  # (K, R)
         xv = torch.stack([m.data.xv for m in self])  # (K, R, *val)
-        alpha0 = torch.tensor([m.alpha0 for m in self], dtype=uv.dtype, device=uv.device)
-        alpha = torch.as_tensor(alpha, dtype=uv.dtype, device=uv.device)
+        alpha0 = to_device([m.alpha0 for m in self], uv.device, uv.dtype)
+        alpha = to_device(alpha, uv.device, uv.dtype)
         return uv, xv, alpha0, torch.atleast_1d(alpha), alpha.ndim == 0
 
     def predict(self, alpha, method: str = "hybrid"):
-        uv, xv, alpha0, alphas, scalar = self._pooled(alpha)
-        out = _mbar_predict_core(uv, xv, alpha0, alphas, method=method)
-        out = out.reshape((alphas.shape[0], *xv.shape[2:]))
-        return out[0] if scalar else out
+        with trace.call("te.mbar"):
+            with trace.span("te.mbar.pool"):
+                uv, xv, alpha0, alphas, scalar = self._pooled(alpha)
+            out = _mbar_predict_core(uv, xv, alpha0, alphas, method=method)
+            out = out.reshape((alphas.shape[0], *xv.shape[2:]))
+            return out[0] if scalar else out
 
     def predict_ci(self, alpha, nrep: int = 100, seed: int = 0, method: str = "hybrid", rep_chunk: int = 2):
         """Bootstrap ``(mean, std)`` of the reweighted prediction: each

@@ -23,7 +23,10 @@ optional process group, over whose ranks the samples are sharded
 (:mod:`..parallel.sharded`): each such reduction then all-reduces its
 partial sums, a log-sum-exp as the MAX of the local maxima and the SUM of
 the shifted exponentials.  The reference's ``lax.while_loop`` is a
-Python loop that reads ``res > tol`` on the host once per iteration.  The
+Python loop that reads ``res > tol`` on the host once per iteration
+(through :func:`..utils.device.host_item`, so each read is counted in
+``host_syncs``); the counter ``mbar_iters`` (:data:`MBAR_ITERS`, held in
+:data:`..utils.trace.COUNTERS`) gains each solve's iterations.  The
 solver core is batched over leading replicate axes, with a per-replicate
 "done" mask that freezes a converged replicate's carry, which is what the
 reference's ``vmap`` of the ``while_loop`` does, so each bootstrap replicate
@@ -43,10 +46,13 @@ import torch.distributed as dist
 
 from ..data import _as_tensor
 from ..ops.resample import poisson1_freq
+from ..utils import trace
+from ..utils.device import host_item
 from ..utils.random import validate_rng
 from .extrap import _weighted_sums
 
 __all__ = [
+    "MBAR_ITERS",
     "mbar_bootstrap_expectations",
     "mbar_covariance",
     "mbar_expectations",
@@ -61,6 +67,10 @@ __all__ = [
     "statistical_inefficiency",
     "subsample_correlated_data",
 ]
+
+# iterations of the solver: each a self-consistent update or a hybrid step
+# over ``u_kn`` (a batched solve counts its loop's iterations once)
+MBAR_ITERS = trace.register("mbar_iters", {"n": 0})
 
 
 def _tensor(a, device=None, dtype=None):
@@ -189,14 +199,16 @@ def _solve(u_kn, log_n_k, logm, tol: float, max_iter: int, method: str, group=No
         f_prev = f
         f = _self_consistent_update(f, u_kn, log_n_k, logm, group=group)
         it = torch.ones(b, dtype=torch.int64, device=u_kn.device)
+        MBAR_ITERS["n"] += 1
         while True:
             active = ((f - f_prev).abs().amax(dim=-1) > tol) & (it < max_iter)
-            if not bool(active.any()):  # one host read per iteration
+            if not host_item(active.any()):  # one host read per iteration
                 break
             f_new = _self_consistent_update(f, u_kn, log_n_k, logm, group=group)
             f_prev = torch.where(active[:, None], f, f_prev)
             f = torch.where(active[:, None], f_new, f)
             it = it + active
+            MBAR_ITERS["n"] += 1
         return f, it, _max_abs_residual(f, u_kn, log_n_k, logm, None, group)
 
     if method != "hybrid":
@@ -210,7 +222,7 @@ def _solve(u_kn, log_n_k, logm, tol: float, max_iter: int, method: str, group=No
     it = torch.zeros(b, dtype=torch.int64, device=u_kn.device)
     while True:
         active = (res > tol) & (it < max_iter)
-        if not bool(active.any()):  # one host read per iteration
+        if not host_item(active.any()):  # one host read per iteration
             break
         f_new, ld_new, r_new = _hybrid_step(f, ld, u_kn, log_n_k, logm, group)
         keep = active[:, None]
@@ -218,6 +230,7 @@ def _solve(u_kn, log_n_k, logm, tol: float, max_iter: int, method: str, group=No
         ld = torch.where(keep, ld_new, ld)
         res = torch.where(active, r_new, res)
         it = it + active
+        MBAR_ITERS["n"] += 1
     return f, it, res
 
 
@@ -260,7 +273,8 @@ def mbar_solve(u_kn, n_k, tol: float | None = None, max_iter: int = 10000, metho
 def mbar_solve_info(u_kn, n_k, tol: float | None = None, max_iter: int = 10000, method: str = "hybrid", log_sample_weight=None):
     """Like :func:`mbar_solve` but returns ``(f_k, n_iter, residual)``:
     ``f_k`` and the final ``max |S_k - 1|`` as tensors on ``u_kn``'s
-    device, the iteration count as a Python int.
+    device, the iteration count as a Python int (one counted read, as each
+    iteration's).
 
     ``log_sample_weight (N,)``: a per-sample log weight added to every
     sample-axis reduction; ``-inf`` drops a sample (the mixture denominator
@@ -272,7 +286,7 @@ def mbar_solve_info(u_kn, n_k, tol: float | None = None, max_iter: int = 10000, 
     if tol is None:
         tol = 1e-12 if u_kn.dtype == torch.float64 else 1e-5
     f, it, res = _solve(u_kn, log_n_k[None], logm, tol, max_iter, method)
-    return f[0], int(it[0]), res[0]
+    return f[0], int(host_item(it[0])), res[0]
 
 
 def _prep(u_kn, n_k, f_k):

@@ -15,15 +15,26 @@ import torch
 
 from . import trace
 
-__all__ = ["HOST_READS", "HOST_SYNCS", "default_device", "host_numpy", "is_dtensor", "set_default_device", "to_device"]
+__all__ = [
+    "HOST_READS",
+    "HOST_SYNCS",
+    "default_device",
+    "host_item",
+    "host_numpy",
+    "is_dtensor",
+    "set_default_device",
+    "to_device",
+]
 
 _DEVICE: torch.device | None = None  # None = by availability
 
 # reads back to the host of tensors on another device than the CPU, through
-# host_numpy (the loops that read predictions back count theirs here)
+# host_numpy and host_item (the loops that read predictions back count theirs
+# here)
 HOST_READS = trace.register("host_reads", {"n": 0})
-# points where the host waits on the card: the reads of host_numpy and the
-# blocking copies of host data onto a CUDA device of to_device
+# points where the host waits on the card: the reads of host_numpy and
+# host_item and the blocking copies of host data onto a CUDA device of
+# to_device
 HOST_SYNCS = trace.register("host_syncs", {"n": 0})
 
 
@@ -52,6 +63,19 @@ def host_numpy(a) -> np.ndarray:
         with trace.span("te.sync"):
             return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def host_item(t: torch.Tensor):
+    """``t.item()``: one value of a tensor read to the host (a loop's
+    condition, a count).  From a tensor on a card, counted in ``HOST_READS``
+    and ``HOST_SYNCS`` and timed as a ``te.sync`` span, as
+    :func:`host_numpy`."""
+    if t.device.type == "cpu":
+        return t.item()
+    HOST_READS["n"] += 1
+    HOST_SYNCS["n"] += 1
+    with trace.span("te.sync"):
+        return t.item()
 
 
 def to_device(a, device, dtype=None) -> torch.Tensor:

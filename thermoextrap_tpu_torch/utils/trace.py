@@ -16,7 +16,7 @@ span inside it is logged with that id and its parent span's name.  A call
 opened inside another call is a stage of the outer one; a span opened
 outside any call reaches the profiler only.
 
-The pipelines' spans:
+The pipelines' and models' spans:
 
 =====================================  =====  =================================================
 name                                   kind   covers
@@ -25,20 +25,26 @@ name                                   kind   covers
 ``te.lnpi``                            call   ``make_lnpi_pipeline``'s ``run``
 ``te.stream.update``,                  call   ``make_streaming_extrap_pipeline``'s ``update``
 ``te.stream.predict``                         and ``predict``
+``te.mbar``                            call   ``models.extrap.MBARModel.predict``
 ``te.reduce``                          stage  ``ops.dispatch.reduce_central`` / ``reduce_central_u``
 ``te.boot``                            stage  the K3 / K5 bootstrap, or the CPU route's table one
 ``te.coefs``                           stage  the float64 casts and the series coefficients
 ``te.taylor``                          stage  the Taylor evaluation and the replicates' std
 ``te.merge``                           stage  ``DataCentralMoments.merge``
+``te.mbar.pool``                       stage  the stacking of the states' samples, the α copies
+``te.mbar.solve``                      stage  ``u_kn`` and ``models.mbar.mbar_solve``
+``te.mbar.grid``                       stage  ``models.mbar.mbar_expectations_alphas``
 ``te.sync``                            stage  a host wait counted in ``host_syncs``
 =====================================  =====  =================================================
 
 :data:`COUNTERS` holds the port's counters by reference under one name each:
 ``launches`` (``ops.moments_cuda.LAUNCHES``), ``host_reads``
-(``utils.device.HOST_READS``) and ``host_syncs``
+(``utils.device.HOST_READS``), ``host_syncs``
 (``utils.device.HOST_SYNCS``: each point where the program makes the host
 wait on the card, a read back or a blocking copy of host data onto a CUDA
-device).  A logged call carries the deltas of every counter over it.
+device) and, once ``models.mbar`` is imported, ``mbar_iters``
+(``models.mbar.MBAR_ITERS``: the MBAR solver's iterations).  A logged call
+carries the deltas of every counter over it.
 
 >>> from torch.profiler import profile
 >>> with profile() as prof:
