@@ -100,8 +100,12 @@ on any failure, without printing a result.  Phases, one line each:
 21. MBAR at ``benches/bench_mbar.py``'s serving size: the hybrid solve of
     K = 4 harmonic states (sigma in [1, 3]) over N = 1e8 pooled float32
     samples against the analytic free energies and a float64 solve of the
-    same u_kn; 256 reweighting targets in alpha chunks against the exact
-    <x^2> and the explicit grid; the overlap, covariance and perturbed free
+    same u_kn; 256 reweighting targets through the alpha kernel
+    (``csrc/mbar_alphas.cu``, one launch) against the exact <x^2>, the
+    plain route, the explicit grid and, on every 25th sample in float64,
+    the plain route to 1e-10; its time at 256 targets and at one against
+    its bound and the plain route's (at one no slower than the plain route);
+    the overlap, covariance and perturbed free
     energies; ``MBARModel.predict`` over phase 20's three R = 1e8 sets
     against ``idealgas.x_ave`` and the float64 model, and ``predict_ci``
     (16 replicates on a third of each set) twice with one seed; the
@@ -383,12 +387,12 @@ EXAMPLE_TIMEOUT_S = 300
 EXAMPLE_KERNELS = {
     "beta_extrapolation": {"K1": 2, "K6": 1},
     "beta_extrap_cases": {"K1": 2, "K6": 4},
-    "temperature_interp": {"K1": 3, "K6": 3},
+    "temperature_interp": {"K1": 3, "K6": 3, "mbar_alphas": 9},
     "volume_extrapolation": {},
     "data_organization": {"K1": 7, "K2": 1, "K4": 1, "K6": 1},
     "custom_observable": {},
     "macrostate_lnpi": {},
-    "mbar_reweighting": {"K1": 4},
+    "mbar_reweighting": {"K1": 4, "mbar_alphas": 1},
     "serving_pipeline": {"K1": 6, "K3": 6, "K4": 4, "K5": 2, "K8": 2},
     "streaming_serving": {"K1": 28, "K3": 8, "K4": 5},
     "gpr_active_learning": {"K1": None, "K2": None},
@@ -429,6 +433,8 @@ BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
 # K5's rows go to the tensor cores as three bf16 terms (csrc/common.cuh)
 ROW_TERMS = 3
 INT32_OPS = 16.75e12
+# float32 exponentials: 16 ex2 a clock on each of 132 SMs at 1.98 GHz (MBAR's alpha kernel)
+EX2_RATE = 16 * 132 * 1.98e9
 # Integer operations one in-kernel Poisson count needs (csrc/philox.cuh): a
 # Philox4x32-10 call serves 4 counts with 10 rounds of 2 wide multiplies (low
 # and high half in one instruction) and 2 three-input XORs, each taking its
@@ -517,9 +523,10 @@ def _card_line() -> str:
 
 def _launches_match(counts: dict, want: dict) -> bool:
     """``counts`` launched the kernels of ``want`` (None: at least once) and no
-    other, each K1 / K2 / K3 / K6 launch with one head shift and one finalize,
-    each K4 / K5 launch with one head shift and one u-moment finalize."""
-    kernels = {k: v for k, v in counts.items() if k.startswith("K")}
+    other (K1-K8 and MBAR's α grid), each K1 / K2 / K3 / K6 launch with one
+    head shift and one finalize, each K4 / K5 launch with one head shift and
+    one u-moment finalize."""
+    kernels = {k: v for k, v in counts.items() if k.startswith("K") or k == "mbar_alphas"}
     if any(v != want.get(k, 0) and not (want.get(k, 0) is None and v > 0) for k, v in kernels.items()):
         return False
     helpers = (counts["K1"] + counts["K2"] + counts["K3"] + counts["K6"], counts["K4"] + counts["K5"])
@@ -578,7 +585,7 @@ def run_examples(say, card: str) -> dict:
             result=rec["result"],
         )
     total = {k: sum(r["launches"][k] for r in records.values()) for k in next(iter(records.values()))["launches"]}
-    missing = [k for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8") if total[k] == 0]
+    missing = [k for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "mbar_alphas") if total[k] == 0]
     if missing:
         raise AssertionError(f"no example launched {missing}: {total}")
     say(29, card=card, scripts=len(records), launches=total, phase29_s=time.perf_counter() - t0)
@@ -2020,8 +2027,17 @@ def main() -> int:
     grid_a = counted("mbar_alphas", lambda: mb.mbar_expectations_alphas(u_kn, n_km, f32_f, alphas_m, u_base, x_nm, chunk=MBAR_CHUNK))
     grid_8 = mb.mbar_expectations_grid(u_kn, n_km, f32_f, alphas_m[:MBAR_CHUNK, None] * u_base[None], x_nm)
     mbar["alphas_x2_vs_sigma2_rel"] = rel_close("MBAR <x^2> vs sigma_a^2", grid_a[:, 1].double(), sig_a**2, 1e-3)
-    mbar["alphas_vs_grid_rel"] = rel_close("MBAR alpha chunks vs the grid", grid_a[:MBAR_CHUNK].double(), grid_8.double(), 1e-6)
-    del grid_8
+    # the kernel against the plain route (float32, on the card) and the grid;
+    # <x> is ~0, so its gaps are taken against 0.1 (atol / rtol)
+    grid_p = mb._alphas_plain(u_kn, torch.log(n_km), f32_f, alphas_m, u_base, x_nm, MBAR_CHUNK)
+    mbar["alphas_vs_plain_rel"] = rel_close("MBAR alpha kernel vs the plain route", grid_a.double(), grid_p.double(), 1e-5, 1e-6)
+    mbar["alphas_vs_grid_rel"] = rel_close("MBAR alpha kernel vs the grid", grid_a[:MBAR_CHUNK].double(), grid_8.double(), 1e-5, 1e-6)
+    # float64 on every 25th sample (4e6): the kernel against the plain route
+    sub = [t.double() for t in (u_kn[:, ::25], n_km, f32_f, alphas_m, u_base[::25], x_nm[::25])]
+    sub_k = mb.mbar_expectations_alphas(*sub)
+    sub_p = mb._alphas_plain(sub[0], torch.log(sub[1]), *sub[2:], MBAR_CHUNK)
+    mbar["alphas_f64_vs_plain_rel"] = rel_close("MBAR alpha kernel vs the plain route, float64", sub_k, sub_p, 1e-10, 1e-12)
+    del grid_8, grid_p, sub, sub_k, sub_p
 
     # (c) diagnostics at the sampled states
     overlap = mb.mbar_overlap(u_kn, n_km, f32_f)
@@ -2114,11 +2130,25 @@ def main() -> int:
         # one pass over u_kn at the memory rate
         "pass_bound_f32_ms": 4.0 * MBAR_K * MBAR_N / HBM_BPS * 1e3,
         "pass_bound_f64_ms": 8.0 * MBAR_K * MBAR_N / HBM_BPS * 1e3,
+        # the alpha kernel (csrc/mbar_alphas.cu) and the plain route on the card, at
+        # the benchmark's 256 targets and at one; bounds: (A + K) N ex2 at 4.18e12/s,
+        # or the samples' bytes, 4 N (K + 1 + V)
         "alphas_256_ms": time_ms(lambda: mb.mbar_expectations_alphas(u_kn, n_km, f32_f, alphas_m, u_base, x_nm, chunk=MBAR_CHUNK), 3),
+        "alphas_256_plain_ms": time_ms(lambda: mb._alphas_plain(u_kn, torch.log(n_km), f32_f, alphas_m, u_base, x_nm, 1), 2),
+        "alphas_256_bound_ms": max((MBAR_A + MBAR_K) * MBAR_N / EX2_RATE, 4.0 * MBAR_N * (MBAR_K + 3) / HBM_BPS) * 1e3,
+        "alphas_1_ms": time_ms(lambda: mb.mbar_expectations_alphas(u_kn, n_km, f32_f, alphas_m[:1], u_base, x_nm), 3),
+        "alphas_1_plain_ms": time_ms(lambda: mb._alphas_plain(u_kn, torch.log(n_km), f32_f, alphas_m[:1], u_base, x_nm, 1), 3),
+        "alphas_1_bound_ms": max((1 + MBAR_K) * MBAR_N / EX2_RATE, 4.0 * MBAR_N * (MBAR_K + 3) / HBM_BPS) * 1e3,
         "model_predict_3x1e8_ms": time_ms(lambda: mbar_model(torch.float32).predict(betas), 3),
         "model_predict_ci_ms": ci_ms,
     }
+    mc.reset_launches()
+    mb.mbar_expectations_alphas(u_kn, n_km, f32_f, alphas_m, u_base, x_nm)
+    mbar_times["alphas_launches"] = mc.LAUNCHES["mbar_alphas"]
+    mbar_times["alphas_256_roofline_pct"] = 100.0 * mbar_times["alphas_256_bound_ms"] / mbar_times["alphas_256_ms"]
     say(21, card=card, nrep=MBAR_NREP, **mbar_times)
+    if mbar_times["alphas_launches"] != 1 or mbar_times["alphas_1_ms"] > mbar_times["alphas_1_plain_ms"]:
+        raise AssertionError(f"MBAR alpha kernel: {mbar_times}")
     del u_kn, xs_m, u_base, x_nm, grid_a, sims
 
     # -- phase 22: file-fed streaming through the ingest runtime -----------------------------
@@ -2193,8 +2223,8 @@ def main() -> int:
         "ingest_npy": {"K1": STREAM_CHUNKS, "K3": STREAM_CHUNKS},
         "ingest_text": {"K1": 2, "K3": 2},
         "mbar_solve": {},
-        "mbar_alphas": {},
-        "mbar_predict": {},
+        "mbar_alphas": {"mbar_alphas": 1},
+        "mbar_predict": {"mbar_alphas": 1},
         "mbar_predict_ci": {},
     }
     say(22, launches={path: path_launches[path] for path in ingest_expected})

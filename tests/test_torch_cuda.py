@@ -1145,6 +1145,81 @@ def test_mbar_model_on_gpu(cuda_device):
     assert bool(((pred.double().cpu() - MBARModel(states64).predict(tt(BETAS))).abs() <= 0.1 * std.double().cpu()).all())
 
 
+def _alpha_problem(k, n, a, v, seed, weighted):
+    """Harmonic states with their free energies, targets across them,
+    u_base = x^2 / 2, V observables of x and (``weighted``) a log sample
+    weight with -inf at a tenth of the samples."""
+    rng = np.random.default_rng(seed)
+    sig = np.linspace(1.0, 3.0, k)
+    xs = np.concatenate([rng.normal(0.0, s, n // k) for s in sig])
+    u_base = xs**2 / 2
+    lsw = None
+    if weighted:
+        lsw = np.log(rng.uniform(0.2, 2.0, xs.shape[0]))
+        lsw[rng.uniform(size=xs.shape[0]) < 0.1] = -np.inf
+    x_n = np.stack([np.cos(0.3 * (j + 1) * xs) + 0.1 * j * xs for j in range(v)], axis=1)
+    return (u_base[None] / sig[:, None] ** 2, np.full(k, float(n // k)), -np.log(sig / sig[0]), np.linspace(1 / 9, 1.0, a), u_base, x_n, lsw)
+
+
+@pytest.mark.parametrize(
+    ("k", "n", "a", "v", "dtype", "weighted"),
+    [
+        (4, 3_000_000, 256, 2, torch.float32, False),  # the serving shape: a thread a target, every block busy
+        (3, 1_200_000, 1, 2, torch.float32, True),  # one target on every thread of a block
+        (2, 400_000, 300, 9, torch.float64, True),  # two groups of targets, two of value columns
+    ],
+)
+def test_mbar_alphas_kernel_matches_plain(cuda_device, k, n, a, v, dtype, weighted):
+    """``mbar_expectations_alphas`` on CUDA tensors launches the MBAR kernel
+    once and equals the plain route on CPU copies of the same (rounded)
+    inputs: float64 to 1e-10; float32 within 3 times the float32 plain
+    route's own error against float64, or 2e-6 of the scale."""
+    from thermoextrap_tpu_torch.models import mbar as tm
+
+    ops = _alpha_problem(k, n, a, v, seed=a + v, weighted=weighted)
+    cpu = [None if q is None else tt(q, dtype) for q in ops]
+    mc.reset_launches()
+    got = tm.mbar_expectations_alphas(*[q.to(cuda_device) for q in cpu[:6]], chunk=1, log_sample_weight=None if cpu[6] is None else cpu[6].to(cuda_device))
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == dtype and mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "mbar_alphas": 1}
+
+    def plain(t):
+        u, nk, f, al, ub, x, w = (None if q is None else q.to(t) for q in cpu)
+        return tm._alphas_plain(u, torch.log(nk), f, al, ub, x, 8, w).double().numpy()
+
+    g, want = got.double().cpu().numpy(), plain(torch.float64)
+    if dtype == torch.float64:
+        np.testing.assert_allclose(g, want, rtol=1e-10, atol=1e-12)
+    else:
+        bar = max(3.0 * np.abs(plain(dtype) - want).max(), 2e-6 * np.abs(want).max())
+        assert np.abs(g - want).max() <= bar
+
+
+def test_mbar_model_predict_launches_the_alpha_kernel_once(cuda_device):
+    """``MBARModel.predict`` on the card launches the α kernel once a call,
+    whatever the number of targets, and a scalar α in float64 returns the
+    CPU's plain route to 1e-9."""
+    from thermoextrap_tpu_torch import DataValues
+    from thermoextrap_tpu_torch import beta as tbeta
+    from thermoextrap_tpu_torch.models.extrap import MBARModel
+
+    rng = np.random.default_rng(8)
+    states, cpu_states = [], []
+    for s in (1.0, 1.6, 2.2):
+        x = rng.normal(0.0, s, 200_000)
+        vals, u = np.stack([x, x * x], axis=-1), x * x / 2
+        states.append(tbeta.factory_extrapmodel(1 / s**2, DataValues.from_vals(tt(vals).to(cuda_device), tt(u).to(cuda_device), order=0), order=0))
+        cpu_states.append(tbeta.factory_extrapmodel(1 / s**2, DataValues.from_vals(tt(vals), tt(u), order=0), order=0))
+    model = MBARModel(states)
+    mc.reset_launches()
+    many = model.predict(np.linspace(0.25, 1.0, 40))
+    assert many.shape == (40, 2) and mc.LAUNCHES["mbar_alphas"] == 1
+    one = model.predict(0.5)
+    torch.cuda.synchronize()
+    assert one.shape == (2,) and mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "mbar_alphas": 2}
+    assert_close(one.cpu(), MBARModel(cpu_states).predict(0.5), 1e-9)
+
+
 def test_prefetch_stages_on_a_side_stream(cuda_device):
     """Chunks staged onto the card by the worker's stream equal their source
     after a deliberately slow consumer: each chunk is read behind a long

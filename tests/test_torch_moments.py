@@ -21,6 +21,7 @@ from thermoextrap_tpu.ops.moments_pallas import (
 from thermoextrap_tpu.ops.moments_pallas import (
     reduce_central_comoments_fused as j_fused,
 )
+from thermoextrap_tpu_torch.models import mbar
 from thermoextrap_tpu_torch.ops import _build, dispatch, moments_cuda as mc
 from thermoextrap_tpu_torch.ops import moments as tm
 
@@ -169,12 +170,14 @@ def test_cpu_path_launches_no_kernel(rng):
     mc.resample_perturb_poisson(torch.ones(2, 300), tt(x).float(), 4)
     mc.resample_central_comoments_fused(tt(u), tt(x), torch.ones(4, 300), 3)
     mc.resample_central_comoments_poisson(tt(u), tt(x), 4, 3)
+    mbar.mbar_expectations_alphas(np.stack([u, 2 * u]), [150, 150], [0.0, 0.5], [1.0, 1.5], u, x)
     assert mc.LAUNCHES == {
         **{f"K{i}": 0 for i in range(1, 9)},
         "head_shift": 0,
         "finalize": 0,
         "finalize_u": 0,
         "comoment_mma": 0,
+        "mbar_alphas": 0,
     }
 
 
@@ -220,6 +223,7 @@ def test_build_digest_tracks_sources():
         "comoments_reduce.cu",
         "comoments_resample.cu",
         "finalize.cu",
+        "mbar_alphas.cu",
         "perturb_resample.cu",
         "umoments_resample.cu",
     }

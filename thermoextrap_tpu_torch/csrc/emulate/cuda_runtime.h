@@ -47,6 +47,9 @@ struct alignas(16) uint4 {
 struct alignas(8) uint2 {
   unsigned x, y;
 };
+struct alignas(16) double2 {
+  double x, y;
+};
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
@@ -155,6 +158,18 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t emu_last_error = cudaSuccess;
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+// an H100's count of SMs, and 8 resident blocks of any kernel on each
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
+  if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
+  *value = 132;
+  return cudaSuccess;
+}
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
+  *blocks = 8;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() {
   const cudaError_t e = emu_last_error;
   emu_last_error = cudaSuccess;

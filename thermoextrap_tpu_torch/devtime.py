@@ -23,7 +23,7 @@ streaming update of a 1e7-sample chunk, one streaming lnΠ update of a
 over beta 5.2 and 6.0, one call of the bucketed runner on 1e8 - 12345
 samples padded to 2^27 (256 replicates), MBAR at ``benches/bench_mbar.py``'s
 size (the float32 hybrid solve of K = 4 harmonic states over N = 1e8 pooled
-samples, its 256 targets in chunks of 8, and ``MBARModel.predict`` over the
+samples, its 256 targets in the alpha kernel, and ``MBARModel.predict`` over the
 main samples and two more R = 1e8 sets at beta 5.2 and 6.0), and one
 file-fed streaming update (a 1e7-row ``.npy`` file through
 ``read_npy_chunks`` onto the card and ``ingest_stream``), one

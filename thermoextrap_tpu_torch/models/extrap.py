@@ -461,9 +461,10 @@ class PerturbModel:
 
 
 def mbar_alpha_chunk(n_alphas: int, n_samples: int) -> int:
-    """Targets a block of :func:`.mbar.mbar_expectations_alphas` takes in
-    :class:`MBARModel`: as many as keep a ``(chunk, N)`` block within 2^27
-    elements, at least one and at most all."""
+    """Targets a block of :func:`.mbar.mbar_expectations_alphas`'s plain
+    route takes in :class:`MBARModel`: as many as keep a ``(chunk, N)`` block
+    within 2^27 elements, at least one and at most all (the CUDA kernel takes
+    every target in one pass and reads no block size)."""
     return max(1, min(n_alphas, (1 << 27) // n_samples))
 
 
@@ -471,9 +472,10 @@ def _mbar_predict_core(uv, xv, alpha0, alphas, method: str = "hybrid"):
     """Pooled-sample MBAR solve and the expectations at every target.
 
     ``uv (K, R)``, ``xv (K, R, *val)``, ``alpha0 (K,)``, ``alphas (A,)`` →
-    ``(A, V)``.  The targets ``alphas[a] * u`` are taken in blocks of
-    :func:`mbar_alpha_chunk` (:func:`.mbar.mbar_expectations_alphas`, the
-    same products as the reference's ``(A, N)`` grid), so no ``(A, N)``
+    ``(A, V)``.  The targets ``alphas[a] * u`` go to
+    :func:`.mbar.mbar_expectations_alphas` (the same products as the
+    reference's ``(A, N)`` grid): on the card one kernel pass over the
+    samples, elsewhere blocks of :func:`mbar_alpha_chunk`, so no ``(A, N)``
     matrix is built."""
     from .mbar import mbar_expectations_alphas, mbar_solve
 

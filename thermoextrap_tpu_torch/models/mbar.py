@@ -18,7 +18,9 @@ Hessian :math:`\delta_{kl} N_k S_k - N_k N_l (\tilde W \tilde W^T)_{kl}`, one
 Every sample-axis reduction is a ``torch.logsumexp`` or a sum over the last
 axis of ``(..., K, N)`` blocks on ``u_kn``'s device; masked samples carry
 ``log_sample_weight = -inf`` (``logsumexp`` of an all ``-inf`` row is
-``-inf``, as in ``jax.scipy``).  The solver core and the grid take an
+``-inf``, as in ``jax.scipy``); on CUDA tensors the α grid
+(:func:`mbar_expectations_alphas`) is one hand-written kernel instead
+(:mod:`..ops.mbar_cuda`).  The solver core and the grid take an
 optional process group, over whose ranks the samples are sharded
 (:mod:`..parallel.sharded`): each such reduction then all-reduces its
 partial sums, a log-sum-exp as the MAX of the local maxima and the SUM of
@@ -45,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..data import _as_tensor
+from ..ops.mbar_cuda import mbar_alphas_cuda
 from ..ops.resample import poisson1_freq
 from ..utils import trace
 from ..utils.device import host_item
@@ -343,20 +346,31 @@ def mbar_expectations_alphas(u_kn, n_k, f_k, alphas, u_base, x_n, chunk: int = 8
     """``<x>`` at linear-in-α targets ``u_a(x_n) = α_a · u_base_n``.
 
     Unlike :func:`mbar_expectations_grid` the ``(A, N)`` target matrix is
-    never built: the mixture log denominator is computed once, then the α
-    are taken ``chunk`` at a time, each block a ``(chunk, N)`` temporary
-    (three of them at the peak), so serving-scale N (1e8) with hundreds of
-    targets fits on the card.  Returns ``(A, V)``.
+    never built.  On CUDA tensors one hand-written kernel
+    (:func:`..ops.mbar_cuda.mbar_alphas_cuda`) takes every target in one
+    pass over the samples and ``chunk`` is not read.  Elsewhere the mixture
+    log denominator is computed once, then the α are taken ``chunk`` at a
+    time, each block a ``(chunk, N)`` temporary (three of them at the peak),
+    so serving-scale N (1e8) with hundreds of targets fits.  Returns
+    ``(A, V)``.
     """
     u_kn, log_n_k, f_k = _prep(u_kn, n_k, f_k)
     dev, dt = u_kn.device, u_kn.dtype
     alphas = _tensor(alphas, dev, dt)
     u_base = _tensor(u_base, dev, dt)
     x_n = _tensor(x_n, dev, dt)
+    lsw = None if log_sample_weight is None else _tensor(log_sample_weight, dev, dt)
+    if dev.type == "cuda":
+        return mbar_alphas_cuda(u_kn, log_n_k + f_k, alphas, u_base, x_n, lsw)
+    return _alphas_plain(u_kn, log_n_k, f_k, alphas, u_base, x_n, chunk, lsw)
+
+
+def _alphas_plain(u_kn, log_n_k, f_k, alphas, u_base, x_n, chunk: int = 8, lsw=None):
+    """The plain torch route of :func:`mbar_expectations_alphas` on tensors
+    of one type and device: ``chunk`` targets a block."""
     if x_n.ndim == 1:
         x_n = x_n[:, None]
     x_n = _columns(x_n)
-    lsw = None if log_sample_weight is None else _tensor(log_sample_weight, dev, dt)
     ld = _log_denom(f_k, u_kn, log_n_k)
     a = alphas.shape[0]
     a_pad = torch.cat([alphas, alphas.new_zeros(-a % chunk)])

@@ -68,6 +68,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I, _I, _I, _LL, _P, _I, _P],
         _I,
     ),
+    "tx_mbar_alphas": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P], _I),
+    "tx_mbar_alphas_blocks": ([_I, _I, _I, _P], _I),
 }
 
 

@@ -117,6 +117,7 @@ LAUNCHES = trace.register("launches", {
     "finalize": 0,  # of the K1 / K2 / K3 / K6 wrappers
     "finalize_u": 0,  # of the K4 / K5 wrappers
     "comoment_mma": 0,  # K2 / K3 calls on the few-rows tensor-core kernel
+    "mbar_alphas": 0,  # MBAR's α grid (csrc/mbar_alphas.cu, ops/mbar_cuda.py)
 })
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu (K1, K4, K6)
