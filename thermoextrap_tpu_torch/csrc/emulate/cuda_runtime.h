@@ -1,23 +1,24 @@
 // A stand-in for the CUDA runtime that lets a host C++ compiler build the
-// kernels of ../ and run them on the CPU (thermoextrap_tpu_torch/emulate.py):
-// the threads of a block are std::threads, __syncthreads a std::barrier, and
-// blocks run one after another.  It knows only what these kernels use, and it
-// is slow: for checking indexing and control flow on small shapes where there
-// is no nvcc, never for timing.  Shared memory starts as NaN in every block,
-// so a read of an unwritten entry shows.
+// kernels of ../ and run them on the CPU (thermoextrap_tpu_torch/emulate.py).
+// It knows only what these kernels use: for checking indexing, barriers and
+// control flow on small shapes where there is no nvcc, never for timing.
+// Blocks run one after another.  The threads of a block are fibers (glibc's
+// ucontext) on the calling thread, resumed in ascending threadIdx.x order;
+// each runs until its next barrier or its end, so every run is the same.
+// Shared memory starts as NaN in every block.  A read that a missing barrier
+// leaves ahead of a higher-numbered thread's write sees NaN (dynamic shared
+// memory) or the previous block's value (static __shared__), on every run; a
+// read of a lower-numbered thread's write is not caught.
 #pragma once
 #define TX_EMULATED 1
+#include <ucontext.h>
 #include <algorithm>
-#include <atomic>
-#include <barrier>
-#include <memory>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <thread>
-#include <vector>
+#include <functional>
 
 #define __global__
 #define __device__
@@ -35,8 +36,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local EmuIndex threadIdx, blockIdx;
-inline EmuIndex blockDim, gridDim;
+inline EmuIndex threadIdx, blockIdx, blockDim, gridDim;
 
 struct alignas(16) float4 {
   float x, y, z, w;
@@ -60,32 +60,50 @@ inline float __uint_as_float(unsigned v) {
   return f;
 }
 inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
-  return __atomic_fetch_add(a, v, __ATOMIC_RELAXED);
+  return (*a += v) - v;  // one fiber runs at a time
 }
 
 #define EMU_SMEM_BYTES 232448
 alignas(16) inline float emu_smem[EMU_SMEM_BYTES / 4];  // dynamic shared memory of the running block
 inline float emu_shuffle[1024];
-inline std::barrier<>* emu_barrier = nullptr;
 
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// The fibers, and the scheduler's context that a waiting fiber yields to;
+// emu_moves counts barrier arrivals and fiber ends, to tell a deadlock
+#define EMU_STACK_BYTES (256 * 1024)  // these kernels use under 4 KiB of it
+inline ucontext_t emu_sched, emu_fiber[1024];
+inline bool emu_done[1024];
+inline unsigned long emu_moves = 0;
+
+// A barrier of `count` fibers: one that arrives and is not the last yields
+// until the generation changes; the last advances it and runs on
+struct EmuBarrier {
+  unsigned count = 0, arrived = 0, gen = 0;
+  void arrive_and_wait() {
+    const unsigned g = gen;
+    ++emu_moves;
+    if (++arrived == count) arrived = 0, ++gen;
+    while (gen == g) swapcontext(&emu_fiber[threadIdx.x], &emu_sched);
+  }
+};
+inline EmuBarrier emu_block_barrier, emu_warp_barrier[32];  // the block, and each warp
+
+inline void __syncthreads() { emu_block_barrier.arrive_and_wait(); }
 
 // __syncthreads_or: three flag slots in turn, so that a slot is cleared two
 // calls before it is set again
-inline std::atomic<int> emu_or_flag[3];
-inline thread_local unsigned emu_or_calls = 0;
+inline int emu_or_flag[3];
+inline unsigned emu_or_calls[1024];
 inline int __syncthreads_or(int pred) {
-  const unsigned k = emu_or_calls++;
-  if (pred) emu_or_flag[k % 3].store(1);
-  emu_barrier->arrive_and_wait();
-  const int any = emu_or_flag[k % 3].load();
-  if (threadIdx.x == 0) emu_or_flag[(k + 2) % 3].store(0);
+  const unsigned k = emu_or_calls[threadIdx.x]++;
+  if (pred) emu_or_flag[k % 3] = 1;
+  __syncthreads();
+  const int any = emu_or_flag[k % 3];
+  if (threadIdx.x == 0) emu_or_flag[(k + 2) % 3] = 0;
   return any;
 }
 
-// one barrier per warp, for the warp-collective stand-ins
-inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
-inline void emu_syncwarp() { emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
+// the warp-collective stand-ins meet at their warp's barrier
+inline void emu_syncwarp() { emu_warp_barrier[threadIdx.x / 32].arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_syncwarp(); }
 
 // __any_sync over the whole warp (every lane of it must call it together)
@@ -146,9 +164,9 @@ inline void emu_mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], const uint
 inline float __shfl_xor_sync(unsigned, float v, int offset) {
   const unsigned t = threadIdx.x;
   emu_shuffle[t] = v;
-  emu_barrier->arrive_and_wait();
+  __syncthreads();
   const float other = emu_shuffle[t ^ (unsigned)offset];
-  emu_barrier->arrive_and_wait();
+  __syncthreads();
   return other;
 }
 
@@ -181,6 +199,44 @@ cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
   return bytes <= EMU_SMEM_BYTES ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Every fiber makes the running launch's kernel call (emu_body).  A block's
+// fibers run to their ends, or abort when all left wait at barriers in vain.
+inline std::function<void()> emu_body;
+inline void emu_fiber_main() {
+  emu_body();
+  ++emu_moves;
+  emu_done[threadIdx.x] = true;
+}  // and back to emu_sched (uc_link)
+inline void emu_run_block(unsigned n) {
+  static char* const stacks = new char[1024ul * EMU_STACK_BYTES];  // made once; pages taken as touched
+  emu_block_barrier = {n};
+  for (unsigned w = 0; w < (n + 31) / 32; ++w) emu_warp_barrier[w] = {std::min(32u, n - 32 * w)};
+  std::fill(emu_or_flag, emu_or_flag + 3, 0);
+  for (unsigned t = 0; t < n; ++t) {
+    emu_done[t] = false;
+    emu_or_calls[t] = 0;
+    getcontext(&emu_fiber[t]);
+    emu_fiber[t].uc_stack.ss_sp = stacks + (size_t)t * EMU_STACK_BYTES;
+    emu_fiber[t].uc_stack.ss_size = EMU_STACK_BYTES;
+    emu_fiber[t].uc_link = &emu_sched;
+    makecontext(&emu_fiber[t], emu_fiber_main, 0);
+  }
+  for (unsigned live = n; live > 0;) {
+    const unsigned long moves = emu_moves;
+    live = 0;
+    for (unsigned t = 0; t < n; ++t) {
+      if (emu_done[t]) continue;
+      threadIdx = {t, 0, 0};
+      swapcontext(&emu_sched, &emu_fiber[t]);
+      live += !emu_done[t];
+    }
+    if (live > 0 && emu_moves == moves) {
+      fprintf(stderr, "emulated kernel: %u threads wait at barriers the others never reach\n", live);
+      abort();
+    }
+  }
+}
+
 // kernel<<<grid, block, smem, stream>>>(args...) is rewritten to this call
 template <typename K, typename... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
@@ -188,27 +244,16 @@ void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A...
     emu_last_error = cudaErrorInvalidValue;
     return;
   }
-  blockDim = {block.x, 1, 1};
+  emu_body = [&]() { kernel(args...); };
+  const unsigned n = block.x;
+  blockDim = {n, 1, 1};
   gridDim = {grid.x, grid.y, grid.z};
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         const uint32_t nan_bits = 0x7fc00000u;
         for (size_t i = 0; i < EMU_SMEM_BYTES / 4; ++i) memcpy(&emu_smem[i], &nan_bits, 4);
-        std::barrier<> barrier(block.x);
-        emu_barrier = &barrier;
-        emu_warp_barriers.clear();
-        for (unsigned w = 0; w < (block.x + 31) / 32; ++w)
-          emu_warp_barriers.emplace_back(new std::barrier<>((std::ptrdiff_t)std::min(32u, block.x - 32 * w)));
-        for (auto& f : emu_or_flag) f.store(0);
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < block.x; ++t)
-          threads.emplace_back([=]() {
-            threadIdx = {t, 0, 0};
-            emu_or_calls = 0;
-            blockIdx = {bx, by, bz};
-            kernel(args...);
-          });
-        for (auto& th : threads) th.join();
+        blockIdx = {bx, by, bz};
+        emu_run_block(n);
       }
 }

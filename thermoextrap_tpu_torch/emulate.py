@@ -3,8 +3,8 @@ there is no ``nvcc`` and no card.
 
 The sources are rewritten a little (a kernel launch becomes a function call),
 compiled by the host's ``g++`` against ``csrc/emulate/cuda_runtime.h``, a
-stand-in for the CUDA runtime in which the threads of a block are
-``std::thread`` s and ``__syncthreads`` is a barrier, and loaded with
+stand-in for the CUDA runtime in which the threads of a block are fibers run
+in turn on the calling thread, each up to its next barrier, and loaded with
 ``ctypes`` under the signatures of :mod:`.ops._build`.  Inside
 :func:`emulated` the wrappers of :mod:`.ops.moments_cuda` that launch kernels
 (``_resample_cuda``, ``_resample_u_cuda``, ``_resample_perturb_cuda``,
@@ -17,10 +17,11 @@ take CPU tensors and run the emulated kernels on them::
     with emulate.emulated():
         sums = mc._resample_perturb_cuda(e, x, nrep, freq=table)
 
-This checks a kernel's indexing, masking and control flow on small shapes (a
-256-thread block is 256 OS threads: keep to a few dozen blocks); it says
-nothing of what ``nvcc`` accepts, of registers, of bank conflicts or of time.
-Needs a ``g++`` with C++20 (``std::barrier``).
+This checks a kernel's indexing, masking, barriers and control flow on small
+shapes, the same way on every run (a block costs its threads' work, not a
+thread start each); it says nothing of what ``nvcc`` accepts, of registers, of
+bank conflicts or of time.  Needs a ``g++`` with C++17 and glibc's
+``<ucontext.h>``.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ _LIB = None
 
 
 def available() -> bool:
-    """Whether a host compiler is at hand."""
+    """Whether a host compiler is at hand (``g++``; the runtime's fibers need
+    glibc's ``<ucontext.h>``)."""
     return shutil.which("g++") is not None
 
 
@@ -59,7 +61,7 @@ def _compile(target: Path) -> None:
         for path in cu + cuh:
             name = path.with_suffix(".cpp").name if path.suffix == ".cu" else path.name
             (Path(tmp) / name).write_text(_rewrite(path.read_text()))
-        cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", str(_HEADERS), "-I", tmp]
+        cmd = ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(_HEADERS), "-I", tmp]
         cmd += ["-o", str(target), *sorted(str(p) for p in Path(tmp).glob("*.cpp"))]
         done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode != 0:
