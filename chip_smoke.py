@@ -99,8 +99,11 @@ on any failure, without printing a result.  Phases, one line each:
     update and predict, the one-shot model at R = 1e8 and one bucketed call;
 21. MBAR at ``benches/bench_mbar.py``'s serving size: the hybrid solve of
     K = 4 harmonic states (sigma in [1, 3]) over N = 1e8 pooled float32
-    samples against the analytic free energies and a float64 solve of the
-    same u_kn; 256 reweighting targets through the alpha kernel
+    samples through the solve kernel (``csrc/mbar_solve.cu``, a pass an
+    iteration and the opening one) against the analytic free energies and a
+    float64 solve of the same u_kn; the kernel's time a pass against one
+    read of u_kn, the solve's against its torch route's, and both peaks (the
+    kernel's solve no slower than its torch route); 256 reweighting targets through the alpha kernel
     (``csrc/mbar_alphas.cu``, one launch) against the exact <x^2>, the
     plain route, the explicit grid and, on every 25th sample in float64,
     the plain route to 1e-10; its time at 256 targets and at one against
@@ -387,12 +390,12 @@ EXAMPLE_TIMEOUT_S = 300
 EXAMPLE_KERNELS = {
     "beta_extrapolation": {"K1": 2, "K6": 1},
     "beta_extrap_cases": {"K1": 2, "K6": 4},
-    "temperature_interp": {"K1": 3, "K6": 3, "mbar_alphas": 9},
+    "temperature_interp": {"K1": 3, "K6": 3, "mbar_alphas": 9, "mbar_solve": None},
     "volume_extrapolation": {},
     "data_organization": {"K1": 7, "K2": 1, "K4": 1, "K6": 1},
     "custom_observable": {},
     "macrostate_lnpi": {},
-    "mbar_reweighting": {"K1": 4, "mbar_alphas": 1},
+    "mbar_reweighting": {"K1": 4, "mbar_alphas": 1, "mbar_solve": None},
     "serving_pipeline": {"K1": 6, "K3": 6, "K4": 4, "K5": 2, "K8": 2},
     "streaming_serving": {"K1": 28, "K3": 8, "K4": 5},
     "gpr_active_learning": {"K1": None, "K2": None},
@@ -523,10 +526,10 @@ def _card_line() -> str:
 
 def _launches_match(counts: dict, want: dict) -> bool:
     """``counts`` launched the kernels of ``want`` (None: at least once) and no
-    other (K1-K8 and MBAR's α grid), each K1 / K2 / K3 / K6 launch with one
+    other (K1-K8, MBAR's α grid and its solve), each K1 / K2 / K3 / K6 launch with one
     head shift and one finalize, each K4 / K5 launch with one head shift and
     one u-moment finalize."""
-    kernels = {k: v for k, v in counts.items() if k.startswith("K") or k == "mbar_alphas"}
+    kernels = {k: v for k, v in counts.items() if k.startswith("K") or k in ("mbar_alphas", "mbar_solve")}
     if any(v != want.get(k, 0) and not (want.get(k, 0) is None and v > 0) for k, v in kernels.items()):
         return False
     helpers = (counts["K1"] + counts["K2"] + counts["K3"] + counts["K6"], counts["K4"] + counts["K5"])
@@ -585,7 +588,7 @@ def run_examples(say, card: str) -> dict:
             result=rec["result"],
         )
     total = {k: sum(r["launches"][k] for r in records.values()) for k in next(iter(records.values()))["launches"]}
-    missing = [k for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "mbar_alphas") if total[k] == 0]
+    missing = [k for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "mbar_alphas", "mbar_solve") if total[k] == 0]
     if missing:
         raise AssertionError(f"no example launched {missing}: {total}")
     say(29, card=card, scripts=len(records), launches=total, phase29_s=time.perf_counter() - t0)
@@ -1990,6 +1993,7 @@ def main() -> int:
     # -- phase 21: MBAR at the repo's serving width, each path with fresh launch counts ------
     from thermoextrap_tpu_torch import DataValues, MBARModel
     from thermoextrap_tpu_torch.models import mbar as mb
+    from thermoextrap_tpu_torch.ops import mbar_cuda
 
     # (a) benches/bench_mbar.py's problem: K = 4 harmonic states, sigma in [1, 3], N = 1e8
     # pooled samples (N/K a state), u_kn = x^2 / (2 sigma_k^2) in float32 (1.6 GB)
@@ -2073,7 +2077,9 @@ def main() -> int:
             ]
         )
 
+    iters0 = mb.MBAR_ITERS["n"]
     mpred = counted("mbar_predict", lambda: mbar_model(torch.float32).predict(betas))
+    mpred_passes = mb.MBAR_ITERS["n"] - iters0 + 1  # the solve kernel's opening pass and one an iteration
     mpred64 = mbar_model(torch.float64).predict(betas)
     r_ci = R_MAIN // 3
     ci_model = mbar_model(torch.float32, r_ci)
@@ -2116,20 +2122,37 @@ def main() -> int:
         raise AssertionError(f"statistical inefficiency {g_card} on the card, {g_cpu} float64 on the CPU")
     say(21, card=card, ar_steps=AR_STEPS, g_card_f32=g_card, g_cpu_f64=g_cpu, g_exact=19.0)
 
-    # times, by CUDA events (best of 3)
+    # times, by CUDA events (best of 3); the solve's kernel (csrc/mbar_solve.cu) one
+    # pass at a time (an iteration: its main and combine launches), and the solve on
+    # its torch route (mbar_cuda.kernel_device off), with that route's peak
     u_kn64 = u_kn.double()
     n_km64 = n_km.double()
     solve32_ms = time_ms(lambda: mb.mbar_solve_info(u_kn, n_km, max_iter=MBAR_MAX_ITER), 3)
     solve64_ms = time_ms(lambda: mb.mbar_solve_info(u_kn64, n_km64, max_iter=MBAR_MAX_ITER), 3)
+    solve_pass_ms = time_ms(mbar_cuda.MbarSolve(u_kn, torch.log(n_km), 1e-5, MBAR_MAX_ITER).step, 10)
+    solve_pass64_ms = time_ms(mbar_cuda.MbarSolve(u_kn64, torch.log(n_km64), 1e-12, MBAR_MAX_ITER).step, 5)
+    kernel_device = mbar_cuda.kernel_device
+    mbar_cuda.kernel_device = lambda t: False
+    try:
+        solve32_torch_ms = time_ms(lambda: mb.mbar_solve_info(u_kn, n_km, max_iter=MBAR_MAX_ITER), 2)
+        _, solve_torch_gb = peak_gb(lambda: mb.mbar_solve_info(u_kn, n_km, max_iter=MBAR_MAX_ITER))
+    finally:
+        mbar_cuda.kernel_device = kernel_device
     del u_kn64
     mbar_times = {
         "solve_f32_ms": solve32_ms,
         "solve_f32_ms_per_iteration": solve32_ms / max(f32_it, 1),
         "solve_f64_ms": solve64_ms,
         "solve_f64_ms_per_iteration": solve64_ms / max(f64_it, 1),
-        # one pass over u_kn at the memory rate
+        # one pass over u_kn at the memory rate, and the solve kernel's pass
         "pass_bound_f32_ms": 4.0 * MBAR_K * MBAR_N / HBM_BPS * 1e3,
         "pass_bound_f64_ms": 8.0 * MBAR_K * MBAR_N / HBM_BPS * 1e3,
+        "solve_pass_f32_ms": solve_pass_ms,
+        "solve_pass_f64_ms": solve_pass64_ms,
+        "solve_pass_f32_roofline_pct": 100.0 * 4.0 * MBAR_K * MBAR_N / HBM_BPS * 1e3 / solve_pass_ms,
+        "solve_f32_torch_route_ms": solve32_torch_ms,
+        "solve_peak_gb": mbar["solve_peak_gb"],
+        "solve_torch_route_peak_gb": solve_torch_gb,
         # the alpha kernel (csrc/mbar_alphas.cu) and the plain route on the card, at
         # the benchmark's 256 targets and at one; bounds: (A + K) N ex2 at 4.18e12/s,
         # or the samples' bytes, 4 N (K + 1 + V)
@@ -2149,6 +2172,8 @@ def main() -> int:
     say(21, card=card, nrep=MBAR_NREP, **mbar_times)
     if mbar_times["alphas_launches"] != 1 or mbar_times["alphas_1_ms"] > mbar_times["alphas_1_plain_ms"]:
         raise AssertionError(f"MBAR alpha kernel: {mbar_times}")
+    if not (solve32_ms < solve32_torch_ms and solve_pass_ms < solve32_ms):
+        raise AssertionError(f"MBAR solve kernel: {mbar_times}")
     del u_kn, xs_m, u_base, x_nm, grid_a, sims
 
     # -- phase 22: file-fed streaming through the ingest runtime -----------------------------
@@ -2222,9 +2247,9 @@ def main() -> int:
     ingest_expected = {
         "ingest_npy": {"K1": STREAM_CHUNKS, "K3": STREAM_CHUNKS},
         "ingest_text": {"K1": 2, "K3": 2},
-        "mbar_solve": {},
+        "mbar_solve": {"mbar_solve": mbar["solve_f32_iterations"] + 1},
         "mbar_alphas": {"mbar_alphas": 1},
-        "mbar_predict": {"mbar_alphas": 1},
+        "mbar_predict": {"mbar_alphas": 1, "mbar_solve": mpred_passes},
         "mbar_predict_ci": {},
     }
     say(22, launches={path: path_launches[path] for path in ingest_expected})

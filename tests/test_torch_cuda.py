@@ -1093,7 +1093,8 @@ def test_bucketed_runner_on_gpu_pads_on_the_card(rng, cuda_device, monkeypatch):
 
 def test_mbar_on_gpu_matches_cpu(cuda_device):
     """MBAR on CUDA float32 tensors returns CUDA tensors and equals the CPU
-    float64 port at float32 bars: free energies to 1e-4, expectations and
+    float64 port at float32 bars: free energies to 1e-4 (the solve through
+    its kernel, a pass an iteration and the opening one), expectations and
     overlap rows to 1e-4 relative, the bootstrap's mean to its own sigma."""
     from thermoextrap_tpu_torch.models import mbar as tm
 
@@ -1104,7 +1105,9 @@ def test_mbar_on_gpu_matches_cpu(cuda_device):
     u_t = xs[None] ** 2 / (2 * np.array([1.2, 1.9])[:, None] ** 2)
     x_n = np.stack([xs, xs**2], axis=1)
     uc, utc, xc = (_f32(a, cuda_device) for a in (u_kn, u_t, x_n))
+    mc.reset_launches()
     f, it, res = tm.mbar_solve_info(uc, n_k)
+    assert mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "mbar_solve": it + 1}
     f64 = tm.mbar_solve(tt(u_kn), n_k)
     assert f.is_cuda and res.is_cuda and f.dtype == torch.float32 and float(res) <= 1e-5 and isinstance(it, int)
     assert_close(f, f64, 0.0, 1e-4)
@@ -1195,12 +1198,88 @@ def test_mbar_alphas_kernel_matches_plain(cuda_device, k, n, a, v, dtype, weight
         assert np.abs(g - want).max() <= bar
 
 
+@pytest.mark.parametrize(
+    ("k", "n", "dtype", "weighted"),
+    [
+        (4, 4_000_000, torch.float32, False),  # the serving shape's K: 16-byte loads
+        (3, 1_000_001, torch.float32, True),  # one sample at a time, log weights with -inf
+        (8, 500_000, torch.float64, True),  # the kernel's limit
+        (2, 300_000, torch.float64, False),
+    ],
+)
+def test_mbar_solve_kernel_matches_torch_route(cuda_device, k, n, dtype, weighted, monkeypatch):
+    """``mbar_solve_info`` on CUDA tensors runs the solve kernel, n_iter + 1
+    passes, and equals the torch route: float64 to 1e-10 with the same
+    iteration count; float32 within 3 times the float32 torch route's own
+    error against the float64 one (or 2e-6), n_iter within 1."""
+    from thermoextrap_tpu_torch.models import mbar as tm
+    from thermoextrap_tpu_torch.ops import mbar_cuda
+
+    rng = np.random.default_rng(k + n)
+    sig = np.linspace(1.0, 3.0, k)
+    n_k = np.array([n // k + (i < n % k) for i in range(k)], dtype=np.float64)
+    xs = np.concatenate([rng.normal(0.0, s, int(c)) for s, c in zip(sig, n_k)])
+    u_kn = xs[None] ** 2 / (2 * sig[:, None] ** 2)
+    lsw = None
+    if weighted:
+        lsw = np.log(rng.poisson(1.0, n).astype(np.float64))  # a bootstrap replicate's counts
+        edges = np.concatenate([[0], np.cumsum(n_k).astype(int)])
+        n_k = np.array([np.exp(lsw[a:b]).sum() for a, b in zip(edges[:-1], edges[1:])])
+    args = [tt(q, dtype).to(cuda_device) for q in (u_kn, n_k)]
+    w = None if lsw is None else tt(lsw, dtype).to(cuda_device)
+    mc.reset_launches()
+    f, it, res = tm.mbar_solve_info(*args, log_sample_weight=w)
+    assert f.is_cuda and f.dtype == dtype and mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "mbar_solve": it + 1}
+    monkeypatch.setattr(mbar_cuda, "kernel_device", lambda t: False)
+    fp, itp, resp = tm.mbar_solve_info(*args, log_sample_weight=w)
+    f64 = tm.mbar_solve_info(tt(u_kn).to(cuda_device), tt(n_k).to(cuda_device), log_sample_weight=None if lsw is None else tt(lsw).to(cuda_device))[0]
+    assert mc.LAUNCHES["mbar_solve"] == it + 1
+    if dtype == torch.float64:
+        assert float((f - fp).abs().max()) <= 1e-10 and it == itp and abs(float(res) - float(resp)) <= 1e-10
+    else:
+        err, own = (float((q.double() - f64).abs().max()) for q in (f, fp))
+        assert err <= max(3.0 * own, 2e-6) and abs(it - itp) <= 1 and float(res) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mbar_solve_kernel_states_far_apart(cuda_device, dtype):
+    """Harmonic states offset by 0, 150, 300 and 450 kT: at f = 0 the upper
+    states' weights lie below float32's range on every sample, which the
+    kernel's exponent-split terms keep.  float64 equals the torch route to
+    1e-10 with its iteration count; float32 converges (the float32 torch
+    route cannot: its f, 3e-5 apart at 450, leaves a residual above 1e-5)
+    to within 2e-4 of the float64 torch route."""
+    from thermoextrap_tpu_torch.models import mbar as tm
+    from thermoextrap_tpu_torch.ops import mbar_cuda
+
+    rng = np.random.default_rng(41)
+    sig = np.linspace(1.0, 2.5, 4)
+    xs = np.concatenate([rng.normal(0.0, s_, 250_000) for s_ in sig])
+    u_kn = xs[None] ** 2 / (2 * sig[:, None] ** 2) + np.array([0.0, 150.0, 300.0, 450.0])[:, None]
+    n_k = np.full(4, 250_000.0)
+    args = [tt(q, dtype).to(cuda_device) for q in (u_kn, n_k)]
+    mc.reset_launches()
+    f, it, res = tm.mbar_solve_info(*args, max_iter=100)
+    assert mc.LAUNCHES["mbar_solve"] == it + 1 and float(res) <= (1e-12 if dtype == torch.float64 else 1e-5)
+    kernel_device = mbar_cuda.kernel_device
+    mbar_cuda.kernel_device = lambda t: False
+    try:
+        f64, it64, _ = tm.mbar_solve_info(tt(u_kn).to(cuda_device), tt(n_k).to(cuda_device))
+    finally:
+        mbar_cuda.kernel_device = kernel_device
+    if dtype == torch.float64:
+        assert float((f - f64).abs().max()) <= 1e-10 and it == it64
+    else:
+        assert float((f.double() - f64).abs().max()) <= 2e-4
+
+
 def test_mbar_model_predict_launches_the_alpha_kernel_once(cuda_device):
     """``MBARModel.predict`` on the card launches the α kernel once a call,
     whatever the number of targets, and a scalar α in float64 returns the
     CPU's plain route to 1e-9."""
     from thermoextrap_tpu_torch import DataValues
     from thermoextrap_tpu_torch import beta as tbeta
+    from thermoextrap_tpu_torch.models import mbar as tm
     from thermoextrap_tpu_torch.models.extrap import MBARModel
 
     rng = np.random.default_rng(8)
@@ -1212,11 +1291,14 @@ def test_mbar_model_predict_launches_the_alpha_kernel_once(cuda_device):
         cpu_states.append(tbeta.factory_extrapmodel(1 / s**2, DataValues.from_vals(tt(vals), tt(u), order=0), order=0))
     model = MBARModel(states)
     mc.reset_launches()
+    iters = tm.MBAR_ITERS["n"]
     many = model.predict(np.linspace(0.25, 1.0, 40))
     assert many.shape == (40, 2) and mc.LAUNCHES["mbar_alphas"] == 1
     one = model.predict(0.5)
     torch.cuda.synchronize()
-    assert one.shape == (2,) and mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "mbar_alphas": 2}
+    # each call's solve: an opening pass of the solve kernel and one an iteration
+    passes = tm.MBAR_ITERS["n"] - iters + 2
+    assert one.shape == (2,) and mc.LAUNCHES == {**dict.fromkeys(mc.LAUNCHES, 0), "mbar_alphas": 2, "mbar_solve": passes}
     assert_close(one.cpu(), MBARModel(cpu_states).predict(0.5), 1e-9)
 
 

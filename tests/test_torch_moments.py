@@ -171,6 +171,7 @@ def test_cpu_path_launches_no_kernel(rng):
     mc.resample_central_comoments_fused(tt(u), tt(x), torch.ones(4, 300), 3)
     mc.resample_central_comoments_poisson(tt(u), tt(x), 4, 3)
     mbar.mbar_expectations_alphas(np.stack([u, 2 * u]), [150, 150], [0.0, 0.5], [1.0, 1.5], u, x)
+    mbar.mbar_solve(np.stack([u, 2 * u]), [150, 150])
     assert mc.LAUNCHES == {
         **{f"K{i}": 0 for i in range(1, 9)},
         "head_shift": 0,
@@ -178,6 +179,7 @@ def test_cpu_path_launches_no_kernel(rng):
         "finalize_u": 0,
         "comoment_mma": 0,
         "mbar_alphas": 0,
+        "mbar_solve": 0,
     }
 
 
@@ -224,6 +226,7 @@ def test_build_digest_tracks_sources():
         "comoments_resample.cu",
         "finalize.cu",
         "mbar_alphas.cu",
+        "mbar_solve.cu",
         "perturb_resample.cu",
         "umoments_resample.cu",
     }

@@ -136,3 +136,38 @@ __device__ __forceinline__ void tx_cp_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 #endif
 }
+
+// ---------------------------------------------------------------------------
+// Scalar math of the MBAR kernels in the working type: float32 exp2 and
+// reciprocal on the card's MUFU (ex2.approx.ftz, rcp.approx.ftz; libm under
+// the CPU emulator), float64 through libdevice.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float tx_ex2(float x) {
+#if defined(__CUDA_ARCH__)
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return exp2f(x);
+#endif
+}
+__device__ __forceinline__ double tx_ex2(double x) { return exp2(x); }
+__device__ __forceinline__ float tx_rcp(float x) {
+#if defined(__CUDA_ARCH__)
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / x;
+#endif
+}
+__device__ __forceinline__ double tx_rcp(double x) { return 1.0 / x; }
+__device__ __forceinline__ float tx_lg2(float x) { return log2f(x); }
+__device__ __forceinline__ double tx_lg2(double x) { return log2(x); }
+__device__ __forceinline__ float tx_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double tx_max(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float tx_abs(float a) { return fabsf(a); }
+__device__ __forceinline__ double tx_abs(double a) { return fabs(a); }
+__device__ __forceinline__ float tx_fma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double tx_fma(double a, double b, double c) { return fma(a, b, c); }

@@ -59,6 +59,27 @@ inline float __uint_as_float(unsigned v) {
   memcpy(&f, &v, 4);
   return f;
 }
+inline unsigned __float_as_uint(float f) {
+  unsigned v;
+  memcpy(&v, &f, 4);
+  return v;
+}
+inline int __float_as_int(float f) {
+  int v;
+  memcpy(&v, &f, 4);
+  return v;
+}
+inline float __int_as_float(int v) {
+  float f;
+  memcpy(&f, &v, 4);
+  return f;
+}
+inline double __hiloint2double(int hi, int lo) {
+  const uint64_t v = ((uint64_t)(uint32_t)hi << 32) | (uint32_t)lo;
+  double d;
+  memcpy(&d, &v, 8);
+  return d;
+}
 inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
   return (*a += v) - v;  // one fiber runs at a time
 }

@@ -64,25 +64,6 @@
 
 namespace {
 
-__device__ __forceinline__ float tx_ex2(float x) {
-#if defined(__CUDA_ARCH__)
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#else
-  return exp2f(x);
-#endif
-}
-__device__ __forceinline__ double tx_ex2(double x) { return exp2(x); }
-__device__ __forceinline__ float tx_lg2(float x) { return log2f(x); }
-__device__ __forceinline__ double tx_lg2(double x) { return log2(x); }
-__device__ __forceinline__ float tx_max(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double tx_max(double a, double b) { return fmax(a, b); }
-__device__ __forceinline__ float tx_abs(float a) { return fabsf(a); }
-__device__ __forceinline__ double tx_abs(double a) { return fabs(a); }
-__device__ __forceinline__ float tx_fma(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double tx_fma(double a, double b, double c) { return fma(a, b, c); }
-
 // a row of the staged tile: 2 + VG numbers padded to 16 bytes, moved by
 // 16-byte shared-memory loads and stores
 template <typename T, int VG>

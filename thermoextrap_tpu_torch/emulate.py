@@ -35,7 +35,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-from .ops import _build, moments_cuda
+from .ops import _build, mbar_cuda, moments_cuda
 
 __all__ = ["available", "emulated", "library"]
 
@@ -116,12 +116,15 @@ def library() -> _Library:
 @contextlib.contextmanager
 def emulated():
     """Within the block, the kernel-launching wrappers of
-    :mod:`.ops.moments_cuda` run the emulated kernels on CPU tensors."""
+    :mod:`.ops.moments_cuda` and :mod:`.ops.mbar_cuda` run the emulated
+    kernels on CPU tensors, and MBAR's solve routes CPU tensors to its
+    kernel (:func:`.ops.mbar_cuda.kernel_device`)."""
     lib = library()
-    saved = _build.library, moments_cuda._stream_ptr
+    saved = _build.library, moments_cuda._stream_ptr, mbar_cuda.kernel_device
     _build.library = lambda: lib
     moments_cuda._stream_ptr = lambda device: None
+    mbar_cuda.kernel_device = lambda t: t.device.type == "cpu"
     try:
         yield lib
     finally:
-        _build.library, moments_cuda._stream_ptr = saved
+        _build.library, moments_cuda._stream_ptr, mbar_cuda.kernel_device = saved

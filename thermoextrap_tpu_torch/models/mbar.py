@@ -19,8 +19,10 @@ Every sample-axis reduction is a ``torch.logsumexp`` or a sum over the last
 axis of ``(..., K, N)`` blocks on ``u_kn``'s device; masked samples carry
 ``log_sample_weight = -inf`` (``logsumexp`` of an all ``-inf`` row is
 ``-inf``, as in ``jax.scipy``); on CUDA tensors the α grid
-(:func:`mbar_expectations_alphas`) is one hand-written kernel instead
-(:mod:`..ops.mbar_cuda`).  The solver core and the grid take an
+(:func:`mbar_expectations_alphas`) is one hand-written kernel instead, and
+so is :func:`mbar_solve_info`'s hybrid solve of up to
+:data:`..ops.mbar_cuda.SOLVE_MAX_K` states in float32 or float64: a pass
+over ``u_kn`` an iteration (:mod:`..ops.mbar_cuda`).  The solver core and the grid take an
 optional process group, over whose ranks the samples are sharded
 (:mod:`..parallel.sharded`): each such reduction then all-reduces its
 partial sums, a log-sum-exp as the MAX of the local maxima and the SUM of
@@ -47,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from ..data import _as_tensor
+from ..ops import mbar_cuda
 from ..ops.mbar_cuda import mbar_alphas_cuda
 from ..ops.resample import poisson1_freq
 from ..utils import trace
@@ -237,6 +240,33 @@ def _solve(u_kn, log_n_k, logm, tol: float, max_iter: int, method: str, group=No
     return f, it, res
 
 
+def _takes_kernel(u_kn, k: int, method: str) -> bool:
+    """Whether :func:`mbar_solve_info` runs on :mod:`..ops.mbar_cuda`'s
+    kernel: a hybrid problem of 2 to ``SOLVE_MAX_K`` states in float32 or
+    float64 on the kernels' device.  ``method="sci"``, more states, other
+    types and CPU tensors keep :func:`_solve`, as do the bootstrap's batch
+    and the sharded solve, which call it directly."""
+    return (
+        method == "hybrid"
+        and 2 <= k <= mbar_cuda.SOLVE_MAX_K
+        and u_kn.dtype in (torch.float32, torch.float64)
+        and mbar_cuda.kernel_device(u_kn)
+    )
+
+
+def _solve_kernel(u_kn, log_n_k, lsw, tol: float, max_iter: int):
+    """:func:`_solve`'s hybrid loop for one problem as the kernel runs it,
+    ``log_n_k (K,)``, ``lsw (N,)`` or None: an opening pass at ``f = 0``,
+    then one pass over ``u_kn`` an iteration (the same candidates, choice
+    and stopping rule), with one host read of the card's "go on" flag each.
+    Returns ``(f (K,), n_iter, residual)``, the last two 0-d tensors."""
+    sv = mbar_cuda.MbarSolve(u_kn, log_n_k, tol, max_iter, lsw)
+    while host_item(sv.active):  # one host read per iteration
+        sv.step()
+        MBAR_ITERS["n"] += 1
+    return sv.f, sv.n_iter, sv.res
+
+
 def _hybrid_step(f, ld, u_kn, log_n_k, logm=None, group=None):
     """One hybrid iteration from ``f (..., K)`` and its log denominator
     ``ld (..., N)``: the self-consistent and the Newton candidate, and of the
@@ -282,14 +312,21 @@ def mbar_solve_info(u_kn, n_k, tol: float | None = None, max_iter: int = 10000, 
     ``log_sample_weight (N,)``: a per-sample log weight added to every
     sample-axis reduction; ``-inf`` drops a sample (the mixture denominator
     still uses the given ``n_k``).
+
+    On the kernels' device (CUDA) a hybrid solve of 2 to
+    :data:`..ops.mbar_cuda.SOLVE_MAX_K` states in float32 or float64 runs
+    as one kernel pass over ``u_kn`` an iteration (:func:`_takes_kernel`).
     """
     u_kn = _tensor(u_kn)
     log_n_k = torch.log(_tensor(n_k, u_kn.device, u_kn.dtype))
-    logm = None if log_sample_weight is None else _tensor(log_sample_weight, u_kn.device, u_kn.dtype)[None]
+    lsw = None if log_sample_weight is None else _tensor(log_sample_weight, u_kn.device, u_kn.dtype)
     if tol is None:
         tol = 1e-12 if u_kn.dtype == torch.float64 else 1e-5
-    f, it, res = _solve(u_kn, log_n_k[None], logm, tol, max_iter, method)
-    return f[0], int(host_item(it[0])), res[0]
+    if _takes_kernel(u_kn, log_n_k.shape[0], method):
+        f, it, res = _solve_kernel(u_kn, log_n_k, lsw, tol, max_iter)
+    else:
+        f, it, res = (t[0] for t in _solve(u_kn, log_n_k[None], None if lsw is None else lsw[None], tol, max_iter, method))
+    return f, int(host_item(it)), res
 
 
 def _prep(u_kn, n_k, f_k):

@@ -70,6 +70,8 @@ _SIGNATURES = {
     ),
     "tx_mbar_alphas": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P], _I),
     "tx_mbar_alphas_blocks": ([_I, _I, _I, _P], _I),
+    "tx_mbar_solve": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, ctypes.c_double, _LL, _I, _I, _P], _I),
+    "tx_mbar_solve_blocks": ([_I, _I, _I, _P], _I),
 }
 
 

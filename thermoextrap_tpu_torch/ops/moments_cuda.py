@@ -118,6 +118,7 @@ LAUNCHES = trace.register("launches", {
     "finalize_u": 0,  # of the K4 / K5 wrappers
     "comoment_mma": 0,  # K2 / K3 calls on the few-rows tensor-core kernel
     "mbar_alphas": 0,  # MBAR's α grid (csrc/mbar_alphas.cu, ops/mbar_cuda.py)
+    "mbar_solve": 0,  # passes of MBAR's solve over u_kn (csrc/mbar_solve.cu, ops/mbar_cuda.py)
 })
 
 _REDUCE_THREADS = 256  # TX_REDUCE_THREADS of comoments_reduce.cu (K1, K4, K6)
