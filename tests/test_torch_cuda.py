@@ -1411,6 +1411,34 @@ def test_gpr_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
     assert float((var.cpu() - cvar).abs().max()) <= 1e-8 * card.parameters()["kernel/var"]
 
 
+def test_gpr_fit_replays_one_graph_with_the_eager_numbers(cuda_device, monkeypatch):
+    """On the card a fit replays its objective from one CUDA graph, captured
+    once for the objective and its operands' shapes: a second fit of the
+    same shapes on other data captures nothing new.  Each fit takes the same
+    steps as the eager objective's, to the last bit of its parameters, its
+    value and its evaluation count."""
+    from thermoextrap_tpu_torch.gpr_active import gp_models, kernels
+    from thermoextrap_tpu_torch.utils import device as tdevice
+
+    monkeypatch.setattr(tdevice, "_DEVICE", cuda_device)
+    monkeypatch.setattr(gp_models, "_GRAPHS", type(gp_models._GRAPHS)())
+    captures = []
+    real = gp_models._capture
+    monkeypatch.setattr(gp_models, "_capture", lambda *a: captures.append(a) or real(*a))
+    x, y, cov = _gpr_sine_data()
+    sets = [(x, y, cov), (x, 1.5 * y + 0.1, 2.0 * cov)]
+    graphed = [
+        gp_models.HeteroscedasticGPR(d, kernel=kernels.RBFDerivKernel(), likelihood_kwargs={"p": 1.0}).train()
+        for d in sets
+    ]
+    assert len(captures) == 1 and list(gp_models._GRAPHS.values())[0] is not None
+    monkeypatch.setattr(gp_models, "_graphed_objective", lambda *a, **k: None)
+    for d, res in zip(sets, graphed):
+        eres = gp_models.HeteroscedasticGPR(d, kernel=kernels.RBFDerivKernel(), likelihood_kwargs={"p": 1.0}).train()
+        assert res.nfev == eres.nfev and res.fun == eres.fun
+        np.testing.assert_array_equal(res.x, eres.x)
+
+
 def test_gpr_staging_launches_k1_and_k2(cuda_device, monkeypatch):
     """An ideal-gas state made on the card reduces through K1 and its
     bootstrap through K2, once each, in ``input_GP_from_state``."""

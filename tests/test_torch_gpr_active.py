@@ -23,6 +23,7 @@ import pytest
 import sympy as sp
 import torch
 from _torch_parity import npy
+from torch.profiler import profile
 
 import thermoextrap_tpu as jx
 import thermoextrap_tpu_torch as tx
@@ -35,7 +36,7 @@ from thermoextrap_tpu_torch import pipeline as tpipe
 from thermoextrap_tpu_torch import stack
 from thermoextrap_tpu_torch.gpr_active import active_utils as au
 from thermoextrap_tpu_torch.gpr_active import gp_models, ig_active, kernels
-from thermoextrap_tpu_torch.utils import compute
+from thermoextrap_tpu_torch.utils import compute, trace
 
 NCONF, NPART = 2_000, 200
 
@@ -292,6 +293,115 @@ def test_datawrapper_uses_fastloader(tmp_path, rng_np):
     state = dw.build_state(max_order=2)
     assert state.order == 2
     assert np.isfinite(npy(state.derivs())).all()
+
+
+# -- the bootstrap tables' stream, the spans and the evaluation counter ---------------------
+
+
+def _ig_states(betas=(0.8, 1.6), nconfig=1000, npart=100):
+    return [ig_active.extrap_IG(b, rng=i, nconfig=nconfig, npart=npart) for i, b in enumerate(betas)]
+
+
+def _staged_by_create_GPR(monkeypatch, states, **kws):
+    """``create_GPR``'s stacked ``(x, y, noise_cov)``, its fit left out."""
+    seen = []
+    real = au.create_base_GP_model
+    monkeypatch.setattr(au, "create_base_GP_model", lambda data, **k: seen.append(data) or real(data, **k))
+    monkeypatch.setattr(au, "train_GPR", lambda *a, **k: None)
+    au.create_GPR(states, **kws)
+    return seen[0]
+
+
+def test_input_GP_from_state_rng_draws_the_table():
+    """An equal seed or an equally seeded generator gives equal inputs, and
+    another seed another table; None gives the default seed's table, the
+    staging's numbers before ``rng`` existed."""
+    (state,) = _ig_states((1.3,))
+    x, y, cov = au.input_GP_from_state(state, n_rep=20, rng=5)
+    _, y5, cov5 = au.input_GP_from_state(state, n_rep=20, rng=torch.Generator().manual_seed(5))
+    np.testing.assert_array_equal(cov, cov5)
+    np.testing.assert_array_equal(y, y5)
+    _, y6, cov6 = au.input_GP_from_state(state, n_rep=20, rng=6)
+    np.testing.assert_array_equal(y, y6)  # the derivatives do not resample
+    assert not np.allclose(cov, cov6)
+    _, _, cov_none = au.input_GP_from_state(state, n_rep=20)
+    old = npy(state.resample({"nrep": 20}).derivs())[:, :, 0]
+    np.testing.assert_array_equal(cov_none[0], np.cov(old))
+
+
+def test_create_GPR_draws_each_states_table_in_turn(monkeypatch):
+    """``rng`` is one stream: state ``k``'s table is its ``k``-th draw, so
+    the states' tables differ; with None every state draws the default
+    seed's table."""
+    states = _ig_states((0.8, 0.8))  # two states of one sampling seed...
+    states[1] = tbeta.factory_extrapmodel(0.8, states[0].data)  # ...and the same samples
+    _, _, cov = _staged_by_create_GPR(monkeypatch, states, rng=11)
+    assert not np.allclose(cov[0, :4, :4], cov[0, 4:, 4:])
+    gen = torch.Generator().manual_seed(11)
+    for k in range(2):
+        np.testing.assert_array_equal(cov[0, 4 * k : 4 * k + 4, 4 * k : 4 * k + 4], au.input_GP_from_state(states[k], rng=gen)[2][0])
+    _, _, same = _staged_by_create_GPR(monkeypatch, states, rng=11)
+    np.testing.assert_array_equal(cov, same)
+    _, _, cov_none = _staged_by_create_GPR(monkeypatch, states)
+    np.testing.assert_array_equal(cov_none[0, :4, :4], cov_none[0, 4:, 4:])
+
+
+def test_make_gpr_pipeline_forwards_rng():
+    states = _ig_states()
+    alphas = np.linspace(0.8, 1.6, 5)
+    a = tpipe.make_gpr_pipeline(states, rng=3)[1](alphas)
+    b = tpipe.make_gpr_pipeline(states, rng=torch.Generator().manual_seed(3))[1](alphas)
+    c = tpipe.make_gpr_pipeline(states, rng=4)[1](alphas)
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+    assert not np.allclose(a[1], c[1])
+
+
+def test_make_gpr_pipeline_spans_and_counter():
+    """Under a profiler, training is the call ``te.gpr.train`` with the
+    stages ``te.gpr.inputs`` and ``te.gpr.fit``, and a prediction the call
+    ``te.gpr.predict``; ``gpr_lml_evals`` counts the fit's evaluations, its
+    ``nfev`` and the start and final ones."""
+    assert trace.COUNTERS["gpr_lml_evals"] is gp_models.GPR_LML_EVALS
+    states = _ig_states()
+    with profile() as prof:
+        _gpr, predict = tpipe.make_gpr_pipeline(states, rng=3)
+        predict(np.linspace(0.8, 1.6, 5))
+    train, pred = trace.calls()[-2:]
+    assert (train["name"], pred["name"]) == ("te.gpr.train", "te.gpr.predict")
+    stages = [s[2] for s in train["spans"] if s[1] == "te.gpr.train"]
+    assert stages.count("te.gpr.inputs") == 1 and stages.count("te.gpr.fit") == 1
+    assert train["counters"]["gpr_lml_evals"]["n"] >= 3 and pred["counters"]["gpr_lml_evals"]["n"] == 0
+    names = {e.name for e in prof.events()}
+    assert {"te.gpr.train", "te.gpr.inputs", "te.gpr.fit", "te.gpr.predict"} <= names
+
+    gpr = au.create_GPR(states, rng=3)
+    gpr.set_parameters({"kernel/l": 1.0, "kernel/var": 1.0, "likelihood/p": 10.0})
+    before = gp_models.GPR_LML_EVALS["n"]
+    res = gpr.train()
+    assert res.nfev >= 2 and gp_models.GPR_LML_EVALS["n"] - before == res.nfev + 2
+
+
+def test_constant_partials_fill_the_kernel_matrix():
+    """A sympy kernel whose partials include plain numbers (``var x1 x2 +
+    1``: those of order 2 are 0) gives the closed form's matrix and
+    diagonal, each number filled in the locations' dtype (on their device,
+    so that a fit on the card can be captured)."""
+    x1, x2, var = sp.symbols("x1 x2 var", real=True)
+    kern = gp_models.DerivativeKernel(var * x1 * x2 + 1, 1, kernel_params={"var": 2.0})
+    locs = np.array([0.3, -1.2, 2.0])
+    X = np.vstack([np.column_stack([locs, np.full(3, d)]) for d in (0, 1, 2)])
+    a, d = X[:, 0], X[:, 1]
+    da, db = d[:, None], d[None, :]
+    want = np.select(
+        [(da == 0) & (db == 0), (da == 1) & (db == 0), (da == 0) & (db == 1), (da == 1) & (db == 1)],
+        [2.0 * a[:, None] * a[None, :] + 1.0, np.broadcast_to(2.0 * a[None, :], (9, 9)), np.broadcast_to(2.0 * a[:, None], (9, 9)), np.full((9, 9), 2.0)],
+        default=0.0,
+    )
+    got, diag = kern.K(X), kern.K_diag(X)
+    assert got.dtype == diag.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(diag.numpy(), np.diag(want))
 
 
 # -- the GPR path without sympy, import parity, the compute device --------------------------

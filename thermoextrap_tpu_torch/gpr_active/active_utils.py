@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models.extrap import ExtrapModel
+from ..utils import trace
 from ..utils.device import host_numpy
 from ..utils.random import validate_rng
 from .gp_models import (
@@ -136,9 +137,13 @@ def _stirling2(n: int, k: int) -> int:
     return k * _stirling2(n - 1, k) + _stirling2(n - 1, k - 1)
 
 
-def input_GP_from_state(state: ExtrapModel, n_rep: int = 100, log_scale: bool = False):  # noqa: N802
+def input_GP_from_state(state: ExtrapModel, n_rep: int = 100, log_scale: bool = False, rng=None):  # noqa: N802
     """Assemble GP input (X, Y, per-dim bootstrap covariance) from an
     extrapolation state, as numpy float64.
+
+    ``rng`` (a ``torch.Generator``, an integer seed or None) draws the
+    bootstrap's index table of a values-backed state; None draws it from the
+    package's fixed default seed, so every such state gets the same table.
 
     Returns ``x_data (order+1, 2)``, ``y_data (order+1, Dy)``,
     ``cov_data (Dy, order+1, order+1)``.
@@ -156,7 +161,7 @@ def input_GP_from_state(state: ExtrapModel, n_rep: int = 100, log_scale: bool = 
     has_rep = np.ndim(uv) > 1 if uv is not None else np.ndim(getattr(state.data, "wsum", 0.0)) >= 1
     if uv is not None and not has_rep:
         # values-backed data: bootstrap replicates through the count table
-        boot = host_numpy(state.resample({"nrep": n_rep}).derivs())
+        boot = host_numpy(state.resample({"nrep": n_rep, "rng": rng}).derivs())
     elif has_rep and derivs.ndim >= 2:
         # data already carries a replicate batch axis (axis 1 of derivs)
         boot = derivs
@@ -433,28 +438,39 @@ def create_GPR(  # noqa: N802 - reference name
     start_params=None,
     base_kwargs=None,
     on_device: bool = False,
+    rng=None,
 ):
     """Stack states into block-diagonal-noise GP data, build, and train.
     ``on_device=True`` trains in float32 via the log-whitened LML (see
-    :func:`train_GPR`)."""
+    :func:`train_GPR`).  ``rng`` (a ``torch.Generator`` or an integer seed)
+    is one stream that the states' bootstrap tables are drawn from in turn;
+    None gives each state the default seed's table
+    (:func:`input_GP_from_state`).
+
+    The stages are the spans ``te.gpr.inputs`` (the states' derivatives,
+    bootstraps and covariances, and the block-diagonal noise) and
+    ``te.gpr.fit`` (:func:`train_GPR`)."""
     from scipy import linalg
 
-    x_data, y_data, cov_data = [], [], []
-    for s in state_list:
-        if isinstance(s, ExtrapModel):
-            xd, yd, cd = input_GP_from_state(s, log_scale=log_scale)
-        else:
-            xd, yd, cd = s()
-        x_data.append(xd)
-        y_data.append(yd)
-        cov_data.append(cd)
+    rng = None if rng is None else validate_rng(rng)
+    with trace.span("te.gpr.inputs"):
+        x_data, y_data, cov_data = [], [], []
+        for s in state_list:
+            if isinstance(s, ExtrapModel):
+                xd, yd, cd = input_GP_from_state(s, log_scale=log_scale, rng=rng)
+            else:
+                xd, yd, cd = s()
+            x_data.append(xd)
+            y_data.append(yd)
+            cov_data.append(cd)
 
-    x_data = np.vstack(x_data)
-    y_data = np.vstack(y_data)
-    noise_cov = np.array([linalg.block_diag(*[cov[k] for cov in cov_data]) for k in range(y_data.shape[1])])
+        x_data = np.vstack(x_data)
+        y_data = np.vstack(y_data)
+        noise_cov = np.array([linalg.block_diag(*[cov[k] for cov in cov_data]) for k in range(y_data.shape[1])])
 
     gpr = create_base_GP_model((x_data, y_data, noise_cov), **(base_kwargs or {}))
-    train_GPR(gpr, start_params=start_params, on_device=on_device)
+    with trace.span("te.gpr.fit"):
+        train_GPR(gpr, start_params=start_params, on_device=on_device)
     return gpr
 
 

@@ -24,7 +24,9 @@ Counterpart of ``thermoextrap_tpu/gpr_active/gp_models.py``:
   on the device, with no host read.
 - **Training** is scipy's L-BFGS-B on the host over the few unconstrained
   parameters, as in the reference; each evaluation runs the objective and
-  its gradient on the GPR device and reads both back in one copy.
+  its gradient on the GPR device and reads both back in one copy.  The
+  counter ``gpr_lml_evals`` (:data:`GPR_LML_EVALS`, held in
+  :data:`..utils.trace.COUNTERS`) gains one an evaluation.
 - The positive transform is ``logaddexp(x, 0) + 1e-6``
   (``torch.nn.functional.softplus`` switches to the identity above 20 and
   would differ).
@@ -33,12 +35,14 @@ Counterpart of ``thermoextrap_tpu/gpr_active/gp_models.py``:
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.compute import compute_device
 from ..utils.device import host_numpy
 
@@ -58,6 +62,9 @@ __all__ = [
 ]
 
 _F64 = torch.float64
+# objective-and-gradient evaluations of TrainableGPModel.train, the start and
+# final ones included
+GPR_LML_EVALS = trace.register("gpr_lml_evals", {"n": 0})
 _SOFTPLUS_SHIFT = 1e-6  # gpflow positive() lower bound
 _NO_SYMPY = (
     "sympy is not installed, and this kernel or mean function is a sympy "
@@ -127,9 +134,12 @@ def _group_order_rows(d):
 
 def _full(vals, shape, like):
     """A pair function's value as a tensor of ``shape`` (a derivative that is
-    constant in the locations lambdifies to a number or a 0-d tensor)."""
+    constant in the locations lambdifies to a number or a 0-d tensor).  A
+    number is filled on ``like``'s device, not copied from the host, so that
+    a CUDA graph of the objective (:func:`_graphed_objective`) can capture
+    it."""
     if not isinstance(vals, torch.Tensor):
-        vals = torch.as_tensor(vals, dtype=like.dtype, device=like.device)
+        return torch.full(shape, float(vals), dtype=like.dtype, device=like.device)
     return torch.broadcast_to(vals, shape)
 
 
@@ -692,6 +702,62 @@ def _build_predict_fn(
 # ---------------------------------------------------------------------------
 
 
+# captured objectives, the most recent last: (objective, device, dtype, the
+# operands' shapes and dtypes) -> (graph, input, operands, output)
+_GRAPHS: OrderedDict = OrderedDict()
+_GRAPHS_KEPT = 8
+
+
+def _capture(val_and_grad, bound, x0, dtype, device):
+    static_in = torch.as_tensor(x0, device=device).to(dtype)
+    static_bound = tuple(b.clone() for b in bound)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        val_and_grad(static_in, *static_bound)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        v, g = val_and_grad(static_in, *static_bound)
+        static_out = torch.cat([v.reshape(1), g]).double()
+    return graph, static_in, static_bound, static_out
+
+
+def _graphed_objective(val_and_grad, bound, x0, dtype, device):
+    """``replay(x) -> numpy (value, *gradient)``: ``val_and_grad`` at ``x``
+    replayed from one CUDA graph.  An objective that cannot be captured (one
+    that reads the host or copies from it) raises here: a fit on the card
+    has no eager route.
+
+    An eager evaluation on the card launches ~240 small kernels, each with
+    its Python dispatch, so the host sets the pace; a replay launches them
+    at once and the evaluation reads back its value and gradient, as the
+    eager one does.  The graph holds the same kernels on the same inputs, so
+    it gives the same numbers.  One eager evaluation on a side stream warms
+    the libraries' handles and workspaces first, as capture requires.
+
+    A graph is captured once for an objective and its operands' shapes, and
+    the last ``_GRAPHS_KEPT`` are kept: a later fit of the same shapes copies
+    its operands into the graph's and replays it, so it neither captures nor
+    allocates device memory."""
+    key = (val_and_grad, device, dtype, tuple((tuple(b.shape), b.dtype) for b in bound))
+    if key not in _GRAPHS:
+        _GRAPHS[key] = _capture(val_and_grad, bound, x0, dtype, device)
+        while len(_GRAPHS) > _GRAPHS_KEPT:
+            _GRAPHS.popitem(last=False)
+    _GRAPHS.move_to_end(key)
+    graph, static_in, static_bound, static_out = _GRAPHS[key]
+    for s, b in zip(static_bound, bound):
+        s.copy_(b)
+
+    def replay(x):
+        static_in.copy_(torch.as_tensor(np.asarray(x, dtype=np.float64)).to(dtype))
+        graph.replay()
+        return host_numpy(static_out)  # one read
+
+    return replay
+
+
 class TrainableGPModel:
     """Parameter plumbing + L-BFGS training over a neg-LML core.
 
@@ -780,8 +846,10 @@ class TrainableGPModel:
         ``on_device=True`` takes the float32 log-space-whitened LML
         (``lml_logw`` — the only float32-representable form: the plain cast
         overflows on the order-scaled noise diagonal).  Each evaluation reads
-        the value and the gradient back in one copy.  ``tol`` is accepted for
-        the reference's signature and not used, as there.
+        the value and the gradient back in one copy; on a CUDA device it is
+        replayed from one CUDA graph of the objective, captured once for its shapes
+        (:func:`_graphed_objective`).  ``tol`` is accepted for the
+        reference's signature and not used, as there.
         """
         from scipy import optimize
 
@@ -801,10 +869,16 @@ class TrainableGPModel:
             val_and_grad, dtype = fns["neg_vag"], _F64
         bound = tuple(b.to(dtype) if b.is_floating_point() else b for b in self._bound_args())
         device = compute_device()
+        x0 = host_numpy(self.get_unconstrained()).astype(np.float64)
+        replay = _graphed_objective(val_and_grad, bound, x0, dtype, device) if device.type == "cuda" else None
 
         def fun(x):
-            v, g = val_and_grad(torch.as_tensor(x, device=device).to(dtype), *bound)
-            both = host_numpy(torch.cat([v.reshape(1), g]).double())  # one read
+            GPR_LML_EVALS["n"] += 1
+            if replay is not None:
+                both = replay(x)
+            else:
+                v, g = val_and_grad(torch.as_tensor(x, device=device).to(dtype), *bound)
+                both = host_numpy(torch.cat([v.reshape(1), g]).double())  # one read
             v, g = float(both[0]), both[1:]
             if not np.isfinite(v) or not np.all(np.isfinite(g)):
                 # Cholesky failure region: large finite value, zero grad so
@@ -812,7 +886,6 @@ class TrainableGPModel:
                 return 1e12, np.zeros_like(g)
             return v, g
 
-        x0 = host_numpy(self.get_unconstrained()).astype(np.float64)
         f0, _ = fun(x0)
         res = optimize.minimize(fun, x0, jac=True, method="L-BFGS-B", options={"maxiter": max_iter})
         f_final, _ = fun(np.asarray(res.x, dtype=np.float64))

@@ -98,8 +98,11 @@ def _rbf_hermite(x1, a, x2, b, ell, var, nmax: int):
 
 def _orders(groups, gid, dtype):
     """Each row's derivative order (1-D kernels) from its group id, in the
-    locations' dtype (so a float32 block stays float32)."""
-    table = torch.tensor([g[0] for g in groups], dtype=dtype, device=gid.device)
+    locations' dtype (so a float32 block stays float32).  The table is
+    filled on the device, not copied from the host, so that a CUDA graph of
+    the objective (:meth:`~.gp_models.TrainableGPModel.train`) can capture
+    it."""
+    table = torch.stack([torch.full((), float(g[0]), dtype=dtype, device=gid.device) for g in groups])
     return table[gid]
 
 

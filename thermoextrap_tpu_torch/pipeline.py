@@ -1376,6 +1376,7 @@ def make_gpr_pipeline(
     start_params=None,
     orders=(0,),
     bucket: int = 64,
+    rng=None,
 ):
     """Train a derivative-informed GPR on extrapolation states and return
     ``(gpr, predict)``, a posterior serving closure.
@@ -1397,6 +1398,10 @@ def make_gpr_pipeline(
         applies the same location transform, and its outputs stay in the
         transformed y-space.
     base_kwargs, start_params : forwarded to ``create_GPR``.
+    rng : ``torch.Generator``, integer seed or None, forwarded to
+        ``create_GPR``: the one stream the states' bootstrap index tables
+        are drawn from, in turn (None: each state's table from the default
+        seed).
     orders : derivative orders ``predict`` may be asked for (order 0 = the
         observable itself).
     bucket : the JAX package's query-grid quantum, checked and not used.
@@ -1404,7 +1409,9 @@ def make_gpr_pipeline(
     Returns
     -------
     ``(gpr, predict)`` with ``predict(alphas, order=0) -> (mean, var)``,
-    each ``(len(alphas), out_dim)`` float64 numpy arrays.
+    each ``(len(alphas), out_dim)`` float64 numpy arrays.  The training is
+    the call span ``te.gpr.train`` (stages ``te.gpr.inputs`` and
+    ``te.gpr.fit``), and each ``predict`` the call span ``te.gpr.predict``.
     """
     import numpy as np
 
@@ -1414,21 +1421,23 @@ def make_gpr_pipeline(
         msg = f"bucket must be a positive integer, got {bucket!r}"
         raise ValueError(msg)
     orders = tuple(int(o) for o in orders)
-    gpr = create_GPR(list(states), log_scale=log_scale, start_params=start_params, base_kwargs=base_kwargs)
+    with call("te.gpr.train"):
+        gpr = create_GPR(list(states), log_scale=log_scale, start_params=start_params, base_kwargs=base_kwargs, rng=rng)
 
     def predict(alphas, order: int = 0):
         if order not in orders:
             msg = f"{order=} not in the pipeline's static {orders=}"
             raise ValueError(msg)
-        locs = np.atleast_1d(np.asarray(host_numpy(alphas), dtype=np.float64))
-        if locs.shape[0] == 0:
-            empty = np.zeros((0, int(gpr.out_dim)), dtype=np.float64)
-            return empty, empty.copy()
-        if log_scale:
-            locs = np.log10(locs)
-        x_new = np.column_stack([locs, np.full(locs.shape[0], order, np.float64)])
-        mean, var = gpr.predict_f(x_new)
-        return host_numpy(mean), host_numpy(var)
+        with call("te.gpr.predict"):
+            locs = np.atleast_1d(np.asarray(host_numpy(alphas), dtype=np.float64))
+            if locs.shape[0] == 0:
+                empty = np.zeros((0, int(gpr.out_dim)), dtype=np.float64)
+                return empty, empty.copy()
+            if log_scale:
+                locs = np.log10(locs)
+            x_new = np.column_stack([locs, np.full(locs.shape[0], order, np.float64)])
+            mean, var = gpr.predict_f(x_new)
+            return host_numpy(mean), host_numpy(var)
 
     return gpr, predict
 

@@ -26,6 +26,8 @@ name                                   kind   covers
 ``te.stream.update``,                  call   ``make_streaming_extrap_pipeline``'s ``update``
 ``te.stream.predict``                         and ``predict``
 ``te.mbar``                            call   ``models.extrap.MBARModel.predict``
+``te.gpr.train``                       call   ``make_gpr_pipeline``'s training (``create_GPR``)
+``te.gpr.predict``                     call   ``make_gpr_pipeline``'s ``predict``
 ``te.reduce``                          stage  ``ops.dispatch.reduce_central`` / ``reduce_central_u``
 ``te.boot``                            stage  the K3 / K5 bootstrap, or the CPU route's table one
 ``te.coefs``                           stage  the float64 casts and the series coefficients
@@ -34,6 +36,9 @@ name                                   kind   covers
 ``te.mbar.pool``                       stage  the stacking of the states' samples, the α copies
 ``te.mbar.solve``                      stage  ``u_kn`` and ``models.mbar.mbar_solve``
 ``te.mbar.grid``                       stage  ``models.mbar.mbar_expectations_alphas``
+``te.gpr.inputs``                      stage  every state's derivatives, bootstrap and covariance,
+                                              and the block-diagonal noise (``create_GPR``)
+``te.gpr.fit``                         stage  ``gpr_active.active_utils.train_GPR``
 ``te.sync``                            stage  a host wait counted in ``host_syncs``
 =====================================  =====  =================================================
 
@@ -42,8 +47,11 @@ name                                   kind   covers
 (``utils.device.HOST_READS``), ``host_syncs``
 (``utils.device.HOST_SYNCS``: each point where the program makes the host
 wait on the card, a read back or a blocking copy of host data onto a CUDA
-device) and, once ``models.mbar`` is imported, ``mbar_iters``
-(``models.mbar.MBAR_ITERS``: the MBAR solver's iterations).  A logged call
+device), once ``models.mbar`` is imported, ``mbar_iters``
+(``models.mbar.MBAR_ITERS``: the MBAR solver's iterations) and, once
+``gpr_active.gp_models`` is imported, ``gpr_lml_evals``
+(``gpr_active.gp_models.GPR_LML_EVALS``: the objective-and-gradient
+evaluations of ``TrainableGPModel.train``).  A logged call
 carries the deltas of every counter over it.
 
 >>> from torch.profiler import profile
